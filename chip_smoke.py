@@ -5,23 +5,44 @@
 
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit, torch and CUDA versions, TF32 flags;
-  2. build: compile every kernel of the main path from samd_tpu_torch/csrc;
+  2. build: compile every kernel from samd_tpu_torch/csrc, one nvcc per
+     source, all started together; print nvcc's seconds and ptxas's
+     register and spill lines;
   3. kernels: hold each kernel against its plain PyTorch version on the card
-     at the main path's shapes (and a 7B-class shape), check that poison past
-     kv_limit changes nothing and that two runs are bitwise equal, and time
-     the kernel, the plain version and one PyTorch library call;
-  4. main path: greedy FusedSamEngine on llama_1b at full width (bf16,
-     random weights from torch.Generator seed 0) answers three requests of
-     128 new tokens; each request's tokens must equal
-     ArBaseline(block_size=60)'s bit for bit, and the launch counters must
-     show that every forward went through the kernel.
+     at the main paths' shapes, check that two runs are bitwise equal, and
+     time the kernel, the plain version and one PyTorch library call beside
+     the least time the card could take:
+     a. the verify attention, k/v of q's type, at llama_1b and llama_7b
+        shapes; poison past kv_limit must change nothing;
+     b. its int8-KV mode at llama_7b decode shapes and one llama_1b shape;
+        int8 bytes of 127 and scales of 1e30 past kv_limit change nothing;
+     c. the int4 matmul at every llama_7b projection and head shape, at 16
+        and 128 rows; row invariance: a row alone, or placed at another row
+        of another block, gives the same bits;
+  4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
+     weights from torch.Generator seed 0) answers three requests of 128 new
+     tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
+     forward went through the verify kernel;
+  5. llama_7b path: llama_7b at full width with packed-int4 weights
+     (requantized from an int8 base drawn on the card from seed 0) and an
+     int8 KV cache, FusedSamConfig(n_predicts=15, corpus_capacity=4096,
+     cache_buckets=(256, 384, 512, 768)) over max_cache_len 1024, answers
+     three requests of 128 new tokens, each equal to
+     ArBaseline(block_size=16)'s bit for bit; every forward went through the
+     int4 kernel (225 launches) and, at T <= 128, the int8-KV verify kernel
+     (32 launches).  Before it, a prefill of request (a)'s 200-token prompt
+     (bucket 256, through the plain attention) into a 384-slot and a
+     1024-slot cache must agree bitwise.
 Then a JSON line of kernels, the nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -31,10 +52,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # f32 outside the tensor cores
-# Kernel vs plain version is held per element to
-# ops.flash_attention.kernel_tolerance: 1e-4 in f32 (another summation
-# order); in bf16, one rounding of the output, 2^-7 |ref|, over a floor of
-# two bf16 ulps of max |ref| (3.9e-3 when max |ref| lies in [0.25, 0.5)).
+L2_BYTES = 50 << 20                       # H100 L2 cache
+# Kernel vs plain version is held per element:
+#  - verify attention (both modes): ops.flash_attention.kernel_tolerance —
+#    1e-4 in f32 (another summation order); in bf16, one rounding of the
+#    output, 2^-7 |ref|, over a floor of two bf16 ulps of max |ref|;
+#  - int4 matmul: ops.int4_matmul.kernel_tolerance — twice the f32
+#    summation-order bound (in + 2) 2^-24 (|x| @ |q-8|) scale, plus one
+#    rounding of a bf16 output, 2^-7 (1.01 |ref| + that bound).
 
 
 def nvidia_smi() -> str:
@@ -45,19 +70,33 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    for i in range(warmup):
+        fn(i)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(i)
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    """The least time for this work: bytes over the memory rate against
+    operations over the peak rate for their type; (ms, which bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fail_if(cond: bool, msg: str) -> None:
+    if cond:
+        raise SystemExit(msg)
 
 
 def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False):
@@ -84,17 +123,15 @@ def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False):
     return q, k, v, mask, kv_limit
 
 
-def attention_bound(T, NH, KH, D, kv_limit, dtype_name):
-    """Least time for the work this input needs: each input byte read once
-    (q, the live K/V, the mask's boundary window, kv_limit), the output
-    written once, against the operations of both products."""
+def attention_bound(T, NH, KH, D, kv_limit, dtype_name, kv_bytes=None):
+    """Each input byte read once (q, the live K/V and, in int8 mode, their
+    scales, the mask's boundary window, kv_limit), the output written once,
+    against the operations of both products."""
     isz = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (T * NH * D * isz + 2 * kv_limit * KH * D * isz
-              + T * min(T, kv_limit) + 4 + T * NH * D * isz)
-    flops = 4 * NH * T * D * kv_limit
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    kvb = kv_bytes if kv_bytes is not None else 2 * kv_limit * KH * D * isz
+    nbytes = (T * NH * D * isz + kvb + T * min(T, kv_limit) + 4
+              + T * NH * D * isz)
+    return bound(nbytes, 4 * NH * T * D * kv_limit, dtype_name)
 
 
 def library_attention(q, k, v, mask, kv_limit):
@@ -104,7 +141,7 @@ def library_attention(q, k, v, mask, kv_limit):
     import torch.nn.functional as F
 
     _, T, NH, D = q.shape
-    KH, S = k.shape[1], k.shape[2]
+    KH = k.shape[1]
     lim = int(kv_limit)
     col = torch.arange(lim, device=q.device)
     allowed = (col < lim - T) | mask[0, :, :lim]
@@ -112,10 +149,28 @@ def library_attention(q, k, v, mask, kv_limit):
     kl = k[:, :, :lim].repeat_interleave(NH // KH, dim=1)
     vl = v[:, :, :lim].repeat_interleave(NH // KH, dim=1)
     m = allowed[None, None]
-    return lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
+    return lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
+
+
+def check_close(label, got, ref, tol, again=None):
+    """Fail unless got is finite, within tol of ref per element and, when
+    given, bitwise equal to a second run; returns max |got - ref|."""
+    import torch
+
+    diff = (got.float() - ref.float()).abs()
+    fail_if(not torch.isfinite(got).all(), f"{label}: non-finite output")
+    if (diff > tol).any():
+        i = int(torch.argmax(diff - tol))
+        raise SystemExit(f"{label}: |kernel - plain| {diff.flatten()[i].item()}"
+                         f" > tolerance {tol.flatten()[i].item()} at flat "
+                         f"index {i}")
+    fail_if(again is not None and not torch.equal(got, again),
+            f"{label}: two runs differ")
+    return diff.max().item(), tol.flatten()[int(diff.argmax())].item()
 
 
 def check_kernels(card: str) -> dict:
+    """Phase 3a: the verify attention with k/v of q's type."""
     import torch
 
     from samd_tpu_torch.ops.flash_attention import (
@@ -142,40 +197,27 @@ def check_kernels(card: str) -> dict:
             ref = flash_block_attention_ref(q, k, v, mask, lim)
             again = flash_block_attention(q, k, v, mask, lim)
             torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs()
-            tol = kernel_tolerance(ref)
-            err = diff.max().item()
-            if not torch.isfinite(got).all():
-                raise SystemExit(f"{label} {dname}: non-finite output")
-            if (diff > tol).any():
-                i = int(torch.argmax(diff - tol))
-                raise SystemExit(
-                    f"{label} {dname}: |kernel - plain| "
-                    f"{diff.flatten()[i].item()} > tolerance "
-                    f"{tol.flatten()[i].item()} at flat index {i}")
-            if not torch.equal(got, again):
-                raise SystemExit(f"{label} {dname}: two runs differ")
+            err, tol_at = check_close(f"{label} {dname}", got, ref,
+                                      kernel_tolerance(ref), again)
             kv = cl + T
             if kv < S:
                 k2, v2 = k.clone(), v.clone()
                 k2[:, :, kv:] = 1e30
                 v2[:, :, kv:] = -1e30
                 poisoned = flash_block_attention(q, k2, v2, mask, lim)
-                if not torch.equal(got, poisoned):
-                    raise SystemExit(f"{label} {dname}: poison past kv_limit "
-                                     "changed the result")
-            ms = cuda_ms(lambda: flash_block_attention(q, k, v, mask, lim))
+                fail_if(not torch.equal(got, poisoned),
+                        f"{label} {dname}: poison past kv_limit changed the "
+                        "result")
+            ms = cuda_ms(lambda i: flash_block_attention(q, k, v, mask, lim))
             plain_ms = cuda_ms(
-                lambda: flash_block_attention_ref(q, k, v, mask, lim))
+                lambda i: flash_block_attention_ref(q, k, v, mask, lim))
             library_ms = cuda_ms(library_attention(q, k, v, mask, lim))
             bound_ms, bound_by = attention_bound(T, NH, KH, D, kv, dname)
             print(f"kernel flash_block_attention {label} {dname}: max_abs_err "
-                  f"{err:.3e} (tol at that element "
-                  f"{tol.flatten()[int(diff.argmax())].item():.3e}, max tol "
-                  f"{tol.max().item():.3e}) kernel_ms {ms:.4f} "
-                  f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-                  f"bound_ms {bound_ms:.5f} ({bound_by}) [{card}]",
-                  flush=True)
+                  f"{err:.3e} (tol at that element {tol_at:.3e}) kernel_ms "
+                  f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}) "
+                  f"[{card}]", flush=True)
             if dname == "bfloat16" and label.startswith("llama_1b"):
                 max_err_main = max(max_err_main, err)
             if dname == "bfloat16" and label == main_label:
@@ -185,14 +227,203 @@ def check_kernels(card: str) -> dict:
     return row
 
 
-def main_path(card: str) -> int:
+def check_int8_attention(card: str) -> dict:
+    """Phase 3b: the verify attention's int8-KV mode."""
     import torch
 
+    from samd_tpu_torch.cache import QuantizedKV, dequantize_kv
+    from samd_tpu_torch.cache import quantize_kv_block
+    from samd_tpu_torch.ops.flash_attention import (
+        flash_block_attention, flash_block_attention_ref, kernel_tolerance)
+
+    cases = [(f"llama_7b T=16 cache_len={cl}", 16, 32, 32, 128, 1024, cl)
+             for cl in (0, 63, 200, 700, 1008)]
+    cases.append(("llama_1b T=60 cache_len=700", 60, 32, 4, 64, 2048, 700))
+    main_label = "llama_7b T=16 cache_len=200"
+    row, max_err = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (label, T, NH, KH, D, S, cl) in enumerate(cases):
+            q, k, v, mask, lim = attention_case(T, NH, KH, D, S, cl,
+                                                torch.float32, seed=100 + i)
+            q = q.to(dtype)
+            (kq, ks), (vq, vs) = (quantize_kv_block(t) for t in (k, v))
+            args = (q, kq, vq, mask, lim, ks, vs)
+            got = flash_block_attention(*args)
+            ref = flash_block_attention_ref(*args)
+            again = flash_block_attention(*args)
+            torch.cuda.synchronize()
+            err, tol_at = check_close(f"{label} int8-KV {dname}", got, ref,
+                                      kernel_tolerance(ref), again)
+            kv = cl + T
+            if kv < S:
+                kq2, vq2, ks2, vs2 = (t.clone() for t in (kq, vq, ks, vs))
+                kq2[:, :, kv:] = 127
+                vq2[:, :, kv:] = -127
+                ks2[:, :, kv:] = 1e30
+                vs2[:, :, kv:] = 1e30
+                poisoned = flash_block_attention(q, kq2, vq2, mask, lim, ks2,
+                                                 vs2)
+                fail_if(not torch.equal(got, poisoned),
+                        f"{label} int8-KV {dname}: poison past kv_limit "
+                        "changed the result")
+            ms = cuda_ms(lambda i: flash_block_attention(*args))
+            plain_ms = cuda_ms(lambda i: flash_block_attention_ref(*args))
+            kd = dequantize_kv(QuantizedKV(kq, ks), dtype)
+            vd = dequantize_kv(QuantizedKV(vq, vs), dtype)
+            library_ms = cuda_ms(library_attention(q, kd, vd, mask, lim))
+            bound_ms, bound_by = attention_bound(
+                T, NH, KH, D, kv, dname, kv_bytes=2 * kv * KH * (D + 4))
+            print(f"kernel flash_block_attention int8-KV {label} {dname}: "
+                  f"max_abs_err {err:.3e} (tol at that element {tol_at:.3e}) "
+                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} (SDPA, dequantized live KV) bound_ms "
+                  f"{bound_ms:.5f} ({bound_by}) [{card}]", flush=True)
+            if dname == "bfloat16" and label.startswith("llama_7b"):
+                max_err = max(max_err, err)
+            if dname == "bfloat16" and label == main_label:
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+    row["max_abs_err"] = max_err
+    return row
+
+
+def check_int4(card: str) -> dict:
+    """Phase 3c: the int4 matmul at llama_7b's shapes.  Timing cycles over
+    enough stacked layers to exceed the L2 cache, as the forward finds each
+    weight cold."""
+    import torch
+
+    from samd_tpu_torch.ops.int4_matmul import (int4_matmul,
+                                                int4_matmul_ref,
+                                                kernel_tolerance)
+    from samd_tpu_torch.ops.quant import Int4Tensor, dequant
+
+    shapes = [("wq/wk/wv/wo", 4096, 4096, torch.bfloat16),
+              ("w_gate/w_up", 4096, 11008, torch.bfloat16),
+              ("w_down", 11008, 4096, torch.bfloat16),
+              ("lm_head", 4096, 32000, torch.float32)]
+    main_label = "w_gate/w_up R=16"
+    row, max_err = None, 0.0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for name, IN, OUT, out_dtype in shapes:
+        layer_bytes = IN * OUT // 2
+        L = max(2, math.ceil(2 * L2_BYTES / layer_bytes))
+        packed = torch.randint(0, 256, (L, IN, OUT // 2), generator=gen,
+                               dtype=torch.uint8, device="cuda")
+        scale = torch.rand((L, OUT), generator=gen, device="cuda") * 4e-3 \
+            + 1e-3
+        w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
+               for l in range(L)]
+        for R in (16, 128):
+            label = f"{name} R={R}"
+            x = torch.randn((R, IN), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = int4_matmul(x, packed, scale, 0, out_dtype=out_dtype)
+            again = int4_matmul(x, packed, scale, 0, out_dtype=out_dtype)
+            ref = int4_matmul_ref(x, packed, scale, 0, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err, tol_at = check_close(
+                f"int4_matmul {label}", got, ref,
+                kernel_tolerance(x, packed, scale, 0, ref), again)
+            if R == 16:       # row invariance, bitwise
+                for r in (0, 7, 15):
+                    alone = int4_matmul(x[r:r + 1].contiguous(), packed,
+                                        scale, 0, out_dtype=out_dtype)
+                    other = torch.randn((5, IN), generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+                    other[3] = x[r]
+                    placed = int4_matmul(other, packed, scale, 0,
+                                         out_dtype=out_dtype)
+                    fail_if(not (torch.equal(alone[0], got[r])
+                                 and torch.equal(placed[3], got[r])),
+                            f"int4_matmul {label}: row {r} changes with the "
+                            "rows beside it")
+            ms = cuda_ms(lambda i: int4_matmul(x, packed, scale, i % L,
+                                               out_dtype=out_dtype))
+            plain_ms = cuda_ms(lambda i: int4_matmul_ref(
+                x, packed, scale, i % L, out_dtype=out_dtype), iters=10)
+            library_ms = cuda_ms(lambda i: torch.matmul(x, w16[i % L]))
+            osz = 4 if out_dtype == torch.float32 else 2
+            bound_ms, bound_by = bound(
+                layer_bytes + OUT * 4 + R * IN * 2 + R * OUT * osz,
+                2 * R * IN * OUT, "bfloat16")
+            print(f"kernel int4_matmul {label} ({IN}->{OUT}, "
+                  f"{str(out_dtype).split('.')[1]} out): max_abs_err "
+                  f"{err:.3e} (tol at that element {tol_at:.3e}) kernel_ms "
+                  f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} (bf16 matmul, weight dequantized "
+                  f"beforehand) bound_ms {bound_ms:.5f} ({bound_by}) "
+                  f"[{card}]", flush=True)
+            if out_dtype == torch.bfloat16:
+                max_err = max(max_err, err)
+            if label == main_label:
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+        del packed, scale, w16
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err
+    return row
+
+
+def reset_counts() -> None:
+    from samd_tpu_torch.ops.flash_attention import flash_block_attention
+    from samd_tpu_torch.ops.int4_matmul import int4_matmul
+
+    flash_block_attention.launches = 0
+    flash_block_attention.launches_int8 = 0
+    int4_matmul.launches = 0
+
+
+def read_counts() -> dict:
+    from samd_tpu_torch.ops.flash_attention import flash_block_attention
+    from samd_tpu_torch.ops.int4_matmul import int4_matmul
+
+    return {"flash_block_attention": flash_block_attention.launches,
+            "flash_block_attention_int8kv":
+                flash_block_attention.launches_int8,
+            "int4_matmul": int4_matmul.launches}
+
+
+def serve(card, name_cfg, engines, prompts, refs, gen, vocab) -> list:
+    """Run each request on its engine and check it against the oracle's
+    tokens; returns each request's (prompt length, decode steps)."""
+    import torch
+
+    done = []
+    for name, p in prompts.items():
+        t0 = time.perf_counter()
+        out = engines[name].generate(p, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = refs[name]
+        if out.output_ids != ref.output_ids:
+            diff = next(i for i, (a, b) in enumerate(
+                zip(out.output_ids, ref.output_ids)) if a != b)
+            raise SystemExit(f"{name_cfg} request {name}: tokens differ from "
+                             f"the oracle at {diff}")
+        fail_if(len(out.output_ids) != len(p) + gen.max_new_tokens
+                or not all(0 <= t < vocab for t in out.output_ids),
+                f"{name_cfg} request {name}: malformed output")
+        print(f"{name_cfg} request {name}: prompt {len(p)} new "
+              f"{out.decode_tokens} decode_steps {out.decode_steps} "
+              f"mean_accept {out.decode_tokens / out.decode_steps:.3f} "
+              f"ms_per_step {dt / out.decode_steps * 1e3:.3f} tok_per_s "
+              f"{out.decode_tokens / dt:.2f} (request wall {dt:.3f} s, "
+              f"prefill included) equal_to_oracle True [{card}]", flush=True)
+        done.append((len(p), out.decode_steps))
+    return done
+
+
+def main_path_1b(card: str) -> int:
+    """Phase 4: llama_1b, bf16, verify kernel."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.engine import ArBaseline
     from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
-    from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.models import init_params, llama_1b
-    from samd_tpu_torch.ops.flash_attention import flash_block_attention
 
     cfg = llama_1b()                 # attention_impl "flash" by default
     gen_w = torch.Generator(device="cuda")
@@ -221,37 +452,144 @@ def main_path(card: str) -> int:
                           GenerationConfig(max_new_tokens=8))   # warm-up
     torch.cuda.synchronize()
 
-    flash_block_attention.launches = 0          # main path starts here
-    expected = 0
-    for name, p in prompts.items():
-        t0 = time.perf_counter()
-        out = engines[name].generate(p, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        expected += cfg.num_layers * (1 + out.decode_steps)
-        ref = refs[name]
-        if out.output_ids != ref.output_ids:
-            diff = next(i for i, (a, b) in enumerate(
-                zip(out.output_ids, ref.output_ids)) if a != b)
-            raise SystemExit(f"request {name}: tokens differ from "
-                             f"ArBaseline(block_size={M}) at {diff}")
-        if len(out.output_ids) != len(p) + new or not all(
-                0 <= t < cfg.vocab_size for t in out.output_ids):
-            raise SystemExit(f"request {name}: malformed output")
-        print(f"request {name}: prompt {len(p)} new {out.decode_tokens} "
-              f"decode_steps {out.decode_steps} mean_accept "
-              f"{out.decode_tokens / out.decode_steps:.3f} ms_per_step "
-              f"{dt / out.decode_steps * 1e3:.3f} tok_per_s "
-              f"{out.decode_tokens / dt:.2f} (request wall {dt:.3f} s, "
-              f"prefill included) equal_to_oracle True [{card}]", flush=True)
-    launches = flash_block_attention.launches     # main path ends here
-    if launches != expected or launches == 0:
-        raise SystemExit(f"flash_block_attention launched {launches} times, "
-                         f"expected {expected} (22 layers x every forward)")
-    print(f"main path: flash_block_attention launches {launches} = "
+    reset_counts()                              # the path starts here
+    done = serve(card, "llama_1b", engines, prompts, refs, gen,
+                 cfg.vocab_size)
+    counts = read_counts()                      # the path ends here
+    expected = sum(cfg.num_layers * (1 + steps) for _, steps in done)
+    launches = counts["flash_block_attention"]
+    fail_if(launches != expected or launches == 0,
+            f"llama_1b: flash_block_attention launched {launches} times, "
+            f"expected {expected} (22 layers x every forward)")
+    fail_if(counts["flash_block_attention_int8kv"] or counts["int4_matmul"],
+            f"llama_1b: launches of kernels off its path: {counts}")
+    print(f"llama_1b path: flash_block_attention launches {launches} = "
           f"{cfg.num_layers} layers x (3 prefills + decode steps)",
           flush=True)
     return launches
+
+
+def bucket_prefill_check(card, cfg, params, prompt) -> None:
+    """Repair of the plain attention at a cache bucket: the 200-token
+    prompt's prefill (bucket P = 256 > 128 rows, so the plain attention)
+    into a W = 384 cache and into the S = 1024 cache gives the same logits
+    and int8 cache bytes; and, for the record, how often the plain
+    attention over all W against all S columns (masked columns included,
+    the form before the repair) differs in the last bit."""
+    import torch
+
+    from samd_tpu_torch.cache import dequantize_kv, init_kv_cache
+    from samd_tpu_torch.models.llama import _attention, forward, prefill_mask
+
+    P, W, S = 256, 384, 1024
+    toks = torch.zeros((1, P), dtype=torch.int32)
+    toks[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    toks, pos = toks.cuda(), torch.arange(P, device="cuda")[None]
+    outs = []
+    for size in (W, S):
+        kv = init_kv_cache(cfg, 1, size, "cuda")
+        logits, _ = forward(params, cfg, toks, pos, *kv, 0,
+                            prefill_mask(1, P, size, "cuda"))
+        outs.append((logits, kv))
+    (lw, (kw, vw)), (ls, (ks, vs)) = outs
+    fail_if(not torch.equal(lw, ls), "bucketed prefill: logits at W = 384 "
+            "and S = 1024 differ")
+    for a, b in ((kw, ks), (vw, vs)):
+        fail_if(not (torch.equal(a.q[..., :P, :], b.q[..., :P, :])
+                     and torch.equal(a.scale[..., :P], b.scale[..., :P])),
+                "bucketed prefill: int8 cache bytes at W and S differ")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    q = torch.randn((1, P, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    k = dequantize_kv(ks[0], cfg.dtype)
+    v = dequantize_kv(vs[0], cfg.dtype)
+    mask = prefill_mask(1, P, S, "cuda")
+    full = _attention(q, k, v, mask, cfg)
+    bucket = _attention(q, k[:, :, :W], v[:, :, :W], mask[..., :W], cfg)
+    live = _attention(q, k[:, :, :P], v[:, :, :P], mask[..., :P], cfg)
+    n_diff = int((full != bucket).sum())
+    print(f"bucketed prefill (P {P}, W {W}, S {S}): logits and int8 cache "
+          f"bytes equal at W and S; plain attention over all W vs all S "
+          f"columns: {n_diff} of {full.numel()} outputs differ (max abs "
+          f"{(full.float() - bucket.float()).abs().max().item():.3e}); over "
+          f"the live {P} columns vs all S: "
+          f"{int((live != full).sum())} differ [{card}]", flush=True)
+
+
+def main_path_7b(card: str) -> tuple:
+    """Phase 5: llama_7b, int4 weights, int8 KV."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+    from samd_tpu_torch.models import llama_7b
+    from samd_tpu_torch.ops.quant import (init_quantized_llama_params,
+                                          int4_from_int8_params,
+                                          quantized_bytes)
+
+    cfg = dataclasses.replace(llama_7b(), kv_quant=True)
+    fail_if(cfg.int4_impl != "kernel" or cfg.attention_impl != "flash",
+            "llama_7b: the kernels are not the default routes")
+    t0 = time.perf_counter()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    base = init_quantized_llama_params(cfg, gen_w, scale=0.02,
+                                       dtype=torch.int8, device="cuda")
+    params = int4_from_int8_params(base)
+    del base
+    gc.collect()
+    torch.cuda.synchronize()
+    print(f"llama_7b weights: int8 base drawn on the card and requantized "
+          f"to packed int4 in {time.perf_counter() - t0:.1f} s; "
+          f"{quantized_bytes(params) / 1e9:.3f} GB", flush=True)
+    fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
+                        cache_buckets=(256, 384, 512, 768))
+    M, S, new = fc.block, 1024, 128
+    gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
+    rng = np.random.default_rng(7)
+    prompts = {
+        "a_random_200": rng.integers(3, cfg.vocab_size, size=200).tolist(),
+        "b_own_corpus": rng.integers(3, cfg.vocab_size, size=96).tolist(),
+        "c_repetitive": rng.integers(3, cfg.vocab_size, size=8).tolist() * 12,
+    }
+    bucket_prefill_check(card, cfg, params, prompts["a_random_200"])
+    oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
+                        block_size=M)
+    oracle.generate(prompts["c_repetitive"][:16],
+                    GenerationConfig(max_new_tokens=4))        # warm-up
+    refs = {name: oracle.generate(p, gen) for name, p in prompts.items()}
+    plain_engine = FusedSamEngine(cfg, params, fc, max_cache_len=S,
+                                  eos_token_id=-1)
+    corpus_engine = FusedSamEngine(
+        cfg, params, fc, corpus=refs["b_own_corpus"].output_ids + [0],
+        max_cache_len=S, eos_token_id=-1)
+    engines = {"a_random_200": plain_engine, "b_own_corpus": corpus_engine,
+               "c_repetitive": plain_engine}
+    plain_engine.generate(prompts["c_repetitive"][:16],
+                          GenerationConfig(max_new_tokens=8))   # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()                              # the path starts here
+    done = serve(card, "llama_7b int4 int8-KV", engines, prompts, refs, gen,
+                 cfg.vocab_size)
+    counts = read_counts()                      # the path ends here
+    forwards = sum(1 + steps for _, steps in done)
+    short = sum(steps + (n <= 128) for n, steps in done)  # T <= 128 forwards
+    want = {"flash_block_attention": 0,
+            "flash_block_attention_int8kv": cfg.num_layers * short,
+            "int4_matmul": (7 * cfg.num_layers + 1) * forwards}
+    fail_if(counts != want or not counts["int4_matmul"]
+            or not counts["flash_block_attention_int8kv"],
+            f"llama_7b: launch counts {counts}, expected {want} (225 int4 "
+            "launches per forward, 32 int8-KV verify launches per forward "
+            "of T <= 128)")
+    print(f"llama_7b path: int4_matmul launches {counts['int4_matmul']} = "
+          f"225 x {forwards} forwards; int8-KV verify launches "
+          f"{counts['flash_block_attention_int8kv']} = 32 x {short} forwards "
+          f"of T <= 128", flush=True)
+    return counts["int4_matmul"], counts["flash_block_attention_int8kv"]
 
 
 def main() -> int:
@@ -262,12 +600,14 @@ def main() -> int:
         return 1
     from samd_tpu_torch.ops import _build
 
-    # phase 1: card.  The port's f32 products (logits, the plain attention)
-    # must run in full f32: forward raises on CUDA while TF32 matmuls are on.
+    # phase 1: card.  The port's f32 products (logits, the plain attention,
+    # the plain versions) must run in full f32: forward raises on CUDA while
+    # TF32 matmuls are on.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise SystemExit("TF32 is on; the port's f32 products need it off")
+    fail_if(torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32,
+            "TF32 is on; the port's f32 products need it off")
     card = nvidia_smi()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}"
           f"; allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
@@ -275,24 +615,41 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    nvcc_s = _build.build("flash_block_attention")
-    print(f"build: flash_block_attention nvcc {nvcc_s:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s wall)", flush=True)
-    for line in _build.build_log("flash_block_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    secs = _build.build_all()
+    print(f"build: {len(secs)} sources in parallel, "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    for name, s in secs.items():
+        print(f"build: {name} nvcc {s:.2f} s", flush=True)
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
 
     # phase 3: kernels against their plain versions
-    row = check_kernels(card)
+    rows = {"flash_block_attention": check_kernels(card),
+            "flash_block_attention_int8kv": check_int8_attention(card),
+            "int4_matmul": check_int4(card)}
 
-    # phase 4: the main path
-    launches = main_path(card)
+    # phases 4 and 5: the paths, each with its counts read on its own
+    launches = {"flash_block_attention": main_path_1b(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    (launches["int4_matmul"],
+     launches["flash_block_attention_int8kv"]) = main_path_7b(card)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_block_attention", "route": "cuda",
-        "source": "samd_tpu_torch/csrc/flash_block_attention.cu",
-        "replaces": "samd_tpu/ops/pallas_attention.py:49",
-        "launches": launches, **row}]}))
+    meta = {
+        "flash_block_attention": (
+            "samd_tpu_torch/csrc/flash_block_attention.cu",
+            "samd_tpu/ops/pallas_attention.py:49"),
+        "flash_block_attention_int8kv": (
+            "samd_tpu_torch/csrc/flash_block_attention.cu",
+            "samd_tpu/ops/pallas_attention.py:171"),
+        "int4_matmul": ("samd_tpu_torch/csrc/int4_matmul.cu",
+                        "samd_tpu/ops/int4_matmul.py:168"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": meta[name][0],
+         "replaces": meta[name][1], "launches": launches[name], **rows[name]}
+        for name in meta]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
-"""Dense KV cache (counterpart of ``samd_tpu/cache.py``, plain "sd" caches).
+"""Dense KV cache (counterpart of ``samd_tpu/cache.py``, "sd" caches).
 
-The cache is a pair of tensors ``[L, B, KH, S, D]``, preallocated once.
-Writes and the acceptance compaction update it in place — the counterpart
-of the reference's donated buffers.  The committed length lives in the
-engine loop, not in the tensors.  The int8 ``QuantizedKV`` cache is ROADMAP
-queue 1 item 3.
+The cache is a pair of tensors ``[L, B, KH, S, D]``, preallocated once, or
+with ``ModelConfig.kv_quant`` a pair of ``QuantizedKV``: int8 values of
+that shape and one f32 scale per (token, KV head), ``[L, B, KH, S]``.  The
+port keeps the "sd" layout for int8 KV too (the reference's int8 kernel
+needed "ds").  Writes and the acceptance compaction update the cache in
+place — the counterpart of the reference's donated buffers.  The committed
+length lives in the engine loop, not in the tensors.  ``update_slot`` and
+``compact_accepted_batched`` come with batched serving (ROADMAP queue 1
+item 9).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple, Union
 
 import torch
@@ -16,24 +21,88 @@ import torch
 from .models.configs import ModelConfig, check_supported
 
 
+@dataclass
+class QuantizedKV:
+    """int8 KV values + per-(token, head) f32 scales (amax over D / 127).
+
+    q:     int8 [..., KH, S, D]
+    scale: f32  [..., KH, S]
+    Indexing the leading (layer) axis gives views of both."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def device(self):
+        return self.q.device
+
+    def __getitem__(self, l) -> "QuantizedKV":
+        return QuantizedKV(self.q[l], self.scale[l])
+
+    def zero_(self) -> "QuantizedKV":
+        self.q.zero_()
+        self.scale.zero_()
+        return self
+
+
+KV = Union[torch.Tensor, QuantizedKV]
+
+
+def quantize_kv_block(block: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """block: [B, KH, T, D] → (int8 [B, KH, T, D], f32 scale [B, KH, T]).
+    Symmetric per token and head: scale max(amax over D / 127, 1e-12).
+
+    The reference's engines run this inside ``jit``, where XLA turns the
+    division by the constant 127 into a product with its f32 reciprocal
+    (one ulp away from the quotient for some amax); the port computes that
+    product, so its cache bytes equal the reference engines'."""
+    bf = block.float()
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32,
+                          device=block.device)
+    scale = torch.clamp(bf.abs().amax(dim=-1) * inv127, min=1e-12)
+    q = torch.clamp(torch.round(bf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(kv: KV, dtype) -> torch.Tensor:
+    """The reference's pre-dequant form for the plain attention: ``q ·
+    scale`` in ``dtype`` (the product rounds in ``dtype``).  Plain caches
+    pass through."""
+    if not isinstance(kv, QuantizedKV):
+        return kv
+    return kv.q.to(dtype) * kv.scale.to(dtype)[..., None]
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_cache_len: int,
                   device: Union[str, torch.device],
-                  dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  dtype=None) -> Tuple[KV, KV]:
     check_supported(cfg)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_cache_len,
              cfg.head_dim)
+    if cfg.kv_quant:
+        def make():
+            return QuantizedKV(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+        return make(), make()
     dtype = dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def compact_accepted(kv: torch.Tensor, offset: Union[int, torch.Tensor],
+def compact_accepted(kv: KV, offset: Union[int, torch.Tensor],
                      indices: torch.Tensor, block_size: int, *,
-                     seq_axis: int = 3) -> torch.Tensor:
+                     seq_axis: int = 3) -> KV:
     """Compact accepted draft positions to the front of the draft block,
     IN PLACE, and return ``kv``.
 
-    kv:         [L, B, KH, S, D] (seq_axis=3)
+    kv:         [L, B, KH, S, D] (seq_axis=3), or ``QuantizedKV`` (its
+                values along ``seq_axis``, its scales along their last axis)
     offset:     scalar — block start (committed length before the step)
     indices:    [A] int — positions *within the block* of the accepted path
                 (entries past the accept length may be clamped duplicates;
@@ -44,6 +113,12 @@ def compact_accepted(kv: torch.Tensor, offset: Union[int, torch.Tensor],
     writes them at ``[offset, offset + A)``.  Requires
     ``offset + block_size <= S`` (the engine's loop guard); unlike JAX's
     clamped slices, an offset past that bound raises on the CPU."""
+    if isinstance(kv, QuantizedKV):
+        compact_accepted(kv.q, offset, indices, block_size,
+                         seq_axis=seq_axis)
+        compact_accepted(kv.scale, offset, indices, block_size,
+                         seq_axis=kv.scale.dim() - 1)
+        return kv
     dev = kv.device
     offset = torch.as_tensor(offset, dtype=torch.int64, device=dev)
     A = indices.shape[0]

@@ -17,6 +17,13 @@
 //     output is acc / max(l, 1e-30) rounded to q's type.
 // kv_limit is read from device memory, so the caller never syncs the host.
 //
+// int8-KV mode (the reference kernels' `scales_hbm` mode,
+// pallas_attention.py:59-61, 87-90, 118-121, 209-212, 240-243): k and v
+// are int8 [KH, S, D] with one f32 scale per (KV head, column) each,
+// [KH, S]; a loaded value is (float)q * scale, the reference's dequant,
+// and the function is otherwise the same.  Columns past kv_limit load
+// neither values nor scales.  The mode is picked by the type of k/v.
+//
 // What bounds it on an H100: per call it must move q and the output
 // (2 * T * NH * D * itemsize bytes) and the live K/V
 // (2 * kv_limit * KH * D * itemsize bytes) against 3.35 TB/s, and do
@@ -28,12 +35,17 @@
 // Either bound is well under a microsecond per layer at these shapes, so
 // the design below aims at being right and deterministic, not at either.
 //
+// In int8-KV mode the live K/V bytes halve (1 byte per value, plus 8 bytes
+// of scales per column and head): at llama_7b decode (T = 16, NH = KH =
+// 32, D = 128) 8.2 KB per live column.
+//
 // Design (simple and exact first; wgmma and TMA are later work):
 //   * one CTA per (KV head, tile of 64 packed query rows r = g*T + t), so
 //     each K/V tile is loaded once per CTA for all G query heads;
 //   * a loop over KV tiles of 64 columns at absolute multiples of 64, up to
 //     cdiv(min(kv_limit, S), 64); K and V tiles are staged in shared
-//     memory as f32, columns past kv_limit are zero-filled, not loaded;
+//     memory as f32 (int8 values dequantized on the way), columns past
+//     kv_limit are zero-filled, not loaded;
 //   * Q.K^T and P.V are f32 FMA chains in a fixed order, and the row
 //     reductions are fixed butterfly shuffles: no atomics, no split over
 //     KV.  A row's result therefore depends only on its own inputs, not on
@@ -69,6 +81,17 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
+// one K or V value as f32: upcast, or int8 times its column's scale
+template <typename KV>
+__device__ __forceinline__ float kv_value(const KV* p, size_t i,
+                                          const float* /*scale*/, int /*col*/) {
+  return to_float(p[i]);
+}
+__device__ __forceinline__ float kv_value(const int8_t* p, size_t i,
+                                          const float* scale, int col) {
+  return (float)p[i] * scale[col];
+}
+
 template <int D>
 constexpr size_t smem_floats() {
   return kRows * (D + 1)      // sQ
@@ -78,12 +101,15 @@ constexpr size_t smem_floats() {
          + 3 * kRows;         // running max, running sum, rescale factor
 }
 
-// q [T, NH, D], k/v [KH, S, D], mask [T, S] (bool bytes), out [T, NH*D].
-template <typename T, int D>
+// q [T, NH, D], k/v [KH, S, D] (KV = T, or int8 with k_scale/v_scale
+// [KH, S]), mask [T, S] (bool bytes), out [T, NH*D].
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_block_attention_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
+                             const KV* __restrict__ k,
+                             const KV* __restrict__ v,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
                              const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ kv_limit_ptr,
                              T* __restrict__ out, int Tq, int NH, int KH,
@@ -135,8 +161,10 @@ flash_block_attention_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kDj; ++j) o[i][j] = 0.f;
 
-  const T* kh = k + (size_t)h * S * D;
-  const T* vh = v + (size_t)h * S * D;
+  const KV* kh = k + (size_t)h * S * D;
+  const KV* vh = v + (size_t)h * S * D;
+  const float* ksh = k_scale ? k_scale + (size_t)h * S : nullptr;
+  const float* vsh = v_scale ? v_scale + (size_t)h * S : nullptr;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int j0 = tile * kCols;
@@ -146,8 +174,8 @@ flash_block_attention_kernel(const T* __restrict__ q,
       const int col = j0 + c;
       float kx = 0.f, vx = 0.f;
       if (col < kv_lim) {
-        kx = to_float(kh[(size_t)col * D + d]);
-        vx = to_float(vh[(size_t)col * D + d]);
+        kx = kv_value(kh, (size_t)col * D + d, ksh, col);
+        vx = kv_value(vh, (size_t)col * D + d, vsh, col);
       }
       sK[c * (D + 1) + d] = kx;
       sV[c * D + d] = vx;
@@ -258,34 +286,36 @@ flash_block_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           const void* kv_limit, void* out, int Tq, int NH, int KH, int S,
-           cudaStream_t stream) {
+template <typename T, typename KV, int D>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* mask, const void* kv_limit,
+           void* out, int Tq, int NH, int KH, int S, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_block_attention_kernel<T, D>;
+  auto kernel = flash_block_attention_kernel<T, KV, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int R = (NH / KH) * Tq;
   dim3 grid((R + kRows - 1) / kRows, KH);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const uint8_t*>(mask),
       static_cast<const int32_t*>(kv_limit), static_cast<T*>(out), Tq, NH,
       KH, S, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch_d(int D, const void* q, const void* k, const void* v,
-             const void* mask, const void* kv_limit, void* out, int Tq,
-             int NH, int KH, int S, cudaStream_t stream) {
+             const void* ks, const void* vs, const void* mask,
+             const void* kv_limit, void* out, int Tq, int NH, int KH, int S,
+             cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, mask, kv_limit, out, Tq, NH, KH, S, stream);
-    case 32: return launch<T, 32>(q, k, v, mask, kv_limit, out, Tq, NH, KH, S, stream);
-    case 64: return launch<T, 64>(q, k, v, mask, kv_limit, out, Tq, NH, KH, S, stream);
-    case 128: return launch<T, 128>(q, k, v, mask, kv_limit, out, Tq, NH, KH, S, stream);
+    case 16: return launch<T, KV, 16>(q, k, v, ks, vs, mask, kv_limit, out, Tq, NH, KH, S, st);
+    case 32: return launch<T, KV, 32>(q, k, v, ks, vs, mask, kv_limit, out, Tq, NH, KH, S, st);
+    case 64: return launch<T, KV, 64>(q, k, v, ks, vs, mask, kv_limit, out, Tq, NH, KH, S, st);
+    case 128: return launch<T, KV, 128>(q, k, v, ks, vs, mask, kv_limit, out, Tq, NH, KH, S, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -295,18 +325,33 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// is_bf16: 1 for bfloat16 q/k/v/out, 0 for float32.
+// is_bf16: 1 for bfloat16 q/out, 0 for float32.  kv_int8: 1 for int8 k/v
+// with f32 k_scale/v_scale [KH, S]; 0 for k/v of q's type (the scales are
+// then ignored).
 int samd_flash_block_attention(const void* q, const void* k, const void* v,
+                               const void* k_scale, const void* v_scale,
                                const void* mask, const void* kv_limit,
                                void* out, int Tq, int NH, int KH, int S,
-                               int D, int is_bf16, void* stream) {
-  if (Tq <= 0 || KH <= 0 || NH % KH != 0 || S <= 0)
+                               int D, int is_bf16, int kv_int8,
+                               void* stream) {
+  if (Tq <= 0 || KH <= 0 || NH % KH != 0 || S <= 0 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!kv_int8) k_scale = v_scale = nullptr;
+  if (is_bf16 && kv_int8)
+    return launch_d<__nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale,
+                                           mask, kv_limit, out, Tq, NH, KH,
+                                           S, st);
   if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, mask, kv_limit, out, Tq, NH,
-                                   KH, S, st);
-  return launch_d<float>(D, q, k, v, mask, kv_limit, out, Tq, NH, KH, S, st);
+    return launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale,
+                                                  v_scale, mask, kv_limit,
+                                                  out, Tq, NH, KH, S, st);
+  if (kv_int8)
+    return launch_d<float, int8_t>(D, q, k, v, k_scale, v_scale, mask,
+                                   kv_limit, out, Tq, NH, KH, S, st);
+  return launch_d<float, float>(D, q, k, v, k_scale, v_scale, mask,
+                                kv_limit, out, Tq, NH, KH, S, st);
 }
 
 const char* samd_cuda_error_string(int code) {

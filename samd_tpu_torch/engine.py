@@ -30,6 +30,7 @@ from .device import resolve_device
 from .drafters.base import Draft
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
+from .ops.quant import tensors
 from .ops.treeops import pack_draft_host, unpack_draft
 from .verify import greedy_accept
 
@@ -48,9 +49,12 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 def check_params_device(params: Params, device: torch.device) -> None:
-    if params["embed"].device.type != device.type:
-        raise ValueError(f"params are on {params['embed'].device}, the "
-                         f"engine on {device}")
+    """Raise unless every tensor of ``params`` (quantized leaves' values
+    and scales included) lies on ``device``'s type."""
+    for t in tensors(params):
+        if t.device.type != device.type:
+            raise ValueError(f"params have a tensor on {t.device}, the "
+                             f"engine runs on {device}")
 
 
 class SamdEngine:

@@ -41,11 +41,26 @@ class ModelConfig:
     # The reference's flash KV block size.  Kept so the two configs stay
     # parallel; the CUDA kernel chooses its own KV tile.
     flash_block_s: int = 512
-    kv_layout: str = "sd"            # "sd" only: [L, B, KH, S, D]
-    int4_impl: str = "xla"
+    # "sd" only: [L, B, KH, S, D], for int8 KV too (the reference's "ds"
+    # layout served its TPU kernel's lane tiling)
+    kv_layout: str = "sd"
+    # matmul for packed-int4 weights (ops.quant.Int4Tensor):
+    #   "kernel" – the int4 matmul kernel (csrc/int4_matmul.cu) on CUDA
+    #              tensors, its plain version on CPU tensors; streams the
+    #              packed bytes
+    #   "xla"    – the pre-dequant form (unpack, then a matmul), the
+    #              counterpart of the reference's "xla" route
+    # The two round differently, so an engine and its equality oracle share
+    # the setting.  The port defaults to the kernel; the reference to "xla".
+    int4_impl: str = "kernel"
+    # The reference's int4 kernel tiles and unpack variant.  Kept so the two
+    # configs stay parallel; the CUDA kernel picks its own tiles and has one
+    # unpack form.
     int4_block_n: int = 1024
     int4_block_k: int = 2048
     int4_variant: str = "v2-sum"
+    # int8 KV cache (cache.QuantizedKV): one f32 scale per (token, KV head);
+    # engines and their oracles share the flag
     kv_quant: bool = False
 
     @property
@@ -58,16 +73,12 @@ def check_supported(cfg: ModelConfig) -> None:
     yet, naming the ROADMAP queue 1 item that ports it."""
     if cfg.kv_layout != "sd":
         raise NotImplementedError(
-            f"kv_layout={cfg.kv_layout!r}: the port keeps the 'sd' cache; "
-            "the 'ds' layout only served the int8-KV kernel (ROADMAP queue 1 "
-            "item 3)")
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "kv_quant: int8 KV cache is ROADMAP queue 1 item 3")
-    if cfg.int4_impl != "xla":
-        raise NotImplementedError(
-            f"int4_impl={cfg.int4_impl!r}: the int4 matmul kernel is ROADMAP "
-            "queue 1 item 8")
+            f"kv_layout={cfg.kv_layout!r}: the port keeps the 'sd' cache, "
+            "for int8 KV too; the 'ds' layout served the reference's TPU "
+            "kernel")
+    if cfg.int4_impl not in ("kernel", "xla"):
+        raise ValueError(
+            f"int4_impl={cfg.int4_impl!r}; the port takes 'kernel' or 'xla'")
     if cfg.num_experts:
         raise NotImplementedError(
             "num_experts > 0: the MoE MLP is ROADMAP queue 1 item 14")

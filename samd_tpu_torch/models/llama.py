@@ -10,8 +10,17 @@ RMS statistics and the attention softmax in f32, logits as f32 products of
 the (exactly upcast) hidden state and head.  The KV cache is written in
 place, the counterpart of JAX's donated buffers.
 
+Quantized weights (``ops.quant``): ``Int4Tensor`` projections under
+``int4_impl="kernel"`` go through ``ops.int4_matmul.int4_matmul`` with the
+whole stacked tensor and a layer index (the K3 kernel on a CUDA tensor);
+``QuantizedTensor`` (int8, fp8), and ``Int4Tensor`` under ``"xla"``, take
+the reference's pre-dequant ``qmatmul``.  An int8 ``QuantizedKV`` cache
+(``cfg.kv_quant``) is written through ``cache.quantize_kv_block``; the flash
+route reads it in the verify kernel's int8 mode, the plain route through
+the reference's bf16 pre-dequant.
+
 Not ported yet: the MoE MLP (ROADMAP queue 1 item 14), per-slot ``[B]``
-write offsets (item 9), paged KV (item 10), quantized weights (item 8).
+write offsets (item 9), paged KV (item 10).
 """
 
 from __future__ import annotations
@@ -21,9 +30,12 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from .. import cache as kvcache
 from ..device import require_full_f32
 from ..ops.flash_attention import MAX_T as FLASH_MAX_T
 from ..ops.flash_attention import flash_block_attention
+from ..ops.int4_matmul import int4_matmul
+from ..ops.quant import Int4Tensor, QuantizedTensor, Weight, dequant, qmatmul
 from .configs import ModelConfig, check_supported
 
 Params = Dict[str, object]
@@ -107,7 +119,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Plain attention over the whole cache.  q: [B,T,NH,D]; k,v:
+    """Plain attention over the columns it is given.  q: [B,T,NH,D]; k,v:
     [B,KH,S,D]; mask: [B,T,S] bool → [B,T,NH*D].  Products of the working
     type accumulate in f32 (operands upcast, which is exact); the
     probabilities are cast to ``v``'s type before the second product, as in
@@ -124,6 +136,31 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, KH * G * D)
 
 
+def _mm(x: torch.Tensor, w: Weight, l: int, cfg: ModelConfig
+        ) -> torch.Tensor:
+    """``x @ w[l]`` for a stacked weight of any of the port's types (the
+    reference's ``mm``/``qmatmul`` dispatch, ``samd_tpu/models/llama.py:
+    279-308``).  Layers are views: nothing copies a stacked weight."""
+    if isinstance(w, Int4Tensor):
+        if cfg.int4_impl == "kernel":
+            return int4_matmul(x, w.packed, w.scale, l)
+        return qmatmul(x, w.layer(l))
+    if isinstance(w, QuantizedTensor):
+        return qmatmul(x, w.layer(l))
+    return x @ w[l]
+
+
+def _head(h: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits: the int4 head through ``int4_matmul`` under
+    ``int4_impl="kernel"``; otherwise the (pre-dequantized) head in h's
+    type, upcast exactly, times the upcast h in f32."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, Int4Tensor) and cfg.int4_impl == "kernel":
+        return int4_matmul(h, head.packed, head.scale,
+                           out_dtype=torch.float32)
+    return h.float() @ dequant(head, h.dtype).float()
+
+
 # ----------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------
@@ -137,18 +174,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     Args:
       tokens:       [B, T] int
       position_ids: [B, T] int (RoPE positions)
-      kv_k, kv_v:   [L, B, KH, S, D] cache, updated IN PLACE at
-                    [write_offset, write_offset + T)
+      kv_k, kv_v:   [L, B, KH, S, D] cache, or ``cache.QuantizedKV``,
+                    updated IN PLACE at [write_offset, write_offset + T)
       write_offset: scalar (a Python int or a 0-dim integer tensor on the
                     cache's device); the caller keeps write_offset + T <= S
-      attn_mask:    [B, T, S] bool, True where attention is allowed
+      attn_mask:    [B, T, S] bool, True where attention is allowed; no
+                    column at or past write_offset + T is allowed
 
     Returns (logits [B,T,V] f32, hidden [B,T,H]).
 
     With ``attention_impl="flash"`` (the default), B == 1 and T <= 128 the
     attention goes through ``ops.flash_attention.flash_block_attention``
     (the CUDA kernel on a CUDA cache); larger blocks take the plain
-    ``_attention``.  On CUDA it raises while TF32 matmuls are on.
+    ``_attention``.  When the offset is a Python int (a prefill), the plain
+    route reads only the columns ``[0, write_offset + T)`` a row can see:
+    the same function at a length that does not depend on the cache's size,
+    so a prefill into a cache bucket rounds as one into the full cache.  On
+    CUDA it raises while TF32 matmuls are on.
     """
     check_supported(cfg)
     if torch.is_tensor(write_offset) and write_offset.dim() != 0:
@@ -163,15 +205,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     slots = offset + torch.arange(T, device=dev)
     use_flash = cfg.attention_impl == "flash" and B == 1 and T <= FLASH_MAX_T
     kv_limit = (offset + T).to(torch.int32) if use_flash else None
+    # columns the plain route reads: the live prefix when it is known on
+    # the host, else the whole cache
+    live = write_offset + T if isinstance(write_offset, int) \
+        else kv_k.shape[3]
+    quantized = isinstance(kv_k, kvcache.QuantizedKV)
 
     h = F.embedding(tokens.long(), params["embed"])       # [B,T,H]
     cos, sin = rope_tables(position_ids, D, cfg.rope_theta)
     layers = params["layers"]
     for l in range(cfg.num_layers):
         x = rms_norm(h, layers["attn_norm"][l], cfg.rms_eps)
-        q = x @ layers["wq"][l]
-        k = x @ layers["wk"][l]
-        v = x @ layers["wv"][l]
+        q = _mm(x, layers["wq"], l, cfg)
+        k = _mm(x, layers["wk"], l, cfg)
+        v = _mm(x, layers["wv"], l, cfg)
         if cfg.attn_bias:
             q, k, v = q + layers["bq"][l], k + layers["bk"][l], \
                 v + layers["bv"][l]
@@ -179,21 +226,33 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         k = apply_rope(k.reshape(B, T, KH, D), cos, sin)
         v = v.reshape(B, T, KH, D)
         k_cache, v_cache = kv_k[l], kv_v[l]               # [B,KH,S,D] views
-        k_cache.index_copy_(2, slots, k.transpose(1, 2))
-        v_cache.index_copy_(2, slots, v.transpose(1, 2))
-        if use_flash:
+        for cache, block in ((k_cache, k), (v_cache, v)):
+            block = block.transpose(1, 2)                 # [B,KH,T,D]
+            if quantized:
+                qb, sc = kvcache.quantize_kv_block(block)
+                cache.q.index_copy_(2, slots, qb)
+                cache.scale.index_copy_(2, slots, sc)
+            else:
+                cache.index_copy_(2, slots, block)
+        if use_flash and quantized:
+            ctx = flash_block_attention(q, k_cache.q, v_cache.q, attn_mask,
+                                        kv_limit, k_cache.scale,
+                                        v_cache.scale)
+        elif use_flash:
             ctx = flash_block_attention(q, k_cache, v_cache, attn_mask,
                                         kv_limit)
         else:
-            ctx = _attention(q, k_cache, v_cache, attn_mask, cfg)
-        h = h + ctx @ layers["wo"][l]
+            ctx = _attention(
+                q, kvcache.dequantize_kv(k_cache[:, :, :live], q.dtype),
+                kvcache.dequantize_kv(v_cache[:, :, :live], q.dtype),
+                attn_mask[..., :live], cfg)
+        h = h + _mm(ctx, layers["wo"], l, cfg)
         x = rms_norm(h, layers["mlp_norm"][l], cfg.rms_eps)
-        gated = F.silu(x @ layers["w_gate"][l]) * (x @ layers["w_up"][l])
-        h = h + gated @ layers["w_down"][l]
+        gated = F.silu(_mm(x, layers["w_gate"], l, cfg)) \
+            * _mm(x, layers["w_up"], l, cfg)
+        h = h + _mm(gated, layers["w_down"], l, cfg)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h.float() @ head.float()
-    return logits, h
+    return _head(h, params, cfg), h
 
 
 # ----------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Build the port's CUDA kernel with nvcc and load it with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 A kernel is one source ``samd_tpu_torch/csrc/<name>.cu`` with a plain C
-interface.  It is compiled at first use for ``sm_90a`` into
-``samd_tpu_torch/csrc/build/`` (listed in ``.gitignore``), under a name
-that carries a hash of the source and flags, so an edited source is never
-served a stale library.
+interface.  At first use every source is compiled for ``sm_90a`` into
+``samd_tpu_torch/csrc/build/`` (listed in ``.gitignore``), one nvcc per
+source, all started together, under a name that carries a hash of the
+source and flags, so an edited source is never served a stale library.
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
+SOURCES = ("flash_block_attention", "int4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,14 +43,12 @@ def _paths(name: str) -> Tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> float:
-    """Compile ``name`` unless it is built already.  Returns the seconds
-    nvcc took (0.0 for a library already built); raises with nvcc's output
-    if it fails."""
+def _compile(name: str) -> float:
+    """Compile ``name`` unless it is built already; the seconds nvcc took
+    (0.0 for a library already built)."""
     src, lib = _paths(name)
     if lib.exists():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     log = lib.with_suffix(".log")
     t0 = time.perf_counter()
@@ -62,6 +62,17 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
+def build_all() -> Dict[str, float]:
+    """Compile every kernel source not built yet, all nvcc processes at
+    once.  Returns each source's nvcc seconds (0.0 where already built);
+    raises with nvcc's output if any build fails."""
+    _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(_compile, name) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def build_log(name: str) -> str:
     """nvcc's output (ptxas register and shared-memory report) for the
     current build of ``name``; empty if it has not been built here."""
@@ -71,6 +82,9 @@ def build_log(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``name`` (built first if needed)."""
-    build(name)
+    """The built library of ``name`` (every source is built first if
+    needed)."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    build_all()
     return ctypes.CDLL(str(_paths(name)[1]))

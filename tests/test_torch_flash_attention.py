@@ -95,7 +95,7 @@ def _bad_inputs():
     q129, k2, v2, m129, lim2 = port_args(*make_case(129, 4, 2, 16, 256, 0))
     yield "long_block", (q129, k2, v2, m129, lim2), ValueError, "T = 129"
     yield "int8_kv", (q, k.to(torch.int8), v.to(torch.int8), mask, lim), \
-        NotImplementedError, "item 3"
+        ValueError, "k_scale"
     kds = k.transpose(2, 3).contiguous()
     yield "ds_layout", (q, kds, kds, mask, lim), NotImplementedError, "'ds'"
     yield "mask_dtype", (q, k, v, mask.to(torch.int8), lim), ValueError, \

@@ -27,7 +27,9 @@ def imported_modules(path: Path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    assert ROOT / "samd_tpu_torch" / "fused_sam.py" in PORT_FILES
+    for rel in ("fused_sam.py", "ops/quant.py", "ops/int4_matmul.py",
+                "cache.py", "tools/profile_step.py"):
+        assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -26,12 +26,18 @@ from samd_tpu_torch.models import prefill_mask
 
 
 def port_config(jcfg) -> ModelConfig:
-    """The port's ModelConfig with the same fields as a JAX one."""
+    """The port's ModelConfig with the same fields as a JAX one: the
+    reference's interpret-mode kernel routes map to the port's kernel
+    routes, and its "ds" cache layout to the port's "sd" (the tests permute
+    where they compare caches)."""
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg)}
     fields["dtype"] = getattr(torch, np.dtype(jcfg.dtype).name)
     fields["attention_impl"] = (
         "flash" if jcfg.attention_impl.startswith("flash") else "xla")
+    fields["int4_impl"] = (
+        "kernel" if jcfg.int4_impl.startswith("kernel") else "xla")
+    fields["kv_layout"] = "sd"
     return ModelConfig(**fields)
 
 
