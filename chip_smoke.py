@@ -14,11 +14,14 @@ Phases, in order; any failure exits non-zero:
      the least time the card could take:
      a. the verify attention, k/v of q's type, at llama_1b and llama_7b
         shapes; poison past kv_limit must change nothing;
-     b. its int8-KV mode at llama_7b decode shapes and one llama_1b shape;
-        int8 bytes of 127 and scales of 1e30 past kv_limit change nothing;
-     c. the int4 matmul at every llama_7b projection and head shape, at 16
-        and 128 rows; row invariance: a row alone, or placed at another row
-        of another block, gives the same bits;
+     b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
+        shape, and one llama_1b shape; int8 bytes of 127 and scales of 1e30
+        past kv_limit change nothing;
+     c. the int4 matmul at every llama_7b projection and head shape, at
+        16, 128 and 256 rows (decode, and the prefill buckets 128 and 256),
+        in bf16 and f32 output; row invariance: a row alone, or placed at
+        another row of another block, gives the same bits; two planted
+        faults in copies of the plain version fall outside the bound;
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -57,9 +60,13 @@ L2_BYTES = 50 << 20                       # H100 L2 cache
 #  - verify attention (both modes): ops.flash_attention.kernel_tolerance —
 #    1e-4 in f32 (another summation order); in bf16, one rounding of the
 #    output, 2^-7 |ref|, over a floor of two bf16 ulps of max |ref|;
-#  - int4 matmul: ops.int4_matmul.kernel_tolerance — twice the f32
-#    summation-order bound (in + 2) 2^-24 (|x| @ |q-8|) scale, plus one
-#    rounding of a bf16 output, 2^-7 (1.01 |ref| + that bound).
+#  - int4 matmul: ops.int4_matmul.kernel_tolerance — for x of independent
+#    zero-mean entries, two f32 sums of the same products in different
+#    orders: 2 * 8 * 2^-24 * sqrt(in) * sqrt(x^2 @ (q-8)^2) * scale, plus
+#    the scale multiply's rounding, 2^-23 |ref|; a bf16 output adds one
+#    rounding, 2^-7 (1.01 |ref| + that bound).  Two planted faults (one k
+#    dropped per slice, each slice's partial rounded to bf16) must fall
+#    outside it at every llama_7b shape.
 
 
 def nvidia_smi() -> str:
@@ -236,16 +243,19 @@ def check_int8_attention(card: str) -> dict:
     from samd_tpu_torch.ops.flash_attention import (
         flash_block_attention, flash_block_attention_ref, kernel_tolerance)
 
-    cases = [(f"llama_7b T=16 cache_len={cl}", 16, 32, 32, 128, 1024, cl)
-             for cl in (0, 63, 200, 700, 1008)]
-    cases.append(("llama_1b T=60 cache_len=700", 60, 32, 4, 64, 2048, 700))
+    cases = [(f"llama_7b T=16 cache_len={cl}", 16, 32, 32, 128, 1024, cl,
+              False) for cl in (0, 63, 200, 700, 1008)]
+    cases.append(("llama_7b T=128 prefill", 128, 32, 32, 128, 1024, 0, True))
+    cases.append(("llama_1b T=60 cache_len=700", 60, 32, 4, 64, 2048, 700,
+                  False))
     main_label = "llama_7b T=16 cache_len=200"
     row, max_err = None, 0.0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for i, (label, T, NH, KH, D, S, cl) in enumerate(cases):
+        for i, (label, T, NH, KH, D, S, cl, pre) in enumerate(cases):
             q, k, v, mask, lim = attention_case(T, NH, KH, D, S, cl,
-                                                torch.float32, seed=100 + i)
+                                                torch.float32, seed=100 + i,
+                                                prefill=pre)
             q = q.to(dtype)
             (kq, ks), (vq, vs) = (quantize_kv_block(t) for t in (k, v))
             args = (q, kq, vq, mask, lim, ks, vs)
@@ -288,6 +298,25 @@ def check_int8_attention(card: str) -> dict:
     return row
 
 
+def sliced_sum(x, q, skip_first=False, round_partials=False, slices=16):
+    """A copy of the plain version's f32 product x @ q, summed as the int4
+    kernel cuts it (``slices`` fixed k slices, partials added in ascending
+    order), with a fault planted: ``skip_first`` drops each slice's first
+    k, ``round_partials`` rounds each slice's partial to bf16."""
+    import torch
+
+    n = q.shape[0]
+    step = -(-n // slices)
+    total = torch.zeros((x.shape[0], q.shape[1]), device=x.device)
+    for a in range(0, n, step):
+        lo = a + int(skip_first)
+        part = x[:, lo:a + step] @ q[lo:a + step]
+        if round_partials:
+            part = part.to(torch.bfloat16).float()
+        total = total + part
+    return total
+
+
 def check_int4(card: str) -> dict:
     """Phase 3c: the int4 matmul at llama_7b's shapes.  Timing cycles over
     enough stacked layers to exceed the L2 cache, as the forward finds each
@@ -297,7 +326,7 @@ def check_int4(card: str) -> dict:
     from samd_tpu_torch.ops.int4_matmul import (int4_matmul,
                                                 int4_matmul_ref,
                                                 kernel_tolerance)
-    from samd_tpu_torch.ops.quant import Int4Tensor, dequant
+    from samd_tpu_torch.ops.quant import Int4Tensor, dequant, unpack4
 
     shapes = [("wq/wk/wv/wo", 4096, 4096, torch.bfloat16),
               ("w_gate/w_up", 4096, 11008, torch.bfloat16),
@@ -316,17 +345,36 @@ def check_int4(card: str) -> dict:
             + 1e-3
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
-        for R in (16, 128):
+        for R in (16, 128, 256):
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            got = int4_matmul(x, packed, scale, 0, out_dtype=out_dtype)
-            again = int4_matmul(x, packed, scale, 0, out_dtype=out_dtype)
-            ref = int4_matmul_ref(x, packed, scale, 0, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            err, tol_at = check_close(
-                f"int4_matmul {label}", got, ref,
-                kernel_tolerance(x, packed, scale, 0, ref), again)
+            errs = {}
+            for dt in (out_dtype, torch.float32 if out_dtype
+                       == torch.bfloat16 else torch.bfloat16):
+                got_dt = int4_matmul(x, packed, scale, 0, out_dtype=dt)
+                again = int4_matmul(x, packed, scale, 0, out_dtype=dt)
+                ref = int4_matmul_ref(x, packed, scale, 0, out_dtype=dt)
+                torch.cuda.synchronize()
+                tol = kernel_tolerance(x, packed, scale, 0, ref)
+                errs[dt] = check_close(
+                    f"int4_matmul {label} {str(dt).split('.')[1]} out",
+                    got_dt, ref, tol, again)
+                if dt == out_dtype:
+                    got = got_dt
+                if dt == torch.float32 and R == 16:     # planted faults
+                    q = unpack4(packed[0]).float()
+                    for fault in ("skip_first", "round_partials"):
+                        bad = sliced_sum(x.float(), q, **{fault: True}) \
+                            * scale[0]
+                        outside = (bad - ref).abs() > tol
+                        fail_if(not outside.any(), f"int4_matmul {label}: "
+                                f"the bound admits the planted fault {fault}")
+                        print(f"int4_matmul {label}: planted fault {fault} "
+                              f"outside the bound at {int(outside.sum())} of "
+                              f"{outside.numel()} outputs", flush=True)
+                    del q
+            (err, tol_at), (err_o, tol_o) = errs.values()
             if R == 16:       # row invariance, bitwise
                 for r in (0, 7, 15):
                     alone = int4_matmul(x[r:r + 1].contiguous(), packed,
@@ -351,7 +399,8 @@ def check_int4(card: str) -> dict:
                 2 * R * IN * OUT, "bfloat16")
             print(f"kernel int4_matmul {label} ({IN}->{OUT}, "
                   f"{str(out_dtype).split('.')[1]} out): max_abs_err "
-                  f"{err:.3e} (tol at that element {tol_at:.3e}) kernel_ms "
+                  f"{err:.3e} (tol at that element {tol_at:.3e}; other "
+                  f"output type {err_o:.3e}, tol {tol_o:.3e}) kernel_ms "
                   f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} (bf16 matmul, weight dequantized "
                   f"beforehand) bound_ms {bound_ms:.5f} ({bound_by}) "
@@ -470,12 +519,13 @@ def main_path_1b(card: str) -> int:
 
 
 def bucket_prefill_check(card, cfg, params, prompt) -> None:
-    """Repair of the plain attention at a cache bucket: the 200-token
-    prompt's prefill (bucket P = 256 > 128 rows, so the plain attention)
-    into a W = 384 cache and into the S = 1024 cache gives the same logits
-    and int8 cache bytes; and, for the record, how often the plain
-    attention over all W against all S columns (masked columns included,
-    the form before the repair) differs in the last bit."""
+    """The plain attention at a cache bucket: the 200-token prompt's
+    prefill (bucket P = 256 > 128 rows, so the plain attention) into a
+    W = 384 cache and into the S = 1024 cache gives the same logits and
+    int8 cache bytes.  While a prefill reads only its live P columns this
+    holds by construction, and guards that slice; for the record, how often
+    the plain attention over all W against all S columns (masked columns
+    included, the form without the slice) differs in the last bit."""
     import torch
 
     from samd_tpu_torch.cache import dequantize_kv, init_kv_cache

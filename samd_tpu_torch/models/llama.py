@@ -187,10 +187,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     attention goes through ``ops.flash_attention.flash_block_attention``
     (the CUDA kernel on a CUDA cache); larger blocks take the plain
     ``_attention``.  When the offset is a Python int (a prefill), the plain
-    route reads only the columns ``[0, write_offset + T)`` a row can see:
-    the same function at a length that does not depend on the cache's size,
-    so a prefill into a cache bucket rounds as one into the full cache.  On
-    CUDA it raises while TF32 matmuls are on.
+    route reads only the columns ``[0, write_offset + T)`` a row can see,
+    P columns instead of the cache's S.  On CUDA it raises while TF32
+    matmuls are on.
     """
     check_supported(cfg)
     if torch.is_tensor(write_offset) and write_offset.dim() != 0:
@@ -206,7 +205,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     use_flash = cfg.attention_impl == "flash" and B == 1 and T <= FLASH_MAX_T
     kv_limit = (offset + T).to(torch.int32) if use_flash else None
     # columns the plain route reads: the live prefix when it is known on
-    # the host, else the whole cache
+    # the host (a prefill reads P columns, not S), else the whole cache
     live = write_offset + T if isinstance(write_offset, int) \
         else kv_k.shape[3]
     quantized = isinstance(kv_k, kvcache.QuantizedKV)

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 A kernel is one source ``samd_tpu_torch/csrc/<name>.cu`` with a plain C
-interface.  At first use every source is compiled for ``sm_90a`` into
-``samd_tpu_torch/csrc/build/`` (listed in ``.gitignore``), one nvcc per
-source, all started together, under a name that carries a hash of the
-source and flags, so an edited source is never served a stale library.
+interface.  At first use a source is compiled for ``sm_90a`` into
+``samd_tpu_torch/csrc/build/`` (listed in ``.gitignore``) under a name that
+carries a hash of the source and flags, so an edited source is never served
+a stale library.  ``build_all`` compiles every source, one nvcc per source,
+all started together.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ def _compile(name: str) -> float:
     src, lib = _paths(name)
     if lib.exists():
         return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     log = lib.with_suffix(".log")
     t0 = time.perf_counter()
@@ -67,7 +69,6 @@ def build_all() -> Dict[str, float]:
     once.  Returns each source's nvcc seconds (0.0 where already built);
     raises with nvcc's output if any build fails."""
     _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         futures = {name: pool.submit(_compile, name) for name in SOURCES}
         return {name: f.result() for name, f in futures.items()}
@@ -82,9 +83,8 @@ def build_log(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``name`` (every source is built first if
-    needed)."""
+    """The built library of ``name`` (built first if needed)."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel source {name!r}")
-    build_all()
+    _compile(name)
     return ctypes.CDLL(str(_paths(name)[1]))

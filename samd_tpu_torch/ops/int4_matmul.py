@@ -27,6 +27,7 @@ from .quant import unpack4
 
 F32_EPS = 2.0 ** -24      # unit roundoff of f32
 BF16_ULP = 2.0 ** -7      # bf16 ulp relative to the leading power of two
+LAMBDA = 8.0              # standard deviations in kernel_tolerance
 
 
 def _layer(packed: torch.Tensor, scale: torch.Tensor,
@@ -69,19 +70,29 @@ def kernel_tolerance(x: torch.Tensor, packed: torch.Tensor,
                      scale: torch.Tensor, layer: Optional[int],
                      ref: torch.Tensor) -> torch.Tensor:
     """Per-element bound on |kernel − plain| given the plain version's
-    output ``ref`` (same arguments as ``int4_matmul``).
+    output ``ref`` (same arguments as ``int4_matmul``), for an ``x`` of
+    independent zero-mean entries, as the card checks draw it.
 
-    Both sum ``in`` f32 products, each in its own order; any order is
-    within ``in · 2^-24 · Σ_k |x[r,k]|·|q[k,c]−8|`` of the exact sum, and the
-    scale multiply adds one rounding, so two f32 results differ by at most
-    ``e = 2 (in + 2) 2^-24 · (|x| @ |q−8|) · |scale|``.  A bf16 output then
-    rounds each to bf16, half a bf16 ulp (2^-8 of the value) apiece:
-    ``e + 2^-7 (1.01 |ref| + e)``."""
+    Each side sums the n = ``in`` products ``t_k = x[r,k]·(q[k,c]−8)`` in
+    f32 in its own order, with an error ``Σ_j δ_j p_j`` over its partial
+    sums p_j, |δ_j| ≤ u = 2^-24.  With the δ_j independent and zero-mean
+    (the probabilistic model of Higham and Mary, 2019), that error is within
+    ``λ u sqrt(Σ_j p_j²)`` but for odds of 2 exp(−λ²/2); each p_j sums a
+    subset of the t_k, so for such x, Σ_j p_j² is about at most n Σ_k t_k².
+    With λ = 8 (odds 2.5e-14 per element) and one rounding of the scale
+    multiply per side, two f32 results differ by at most
+    ``e = 2λ u √n ‖t‖₂ |scale| + 2u |ref|``, where ‖t‖₂ = sqrt(x² @
+    (q−8)²).  This grows as √n·‖t‖₂, as the rounding error of a fixed-order
+    sum does; a sum that drops a term per k slice, or rounds a slice's
+    partial sum to bf16, lands outside it at llama_7b's lengths.  A bf16
+    output then rounds each to bf16, half a bf16 ulp (2^-8 of the value)
+    apiece: ``e + 2^-7 (1.01 |ref| + e)``."""
     packed, scale, layer = _layer(packed, scale, layer)
-    q = unpack4(packed[layer]).float().abs()
+    q = unpack4(packed[layer]).float()
     n = q.shape[0]
-    mag = (x.reshape(-1, n).float().abs() @ q) * scale[layer].abs()
-    e = 2 * (n + 2) * F32_EPS * mag.reshape(ref.shape)
+    norm = (x.reshape(-1, n).float().square() @ q.square()).sqrt()
+    e = (2 * LAMBDA * F32_EPS * n ** 0.5 * norm * scale[layer].abs())
+    e = e.reshape(ref.shape) + 2 * F32_EPS * ref.float().abs()
     if ref.dtype == torch.float32:
         return e
     return e + BF16_ULP * (1.01 * ref.float().abs() + e)

@@ -137,6 +137,47 @@ def test_kernel_tolerance_admits_another_order_and_bf16_rounding():
     assert (one_step > tol).all()
 
 
+def sliced_sum(x, q, skip_first=False, round_partials=False, slices=16):
+    """x @ q summed as the kernel cuts it: ``slices`` fixed k slices whose
+    f32 partial sums are added in ascending order.  ``skip_first`` drops
+    each slice's first k; ``round_partials`` rounds each partial to bf16."""
+    n = q.shape[0]
+    step = -(-n // slices)
+    total = torch.zeros((x.shape[0], q.shape[1]))
+    for a in range(0, n, step):
+        lo = a + int(skip_first)
+        part = x[:, lo:a + step] @ q[lo:a + step]
+        if round_partials:
+            part = part.to(torch.bfloat16).float()
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("fault", ["none", "skip_first", "round_partials"])
+def test_kernel_tolerance_at_7b_length(fault):
+    """At w_down's contraction length (11008) the bound admits the f64
+    result and the kernel's order of slices, and rejects a sum that drops
+    one k per slice or rounds each slice's partial to bf16."""
+    rng = np.random.default_rng(11)
+    n, out, R = 11008, 128, 8
+    packed = torch.from_numpy(
+        rng.integers(0, 256, (n, out // 2), dtype=np.uint8))
+    scale = torch.from_numpy(
+        rng.uniform(1e-3, 5e-3, out).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((R, n)).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    ref = int4_matmul_ref(x, packed, scale)
+    tol = kernel_tolerance(x, packed, scale, None, ref)
+    q = unpack4(packed).float()
+    if fault == "none":
+        exact = ((x.double() @ q.double()) * scale.double()).float()
+        assert ((exact - ref).abs() <= tol).all()
+        assert ((sliced_sum(x, q) * scale - ref).abs() <= tol).all()
+    else:
+        bad = sliced_sum(x, q, **{fault: True}) * scale
+        assert ((bad - ref).abs() > tol).any()
+
+
 def _bad_inputs():
     x, packed, scale = (torch.from_numpy(a) for a in case(2, 256, 128, 4))
     yield "contraction", (x[:, :128].contiguous(), packed, scale, 0), {}, \

@@ -81,23 +81,25 @@ def test_kernel_matches_plain(cuda_device, dtype, T, NH, KH, D, S,
     assert torch.equal(got, poisoned)
 
 
-# int8-KV mode: (T, NH, KH, D, S, cache_len): tiny, llama_7b decode at
-# several live lengths, a llama_1b shape
-Q8_SHAPES = [(8, 8, 2, 16, 128, 40), (16, 32, 32, 128, 1024, 0),
-             (16, 32, 32, 128, 1024, 200), (16, 32, 32, 128, 1024, 1008),
-             (60, 32, 4, 64, 2048, 700)]
+# int8-KV mode: (T, NH, KH, D, S, cache_len, prefill): tiny, llama_7b
+# decode at several live lengths and its T = 128 prefill, a llama_1b shape
+Q8_SHAPES = [(8, 8, 2, 16, 128, 40, False), (16, 32, 32, 128, 1024, 0, False),
+             (16, 32, 32, 128, 1024, 200, False),
+             (16, 32, 32, 128, 1024, 1008, False),
+             (128, 32, 32, 128, 1024, 0, True),
+             (60, 32, 4, 64, 2048, 700, False)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,NH,KH,D,S,cache_len", Q8_SHAPES)
+@pytest.mark.parametrize("T,NH,KH,D,S,cache_len,prefill", Q8_SHAPES)
 def test_int8_kv_kernel_matches_plain(cuda_device, dtype, T, NH, KH, D, S,
-                                      cache_len):
+                                      cache_len, prefill):
     """int8 K/V with per-(head, column) scales: within ``kernel_tolerance``
     of the plain version, two runs bitwise equal, ±127 bytes and 1e30
     scales past kv_limit change nothing, one count per launch."""
     q, k, v, mask, lim = make_case(T, NH, KH, D, S, cache_len, torch.float32,
-                                   cuda_device)
+                                   cuda_device, prefill=prefill)
     q = q.to(dtype)
     (kq, ks), (vq, vs) = (quantize_kv_block(t) for t in (k, v))
     before = flash_block_attention.launches_int8
@@ -125,12 +127,13 @@ def int4_case(L, IN, OUT, R, device, seed=0):
     return x.to(torch.bfloat16), t.packed, t.scale
 
 
-# (in, out) of llama_7b's projections and head, at decode and prefill rows
+# (in, out) of llama_7b's projections and head, at decode rows and the
+# prefill buckets 128 and 256
 K3_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [16, 128])
+@pytest.mark.parametrize("R", [16, 128, 256])
 @pytest.mark.parametrize("IN,OUT", K3_SHAPES)
 def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R):
     """Within ``ops.int4_matmul.kernel_tolerance`` of the plain version in
