@@ -13,15 +13,23 @@ Phases, in order; any failure exits non-zero:
      time the kernel, the plain version and one PyTorch library call beside
      the least time the card could take:
      a. the verify attention, k/v of q's type, at llama_1b and llama_7b
-        shapes; poison past kv_limit must change nothing;
+        shapes, and llama_7b's bf16 T = 128 prefill into the paged engine's
+        128-slot cache; poison past kv_limit must change nothing;
      b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
         shape, and one llama_1b shape; int8 bytes of 127 and scales of 1e30
         past kv_limit change nothing;
      c. the int4 matmul at every llama_7b projection and head shape, at
-        16, 128 and 256 rows (decode, and the prefill buckets 128 and 256),
-        in bf16 and f32 output; row invariance: a row alone, or placed at
-        another row of another block, gives the same bits; two planted
-        faults in copies of the plain version fall outside the bound;
+        16, 128, 192 and 256 rows (decode, the prefill buckets 128 and 256,
+        and B * M = 12 * 16 rows of batched serving), in bf16 and f32
+        output; row invariance: a row alone, or placed at another row of
+        another block, gives the same bits; two planted faults in copies of
+        the plain version fall outside the bound;
+     d. the paged verify attention (K4) over a page pool with shuffled
+        tables and inactive slots: llama_7b B = 12 over int8 pages and
+        llama_1b B = 4 over pages of q's type, bf16 and f32 q; each active
+        slot bitwise equal to the verify kernel on its gathered dense KV;
+        poison past kv_limit, in pages outside the tables and in the
+        scratch page changes nothing;
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -35,7 +43,18 @@ Phases, in order; any failure exits non-zero:
      int4 kernel (225 launches) and, at T <= 128, the int8-KV verify kernel
      (32 launches).  Before it, a prefill of request (a)'s 200-token prompt
      (bucket 256, through the plain attention) into a 384-slot and a
-     1024-slot cache must agree bitwise.
+     1024-slot cache must agree bitwise;
+  6. llama_7b paged batched path: the same weights, a kv_quant=False
+     config, PagedBatchedFusedSamEngine at B = 12, M = 16, 16 steps per
+     segment, 52 int8 pages of 128, buckets 128 and 256, answers 16 requests
+     (budgets 32-128, one 200-token prompt, four repeats of earlier
+     prompts whose corpus holds their oracle output), each equal to the same
+     engine's alpha = 0 oracle bit for bit; every page comes back; K4 int8
+     launches 32 per step, the bf16 verify 32 per P = 128 prefill, K3 225
+     per forward;
+  7. llama_1b batched paths: BatchedFusedSamEngine (dense) and
+     PagedBatchedFusedSamEngine (bf16 pages of 128) at B = 4 answer six
+     requests of 64 new tokens, each equal to its own alpha = 0 oracle.
 Then a JSON line of kernels, the nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -183,21 +202,24 @@ def check_kernels(card: str) -> dict:
     from samd_tpu_torch.ops.flash_attention import (
         flash_block_attention, flash_block_attention_ref, kernel_tolerance)
 
-    S = 2048
-    cases = []   # (label, T, NH, KH, D, cache_len, prefill)
-    for cl in (0, 63, 64, 160, 700, S - 60):
-        cases.append((f"llama_1b T=60 cache_len={cl}", 60, 32, 4, 64, cl,
-                      False))
-    cases.append(("llama_1b T=1 cache_len=300", 1, 32, 4, 64, 300, False))
-    cases.append(("llama_1b T=128 prefill", 128, 32, 4, 64, 0, True))
+    cases = []   # (label, T, NH, KH, D, S, cache_len, prefill)
+    for cl in (0, 63, 64, 160, 700, 2048 - 60):
+        cases.append((f"llama_1b T=60 cache_len={cl}", 60, 32, 4, 64, 2048,
+                      cl, False))
+    cases.append(("llama_1b T=1 cache_len=300", 1, 32, 4, 64, 2048, 300,
+                  False))
+    cases.append(("llama_1b T=128 prefill", 128, 32, 4, 64, 2048, 0, True))
     cases.append(("llama_7b T=60 cache_len=700 (KH>=8)", 60, 32, 32, 128,
-                  700, False))
+                  2048, 700, False))
+    # the paged engine's prefill: a bf16 batch-1 cache of P = 128 slots
+    cases.append(("llama_7b T=128 prefill S=128 (KH>=8)", 128, 32, 32, 128,
+                  128, 0, True))
     main_label = "llama_1b T=60 cache_len=160"
     row = None
     max_err_main = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for i, (label, T, NH, KH, D, cl, pre) in enumerate(cases):
+        for i, (label, T, NH, KH, D, S, cl, pre) in enumerate(cases):
             q, k, v, mask, lim = attention_case(T, NH, KH, D, S, cl, dtype,
                                                 seed=i, prefill=pre)
             got = flash_block_attention(q, k, v, mask, lim)
@@ -225,7 +247,8 @@ def check_kernels(card: str) -> dict:
                   f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}) "
                   f"[{card}]", flush=True)
-            if dname == "bfloat16" and label.startswith("llama_1b"):
+            if dname == "bfloat16" and (label.startswith("llama_1b")
+                                        or "S=128" in label):   # on paths
                 max_err_main = max(max_err_main, err)
             if dname == "bfloat16" and label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -345,7 +368,7 @@ def check_int4(card: str) -> dict:
             + 1e-3
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
-        for R in (16, 128, 256):
+        for R in (16, 128, 192, 256):
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -416,23 +439,200 @@ def check_int4(card: str) -> dict:
     return row
 
 
+def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed):
+    """A page pool on the card with shuffled tables: slot b holds
+    ``committed[b]`` tokens plus its block of T (None: an inactive slot,
+    table all -1, kv_limit T), a random tree block mask per slot.  Returns
+    (the arguments of paged_block_attention, the active slots, the pages in
+    no table plus the scratch page)."""
+    import torch
+
+    from samd_tpu_torch.cache import quantize_kv_block
+    from samd_tpu_torch.ops.paged_attention import boundary_mask_window
+    from samd_tpu_torch.ops.treeops import tree_mask_from_parents
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    P = -(-1024 // page) + -(-T // page) + 1      # table width, with pad
+    lims = [T + (c or 0) for c in committed]
+    used = sum(-(-lim // page) for c, lim in zip(committed, lims)
+               if c is not None)
+    n_pages = used + 5
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    kp = normal(n_pages + 1, KH, page, D)
+    vp = normal(n_pages + 1, KH, page, D)
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = (quantize_kv_block(t) for t in (kp, vp))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    perm = rng.permutation(n_pages)
+    tables = np.full((B, P), -1, np.int32)
+    at = 0
+    for b, (c, lim) in enumerate(zip(committed, lims)):
+        if c is not None:
+            npg = -(-lim // page)
+            tables[b, :npg] = perm[at:at + npg]
+            at += npg
+    wins = []
+    for b in range(B):
+        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        tree = tree_mask_from_parents(torch.tensor(parents)).cuda()
+        wins.append(boundary_mask_window(tree, committed[b] or 0, page))
+    args = (normal(B, T, NH, D).to(dtype), kp, vp,
+            torch.from_numpy(tables).cuda(), torch.stack(wins).contiguous(),
+            torch.tensor(lims, dtype=torch.int32, device="cuda"), ks, vs)
+    active = [b for b, c in enumerate(committed) if c is not None]
+    spare = sorted(set(range(n_pages)) - set(perm[:at].tolist()))
+    return args, active, spare + [n_pages]
+
+
+def poison_pages(args, active, spare, page):
+    """Copies of the pools with 1e30 (int8: 127 with scales of 1e30) past
+    each active slot's kv_limit in its last page, in every page outside the
+    tables and in the scratch page."""
+    q, kp, vp, tables, win, lims, ks, vs = args
+    kp, vp = kp.clone(), vp.clone()
+    ks, vs = (None, None) if ks is None else (ks.clone(), vs.clone())
+    big = 127 if kp.dtype == __import__("torch").int8 else 1e30
+    spots = [(p, 0) for p in spare]
+    for b in active:
+        lim = int(lims[b])
+        if lim % page:
+            spots.append((int(tables[b, lim // page]), lim % page))
+    for p, r0 in spots:
+        kp[p, :, r0:] = big
+        vp[p, :, r0:] = -big
+        if ks is not None:
+            ks[p, :, r0:] = 1e30
+            vs[p, :, r0:] = 1e30
+    return (q, kp, vp, tables, win, lims, ks, vs)
+
+
+def check_paged(card: str) -> dict:
+    """Phase 3d: the paged verify attention, K4."""
+    import torch
+    import torch.nn.functional as F
+
+    from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
+                                                    kernel_tolerance)
+    from samd_tpu_torch.ops.paged_attention import (gather_pages,
+                                                    paged_block_attention,
+                                                    paged_block_attention_ref,
+                                                    window_to_mask)
+
+    # (name, label, B, T, NH, KH, D, page, committed lengths, int8 pool)
+    cases = [
+        ("paged_block_attention_int8kv", "llama_7b B=12 T=16 int8 pages",
+         12, 16, 32, 32, 128, 128,
+         [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700, 1008], True),
+        ("paged_block_attention", "llama_1b B=4 T=16 q-typed pages", 4, 16,
+         32, 4, 64, 128, [300, None, 64, 1008], False),
+    ]
+    rows = {}
+    for name, label, B, T, NH, KH, D, page, committed, int8 in cases:
+        row, max_err = None, 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            tag = f"{label} {dname}"
+            args, active, spare = paged_case(B, T, NH, KH, D, page, committed,
+                                             dtype, int8, seed=300 + B)
+            got = paged_block_attention(*args)
+            again = paged_block_attention(*args)
+            poisoned = paged_block_attention(*poison_pages(args, active,
+                                                           spare, page))
+            ref = paged_block_attention_ref(*args)
+            torch.cuda.synchronize()
+            err, tol_at = check_close(f"paged_block_attention {tag}",
+                                      got[active], ref[active],
+                                      kernel_tolerance(ref[active]),
+                                      again[active])
+            fail_if(not torch.equal(got[active], poisoned[active]),
+                    f"paged_block_attention {tag}: poison changed the result")
+            q, kp, vp, tables, win, lims, ks, vs = args
+            dense = []        # each active slot's gathered KV, for SDPA too
+            for b in active:
+                tb = tables[b:b + 1]
+                kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+                sc = () if ks is None else (gather_pages(ks, tb),
+                                            gather_pages(vs, tb))
+                mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                                      kd.shape[2])
+                one = flash_block_attention(q[b:b + 1].contiguous(), kd, vd,
+                                            mask, lims[b], *sc)
+                fail_if(not torch.equal(got[b], one[0]),
+                        f"paged_block_attention {tag}: slot {b} differs from "
+                        "the verify kernel on its gathered KV")
+                lim = int(lims[b])
+                if sc:
+                    kd = (kd.float() * sc[0][..., None]).to(dtype)
+                    vd = (vd.float() * sc[1][..., None]).to(dtype)
+                G = NH // KH
+                dense.append((q[b:b + 1].transpose(1, 2),
+                              kd[:, :, :lim].repeat_interleave(G, dim=1),
+                              vd[:, :, :lim].repeat_interleave(G, dim=1),
+                              mask[:, None, :, :lim]))
+            torch.cuda.synchronize()
+
+            def library(i):
+                for ql, kl, vl, m in dense:
+                    F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
+
+            ms = cuda_ms(lambda i: paged_block_attention(*args))
+            plain_ms = cuda_ms(lambda i: paged_block_attention_ref(*args),
+                               iters=10)
+            library_ms = cuda_ms(library)
+            isz = 2 if dtype == torch.bfloat16 else 4
+            per_col = KH * (D + 4 if int8 else D * isz)   # K or V, per column
+            live = sum(int(lims[b]) for b in active)
+            nbytes = (2 * live * per_col + 2 * q.numel() * isz + win.numel()
+                      + tables.numel() * 4 + B * 4)
+            bound_ms, bound_by = bound(nbytes, 4 * NH * T * D * live, dname)
+            print(f"kernel paged_block_attention {tag}: max_abs_err {err:.3e}"
+                  f" (tol at that element {tol_at:.3e}) kernel_ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  f"(SDPA per active slot on its gathered live KV, "
+                  f"dequantized) bound_ms {bound_ms:.5f} ({bound_by}; "
+                  f"{live} live columns) bitwise equal to the verify kernel "
+                  f"on gathered KV in {len(active)} slots [{card}]",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, err)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+        row["max_abs_err"] = max_err
+        rows[name] = row
+    return rows
+
+
 def reset_counts() -> None:
     from samd_tpu_torch.ops.flash_attention import flash_block_attention
     from samd_tpu_torch.ops.int4_matmul import int4_matmul
+    from samd_tpu_torch.ops.paged_attention import paged_block_attention
 
     flash_block_attention.launches = 0
     flash_block_attention.launches_int8 = 0
     int4_matmul.launches = 0
+    paged_block_attention.launches = 0
+    paged_block_attention.launches_int8 = 0
 
 
 def read_counts() -> dict:
     from samd_tpu_torch.ops.flash_attention import flash_block_attention
     from samd_tpu_torch.ops.int4_matmul import int4_matmul
+    from samd_tpu_torch.ops.paged_attention import paged_block_attention
 
     return {"flash_block_attention": flash_block_attention.launches,
             "flash_block_attention_int8kv":
                 flash_block_attention.launches_int8,
-            "int4_matmul": int4_matmul.launches}
+            "int4_matmul": int4_matmul.launches,
+            "paged_block_attention": paged_block_attention.launches,
+            "paged_block_attention_int8kv":
+                paged_block_attention.launches_int8}
 
 
 def serve(card, name_cfg, engines, prompts, refs, gen, vocab) -> list:
@@ -510,7 +710,8 @@ def main_path_1b(card: str) -> int:
     fail_if(launches != expected or launches == 0,
             f"llama_1b: flash_block_attention launched {launches} times, "
             f"expected {expected} (22 layers x every forward)")
-    fail_if(counts["flash_block_attention_int8kv"] or counts["int4_matmul"],
+    fail_if(any(v for k, v in counts.items()
+                if k != "flash_block_attention"),
             f"llama_1b: launches of kernels off its path: {counts}")
     print(f"llama_1b path: flash_block_attention launches {launches} = "
           f"{cfg.num_layers} layers x (3 prefills + decode steps)",
@@ -567,19 +768,17 @@ def bucket_prefill_check(card, cfg, params, prompt) -> None:
           f"{int((live != full).sum())} differ [{card}]", flush=True)
 
 
-def main_path_7b(card: str) -> tuple:
-    """Phase 5: llama_7b, int4 weights, int8 KV."""
+def llama_7b_int4_params():
+    """llama_7b at full width, packed-int4 weights requantized from an int8
+    base drawn on the card from seed 0 (shared by phases 5 and 6)."""
     import torch
 
-    from samd_tpu_torch.config import GenerationConfig
-    from samd_tpu_torch.engine import ArBaseline
-    from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
     from samd_tpu_torch.models import llama_7b
     from samd_tpu_torch.ops.quant import (init_quantized_llama_params,
                                           int4_from_int8_params,
                                           quantized_bytes)
 
-    cfg = dataclasses.replace(llama_7b(), kv_quant=True)
+    cfg = llama_7b()
     fail_if(cfg.int4_impl != "kernel" or cfg.attention_impl != "flash",
             "llama_7b: the kernels are not the default routes")
     t0 = time.perf_counter()
@@ -594,6 +793,18 @@ def main_path_7b(card: str) -> tuple:
     print(f"llama_7b weights: int8 base drawn on the card and requantized "
           f"to packed int4 in {time.perf_counter() - t0:.1f} s; "
           f"{quantized_bytes(params) / 1e9:.3f} GB", flush=True)
+    return cfg, params
+
+
+def main_path_7b(card: str, cfg, params) -> tuple:
+    """Phase 5: llama_7b, int4 weights, int8 KV."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+
+    cfg = dataclasses.replace(cfg, kv_quant=True)
     fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
                         cache_buckets=(256, 384, 512, 768))
     M, S, new = fc.block, 1024, 128
@@ -629,7 +840,8 @@ def main_path_7b(card: str) -> tuple:
     short = sum(steps + (n <= 128) for n, steps in done)  # T <= 128 forwards
     want = {"flash_block_attention": 0,
             "flash_block_attention_int8kv": cfg.num_layers * short,
-            "int4_matmul": (7 * cfg.num_layers + 1) * forwards}
+            "int4_matmul": (7 * cfg.num_layers + 1) * forwards,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
     fail_if(counts != want or not counts["int4_matmul"]
             or not counts["flash_block_attention_int8kv"],
             f"llama_7b: launch counts {counts}, expected {want} (225 int4 "
@@ -640,6 +852,197 @@ def main_path_7b(card: str) -> tuple:
           f"{counts['flash_block_attention_int8kv']} = 32 x {short} forwards "
           f"of T <= 128", flush=True)
     return counts["int4_matmul"], counts["flash_block_attention_int8kv"]
+
+
+def serve_batched(engine, requests, vocab):
+    """Queue every (prompt, budget) request, run the engine to the end and
+    check each output's form; returns (outputs in order, wall seconds,
+    [B, M] forwards run)."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+
+    steps0 = engine.steps_run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [engine.add_request(p, GenerationConfig(max_new_tokens=n,
+                                                  max_cache_len=engine.S))
+           for p, n in requests]
+    out = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [out[i] for i in ids]
+    for (p, n), o in zip(requests, outs):
+        fail_if(len(o.output_ids) != len(p) + n or o.output_ids[:len(p)] != p
+                or not all(0 <= t < vocab for t in o.output_ids),
+                "batched serving: malformed output")
+    return outs, wall, engine.steps_run - steps0
+
+
+def report_batched(card, label, requests, outs, wall, steps, oracle):
+    """Check every request against the oracle's tokens; print the run's
+    numbers."""
+    for i, (o, r) in enumerate(zip(outs, oracle)):
+        if o.output_ids != r.output_ids:
+            diff = next(j for j, (a, b) in enumerate(
+                zip(o.output_ids, r.output_ids)) if a != b)
+            raise SystemExit(f"{label} request {i}: tokens differ from the "
+                             f"alpha = 0 oracle at {diff}")
+    new = sum(o.decode_tokens for o in outs)
+    slot_steps = sum(o.decode_steps for o in outs)
+    print(f"{label}: {len(outs)} requests, {new} new tokens, {steps} steps "
+          f"of [B, M], wall {wall:.3f} s (prefills included): "
+          f"{new / wall:.2f} tok/s, {wall / steps * 1e3:.3f} ms/step, mean "
+          f"accept {new / slot_steps:.3f} per live slot-step; every request "
+          f"equal to the alpha = 0 oracle [{card}]", flush=True)
+
+
+def main_path_7b_paged(card: str, cfg, params) -> int:
+    """Phase 6: llama_7b int4 weights over int8 pages, B = 12."""
+    import torch
+
+    from samd_tpu_torch.fused_sam import (FusedSamConfig, FusedSamEngine,
+                                          PagedBatchedFusedSamEngine)
+
+    S, B, page, n_pages = 1024, 12, 128, 52
+    kw = dict(batch_size=B, max_cache_len=S, eos_token_id=-1,
+              prefill_buckets=(128, 256), n_pages=n_pages, page_size=page,
+              quantized_kv=True)
+    rng = np.random.default_rng(11)
+    fresh = [(rng.integers(3, cfg.vocab_size, size=int(n)).tolist(),
+              int(rng.integers(32, 129)))
+             for n in rng.integers(40, 129, size=11)]
+    fresh.append((rng.integers(3, cfg.vocab_size, size=200).tolist(),
+                  int(rng.integers(32, 129))))
+    requests = fresh + fresh[:4]          # four repeats of earlier prompts
+
+    def engine(fc, corpus=None):
+        return PagedBatchedFusedSamEngine(cfg, params, fc, corpus=corpus,
+                                          **kw)
+
+    oracle_eng = engine(FusedSamConfig(n_predicts=15, steps_per_call=16,
+                                       corpus_capacity=4096, alpha=0.0))
+    oracle, o_wall, o_steps = serve_batched(oracle_eng, requests,
+                                            cfg.vocab_size)
+    o_new = sum(o.decode_tokens for o in oracle)
+    print(f"llama_7b paged oracle (alpha = 0): {o_new} new tokens, "
+          f"{o_steps} steps, wall {o_wall:.3f} s: {o_new / o_wall:.2f} tok/s, "
+          f"{o_wall / o_steps * 1e3:.3f} ms/step [{card}]", flush=True)
+    del oracle_eng
+    corpus = sum((o.output_ids + [0] for o in oracle[:4]), [])
+    fc = FusedSamConfig(n_predicts=15, steps_per_call=16,
+                        corpus_capacity=4096)
+    eng = engine(fc, corpus)
+    gc.collect()
+    torch.cuda.synchronize()
+
+    reset_counts()                              # the path starts here
+    outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
+    counts = read_counts()                      # the path ends here
+    report_batched(card, "llama_7b int4 paged int8 pages B=12", requests,
+                   outs, wall, steps, oracle)
+    fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
+            f"llama_7b paged: {n_pages - len(eng.pool._free)} pages not "
+            "returned")
+    p128 = sum(len(p) <= 128 for p, _ in requests)
+    want = {"flash_block_attention": cfg.num_layers * p128,
+            "flash_block_attention_int8kv": 0,
+            "int4_matmul": (7 * cfg.num_layers + 1) * (steps + len(requests)),
+            "paged_block_attention": 0,
+            "paged_block_attention_int8kv": cfg.num_layers * steps}
+    fail_if(counts != want or not steps,
+            f"llama_7b paged: launch counts {counts}, expected {want} (K4 "
+            "int8 32 per step, the bf16 verify 32 per P = 128 prefill, K3 225 "
+            "per forward)")
+    print(f"llama_7b paged path: K4 int8 launches "
+          f"{counts['paged_block_attention_int8kv']} = 32 x {steps} steps; "
+          f"bf16 verify {counts['flash_block_attention']} = 32 x {p128} "
+          f"P = 128 prefills; int4_matmul {counts['int4_matmul']} = 225 x "
+          f"{steps + len(requests)} forwards; peak_pages {eng.peak_pages} of "
+          f"{n_pages}; all pages returned [{card}]", flush=True)
+    del eng
+    gc.collect()
+
+    # for the record: the single-stream engine over a dense int8 cache (its
+    # prefill attends int8 KV, the paged prefill bf16: another trajectory)
+    single = FusedSamEngine(dataclasses.replace(cfg, kv_quant=True), params,
+                            FusedSamConfig(n_predicts=15,
+                                           corpus_capacity=4096),
+                            corpus=corpus, max_cache_len=S, eos_token_id=-1,
+                            prefill_buckets=(128, 256))
+    from samd_tpu_torch.config import GenerationConfig
+    same = sum(single.generate(p, GenerationConfig(
+        max_new_tokens=n, max_cache_len=S)).output_ids == o.output_ids
+        for (p, n), o in zip(requests, outs))
+    print(f"llama_7b paged vs single-stream FusedSamEngine (dense int8 KV): "
+          f"{same} of {len(requests)} requests equal (not required)",
+          flush=True)
+    return counts["paged_block_attention_int8kv"]
+
+
+def main_path_1b_batched(card: str) -> int:
+    """Phase 7: llama_1b bf16, B = 4, dense and paged batched engines."""
+    import torch
+
+    from samd_tpu_torch.fused_sam import (BatchedFusedSamEngine,
+                                          FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+    from samd_tpu_torch.models import init_params, llama_1b
+
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    S = 1024
+    kw = dict(batch_size=4, max_cache_len=S, eos_token_id=-1,
+              prefill_buckets=(128, 256))
+    rng = np.random.default_rng(13)
+    fresh = [(rng.integers(3, cfg.vocab_size, size=int(n)).tolist(), 64)
+             for n in rng.integers(40, 101, size=4)]
+    requests = fresh + fresh[:2]
+
+    def fcfg(alpha=4.0):
+        return FusedSamConfig(n_predicts=15, steps_per_call=16,
+                              corpus_capacity=4096, alpha=alpha)
+
+    runs = {}
+    for name, make in (
+            ("dense", lambda fc, corpus=None: BatchedFusedSamEngine(
+                cfg, params, fc, corpus=corpus, **kw)),
+            ("paged", lambda fc, corpus=None: PagedBatchedFusedSamEngine(
+                cfg, params, fc, corpus=corpus, n_pages=32, page_size=128,
+                **kw))):
+        oracle, _, _ = serve_batched(make(fcfg(0.0)), requests,
+                                     cfg.vocab_size)
+        corpus = sum((o.output_ids + [0] for o in oracle[:2]), [])
+        eng = make(fcfg(), corpus)
+        torch.cuda.synchronize()
+        reset_counts()                          # the path starts here
+        outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
+        counts = read_counts()                  # the path ends here
+        report_batched(card, f"llama_1b bf16 {name} B=4", requests, outs,
+                       wall, steps, oracle)
+        want = {"flash_block_attention": cfg.num_layers * len(requests),
+                "flash_block_attention_int8kv": 0, "int4_matmul": 0,
+                "paged_block_attention":
+                    cfg.num_layers * steps if name == "paged" else 0,
+                "paged_block_attention_int8kv": 0}
+        fail_if(counts != want or not steps,
+                f"llama_1b {name}: launch counts {counts}, expected {want}")
+        if name == "paged":
+            fail_if(len(eng.pool._free) != 32,
+                    "llama_1b paged: pages not returned")
+        runs[name] = (outs, counts)
+        del eng
+        gc.collect()
+    agree = sum(a.output_ids == b.output_ids
+                for a, b in zip(runs["dense"][0], runs["paged"][0]))
+    print(f"llama_1b batched: dense and paged engines agree on {agree} of "
+          f"{len(requests)} requests (not required: the dense engine attends "
+          f"plainly over all S columns, the paged one through K4); K4 bf16 "
+          f"launches {runs['paged'][1]['paged_block_attention']} [{card}]",
+          flush=True)
+    return runs["paged"][1]["paged_block_attention"]
 
 
 def main() -> int:
@@ -677,14 +1080,24 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     rows = {"flash_block_attention": check_kernels(card),
             "flash_block_attention_int8kv": check_int8_attention(card),
-            "int4_matmul": check_int4(card)}
+            "int4_matmul": check_int4(card), **check_paged(card)}
 
-    # phases 4 and 5: the paths, each with its counts read on its own
+    # phases 4 to 7: the paths, each with its counts read on its own
     launches = {"flash_block_attention": main_path_1b(card)}
     gc.collect()
     torch.cuda.empty_cache()
+    cfg7, params7 = llama_7b_int4_params()
     (launches["int4_matmul"],
-     launches["flash_block_attention_int8kv"]) = main_path_7b(card)
+     launches["flash_block_attention_int8kv"]) = main_path_7b(card, cfg7,
+                                                             params7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["paged_block_attention_int8kv"] = main_path_7b_paged(
+        card, cfg7, params7)
+    del params7
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["paged_block_attention"] = main_path_1b_batched(card)
 
     meta = {
         "flash_block_attention": (
@@ -695,6 +1108,12 @@ def main() -> int:
             "samd_tpu/ops/pallas_attention.py:171"),
         "int4_matmul": ("samd_tpu_torch/csrc/int4_matmul.cu",
                         "samd_tpu/ops/int4_matmul.py:168"),
+        "paged_block_attention": (
+            "samd_tpu_torch/csrc/flash_block_attention.cu",
+            "samd_tpu/ops/paged_attention.py:40"),
+        "paged_block_attention_int8kv": (
+            "samd_tpu_torch/csrc/flash_block_attention.cu",
+            "samd_tpu/ops/paged_attention.py:40"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],

@@ -6,9 +6,10 @@ that shape and one f32 scale per (token, KV head), ``[L, B, KH, S]``.  The
 port keeps the "sd" layout for int8 KV too (the reference's int8 kernel
 needed "ds").  Writes and the acceptance compaction update the cache in
 place — the counterpart of the reference's donated buffers.  The committed
-length lives in the engine loop, not in the tensors.  ``update_slot`` and
-``compact_accepted_batched`` come with batched serving (ROADMAP queue 1
-item 9).
+length lives in the engine loop, not in the tensors.  ``update_slot``
+admits a request into one slot of a batched cache.  The per-slot
+compaction ``compact_accepted_batched`` serves only the tree and hybrid
+engines and comes with them (ROADMAP queue 1 items 12-13).
 """
 
 from __future__ import annotations
@@ -93,6 +94,22 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_cache_len: int,
     dtype = dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def update_slot(kv: KV, fk: KV, slot: int) -> KV:
+    """Write a batch-1 cache ``fk`` ([L, 1, KH, S, D], or ``QuantizedKV``)
+    into ``slot`` of a batched cache ``kv`` ([L, B, KH, S, D]) IN PLACE and
+    return ``kv`` — continuous-batching admission.  A ``QuantizedKV`` takes
+    its values and scales written separately."""
+    if isinstance(kv, QuantizedKV):
+        update_slot(kv.q, fk.q, slot)
+        update_slot(kv.scale, fk.scale, slot)
+        return kv
+    if fk.shape[1] != 1 or fk.shape[2:] != kv.shape[2:]:
+        raise ValueError(f"a batch-1 cache of shape {tuple(fk.shape)} does "
+                         f"not fit a slot of {tuple(kv.shape)}")
+    kv[:, slot] = fk[:, 0]
+    return kv
 
 
 def compact_accepted(kv: KV, offset: Union[int, torch.Tensor],

@@ -19,39 +19,44 @@ from .fused_sam import suffix_match
 def _retrieval_draft_argform(*, S: int, max_ngram: int, ext: int,
                              len_bias: int, block: int):
     """Returns ``draft(corpus, corpus_len, history, hist_len, start) ->
-    (match, tokens [block], cont_avail)`` with ``tokens[0] == start``;
+    (match [B], tokens [B, block], cont_avail [B])`` over a leading slot
+    axis: history [B, S], hist_len and start [B]; the corpus [C] and its
+    0-dim length are shared by the slots.  ``tokens[:, 0] == start``;
     positions past the available continuation hold the raw clamped gather,
-    and callers apply their own length policy.  The reference's
-    ``corpus_index`` argument comes with the n-gram index (ROADMAP queue 1
-    item 11)."""
+    and callers apply their own length policy.  The single-stream engine
+    calls it with B = 1.  The reference's ``corpus_index`` argument comes
+    with the n-gram index (ROADMAP queue 1 item 11)."""
     Q = max_ngram
     M = block
 
     def draft(corpus, corpus_len, history, hist_len, start):
         dev = history.device
-        qidx = hist_len - (Q - 1) + torch.arange(Q - 1, device=dev)
-        query = torch.where(qidx >= 0, history[torch.clamp(qidx, 0, S - 1)],
-                            -1)
-        query = torch.cat([query, start.reshape(1).to(query.dtype)])
-        tidx = hist_len - (Q - 1) - ext + torch.arange(ext, device=dev)
-        tail = torch.where(tidx >= 0, history[torch.clamp(tidx, 0, S - 1)],
-                           -1)
+        hl = hist_len[:, None]                                   # [B, 1]
+
+        def window(idx):
+            return torch.where(idx >= 0, torch.gather(
+                history, 1, torch.clamp(idx, 0, S - 1).long()), -1)
+
+        query = window(hl - (Q - 1) + torch.arange(Q - 1, device=dev))
+        query = torch.cat([query, start[:, None].to(query.dtype)], dim=1)
+        tail = window(hl - (Q - 1) - ext + torch.arange(ext, device=dev))
         tail_len = torch.clamp(hist_len - (Q - 1), 0, ext)
         m_dyn, e_dyn = suffix_match(history, hist_len, query, tail,
                                     tail_len, max_ngram=Q, ext=ext)
-        m_cor, e_cor = suffix_match(corpus, corpus_len, query, tail,
+        m_cor, e_cor = suffix_match(corpus[None], corpus_len, query, tail,
                                     tail_len, max_ngram=Q, ext=ext)
         m_cor_adj = m_cor - len_bias
         use_dyn = m_dyn >= m_cor_adj
         match = torch.maximum(m_dyn, m_cor_adj)
         src = torch.where(use_dyn, e_dyn, e_cor)
         src_len = torch.where(use_dyn, hist_len, corpus_len)
-        cidx = src + 1 + torch.arange(M - 1, device=dev)
-        cont = torch.where(use_dyn,
-                           history[torch.clamp(cidx, 0, S - 1)],
-                           corpus[torch.clamp(cidx, 0, corpus.shape[0] - 1)])
+        cidx = src[:, None] + 1 + torch.arange(M - 1, device=dev)
+        cont = torch.where(
+            use_dyn[:, None],
+            torch.gather(history, 1, torch.clamp(cidx, 0, S - 1).long()),
+            corpus[torch.clamp(cidx, 0, corpus.shape[0] - 1).long()])
         cont_avail = torch.clamp(src_len - (src + 1), 0, M - 1)
-        tokens = torch.cat([start.reshape(1).to(cont.dtype), cont]
+        tokens = torch.cat([start[:, None].to(cont.dtype), cont], dim=1
                            ).to(torch.int32)
         return match, tokens, cont_avail
 

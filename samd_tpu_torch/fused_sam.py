@@ -1,5 +1,5 @@
 """Fused device-resident SAM-style retrieval decoding, greedy (counterpart
-of ``samd_tpu/fused_sam.py:48-129, 233-439``).
+of ``samd_tpu/fused_sam.py:48-129, 233-439, 446-1069``).
 
 Each decode step drafts by longest-suffix match over the request's own
 history and a static corpus, verifies the chain draft with one forward over
@@ -9,23 +9,38 @@ commits it — all on the device.  The reference runs these steps inside one
 packed control vector (``fused_base.pack_ctrl``) per step, the only host
 sync of the step.  The KV cache and the history are updated in place.
 
-Greedy output equals ``engine.ArBaseline(block_size=M)``'s exactly.  The
-sampling branch is ROADMAP queue 1 item 7, the n-gram index item 11.
+``FusedSamEngine`` serves one request at a time; ``BatchedFusedSamEngine``
+steps B request slots together over a dense batched cache, with a slot
+scheduler and continuous admission; ``PagedBatchedFusedSamEngine`` keeps
+the slots' KV in a shared page pool read by the paged kernel (K4).  The
+batched engines run segments of at most ``steps_per_call`` steps, each
+step one ``[B, M]`` forward of every slot, live or not, so the shape never
+changes.
+
+Greedy output equals ``engine.ArBaseline(block_size=M)``'s exactly, and a
+batched engine's equals the same engine's with ``alpha=0`` (block-M AR
+through the same ``[B, M]`` forward).  The sampling branch is ROADMAP
+queue 1 item 7, the n-gram index item 11.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from .cache import init_kv_cache
+from .cache import init_kv_cache, update_slot
 from .config import GenerationConfig, require_greedy
 from .device import resolve_device
 from .engine import PREFILL_BUCKETS, Outputs, _bucket, check_params_device
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
+from .ops.paged_attention import boundary_mask_window
+from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
+                       paged_flat_indices, paged_write_block)
+from .streaming import ProgressStreamMixin
 from .verify import take
 
 
@@ -36,10 +51,12 @@ class FusedSamConfig:
     n_predicts: int = 59      # max draft continuation (block = +1)
     alpha: float = 4.0
     len_bias: int = 0
+    # the batched engines' segment length: the most steps between two
+    # admission points (the single-stream engine has no segments)
+    steps_per_call: int = 256
     corpus_capacity: int = 1 << 15  # static corpus buffer size
     # the reference's n-gram index fields (``indexed`` and its tuning) come
-    # with the index, ROADMAP queue 1 item 11; its steps_per_call has no
-    # reader in a host loop that runs one step per call
+    # with the index, ROADMAP queue 1 item 11
     # per-request KV-cache sizes (ascending): a request's cache is the
     # smallest bucket >= prompt + budget + block; () = max_cache_len
     cache_buckets: Tuple[int, ...] = ()
@@ -53,45 +70,69 @@ def suffix_match(buffer: torch.Tensor, buf_len: torch.Tensor,
                  query: torch.Tensor, tail: torch.Tensor,
                  tail_len: torch.Tensor, *, max_ngram: int,
                  ext: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Longest-suffix match of ``query`` (the [Q] trailing window, -1
-    padded on the left) in ``buffer[:buf_len]``.
+    """Longest-suffix match of each ``query`` (the [Q] trailing window, -1
+    padded on the left) in its ``buffer[:buf_len]``.
 
-    ``tail``/[ext] holds the tokens *preceding* the query window (newest
-    last, -1 padded) for backward extension of full-window hits.  Returns
-    (match_len, end_pos) as 0-dim int32: end_pos is the first (earliest)
-    end index of a longest match; match_len == 0 when nothing matches."""
-    L = buffer.shape[0]
+    Batched over a leading slot axis: query [B, Q], tail [B, ext] (the
+    tokens *preceding* the query window, newest last, -1 padded, for
+    backward extension of full-window hits), tail_len [B]; buffer [B, L]
+    with buf_len [B], or one buffer [1, L] with a 0-dim buf_len shared by
+    all B queries (the corpus).  Unbatched 1-D arguments give 0-dim
+    results.  Returns (match_len, end_pos), int32 [B]: end_pos is the first
+    (earliest) end index of a longest match; match_len == 0 when nothing
+    matches."""
+    if query.dim() == 1:
+        m, e = suffix_match(buffer[None], buf_len, query[None], tail[None],
+                            tail_len.reshape(1), max_ngram=max_ngram,
+                            ext=ext)
+        return m[0], e[0]
+    Bq, L = query.shape[0], buffer.shape[-1]
     Q = max_ngram
     dev = buffer.device
     idx = torch.arange(L, device=dev)
-    run = torch.zeros((L,), dtype=torch.int32, device=dev)
-    alive = torch.ones((L,), dtype=torch.bool, device=dev)
+    run = torch.zeros((Bq, L), dtype=torch.int32, device=dev)
+    alive = torch.ones((Bq, L), dtype=torch.bool, device=dev)
     for j in range(Q - 1, -1, -1):
         # window position j aligns with buffer index i - (Q-1) + j
         shift = Q - 1 - j
-        shifted = torch.roll(buffer, shift)
-        ok = (shifted == query[j]) & (query[j] >= 0) & (idx >= shift)
+        shifted = torch.roll(buffer, shift, dims=-1)
+        qj = query[:, j:j + 1]
+        ok = (shifted == qj) & (qj >= 0) & (idx >= shift)
         alive = alive & ok
         run = run + alive.to(torch.int32)
-    valid = idx < buf_len
+    valid = idx < buf_len.reshape(-1, 1)
     run = torch.where(valid, torch.minimum(run, (idx + 1).to(torch.int32)),
                       0)
-    best_len = run.max()
+    best_len = run.amax(dim=1)                                   # [B]
     # first (earliest) end position among the longest matches
-    is_best = (run == best_len) & (best_len > 0)
-    end = torch.argmax(is_best.to(torch.int32)).to(torch.int32)
+    is_best = (run == best_len[:, None]) & (best_len[:, None] > 0)
+    end = torch.argmax(is_best.to(torch.int32), dim=1).to(torch.int32)
     # backward extension for full-window matches
     full = best_len >= torch.clamp(end + 1, max=Q)
     ar = torch.arange(ext, device=dev)
-    eidx = end - Q - ar
-    ecand = buffer[torch.clamp(eidx, 0, L - 1)]
-    etail = torch.flip(tail, (0,))                          # newest-first
-    eok = (ecand == etail) & (eidx >= 0) & (etail >= 0) & (ar < tail_len)
-    extra = torch.cumprod(eok.to(torch.int32), dim=0).sum()
+    eidx = end[:, None] - Q - ar                                 # [B, ext]
+    ecand = torch.gather(buffer.expand(Bq, L), 1,
+                         torch.clamp(eidx, 0, L - 1).long())
+    etail = torch.flip(tail, (1,))                          # newest-first
+    eok = (ecand == etail) & (eidx >= 0) & (etail >= 0) \
+        & (ar < tail_len[:, None])
+    extra = torch.cumprod(eok.to(torch.int32), dim=1).sum(dim=1)
     match = torch.where(
         best_len > 0,
         best_len + torch.where(full & (best_len == Q), extra, 0), 0)
     return match.to(torch.int32), end
+
+
+def chain_tree_mask(dlens: torch.Tensor, M: int) -> torch.Tensor:
+    """[..., M, M] in-block masks of chain drafts of length ``dlens`` [...]:
+    row t sees block columns up to t below its slot's draft length, and
+    always its own column (rows past the draft only feed the accept rule's
+    bonus position)."""
+    dev = dlens.device
+    r = torch.arange(M, device=dev)
+    tri = r[None, :] <= r[:, None]
+    return (tri & (r[None, :] < dlens[..., None, None])) \
+        | torch.eye(M, dtype=torch.bool, device=dev)
 
 
 class FusedSamEngine:
@@ -123,10 +164,7 @@ class FusedSamEngine:
         self._draft = _retrieval_draft_argform(
             S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
             len_bias=self.cfg.len_bias, block=self.cfg.block)
-        M = self.cfg.block
-        self._tri = torch.tril(torch.ones((M, M), dtype=torch.bool,
-                                          device=self.device))
-        self._chain_pos = torch.arange(M, dtype=torch.int32,
+        self._chain_pos = torch.arange(self.cfg.block, dtype=torch.int32,
                                        device=self.device)
 
     # ------------------------------------------------------------------
@@ -156,18 +194,15 @@ class FusedSamEngine:
         caller keeps hist_len + M <= W."""
         fc, M = self.cfg, self.cfg.block
         chain_pos = self._chain_pos
-        match, draft_tokens, cont_avail = self._draft(
-            self.corpus, self.corpus_len, history, hist_len, start)
+        match, draft_tokens, cont_avail = (t[0] for t in self._draft(
+            self.corpus, self.corpus_len, history[None], hist_len[None],
+            start[None]))
         # adaptive draft length n = 1 + match * alpha (sam_only policy)
         n = torch.clamp(1 + (match.float() * fc.alpha).to(torch.int32),
                         max=fc.n_predicts + 1)
         draft_len = torch.where(match > 0, torch.minimum(n, 1 + cont_avail),
                                 1).to(torch.int32)
-        s = torch.arange(W, device=self.device)[None, None, :]
-        mask = block_decode_mask(self._tri, hist_len, W)
-        in_block = (s >= hist_len) & (s < hist_len + M)
-        mask = mask & (~in_block | (s < hist_len + draft_len))
-        mask = mask | (s == (hist_len + chain_pos)[None, :, None])
+        mask = block_decode_mask(chain_tree_mask(draft_len, M), hist_len, W)
         logits, _ = forward(
             self.params, self.model_cfg,
             torch.clamp(draft_tokens, min=0)[None],
@@ -232,3 +267,490 @@ class FusedSamEngine:
                                      self.eos_token_id, gen.max_new_tokens)
         return Outputs(output, len(output) - len(input_ids), decode_steps,
                        [])
+
+
+# ----------------------------------------------------------------------
+# Batched fused serving: continuous batching x device-resident retrieval
+# ----------------------------------------------------------------------
+
+class BatchedFusedSamEngine(ProgressStreamMixin):
+    """B request slots stepped together (reference
+    ``samd_tpu/fused_sam.py:446-887``), greedy.
+
+    Per segment (at most ``steps_per_call`` steps) every slot drafts from
+    its own history and the shared corpus, and one ``[B, M]`` forward
+    verifies all B slots, live or not; accept, EOS, budget and commit run
+    per slot on the device.  Each step reads one packed ``[5, B]`` int32
+    control matrix (committed lengths, start tokens, budgets, live flags,
+    live steps) — the counterpart of the reference's ``while_loop`` and its
+    single transfer.  When requests wait in the queue, a segment ends as
+    soon as a slot frees, so it can be refilled.  Host work per segment:
+    admit and finish slots.  Per-request progress streaming through
+    ``progress_listeners`` (``streaming.ProgressStreamMixin``).
+
+    ``inline_prefill``: a request is admitted without a prefill forward;
+    its prompt streams through the decode steps as a forced-accept chain,
+    M tokens per step.  Sampling requests raise (ROADMAP queue 1 item 7).
+    """
+
+    def __init__(self, model_cfg: ModelConfig, params: Params,
+                 fs_cfg: Optional[FusedSamConfig] = None, *,
+                 corpus: Optional[Sequence[int]] = None,
+                 batch_size: int = 4, max_cache_len: int = 2048,
+                 eos_token_id: int = 2,
+                 prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
+                 inline_prefill: bool = False,
+                 device: Union[str, torch.device] = "cuda"):
+        from .fused_base import _retrieval_draft_argform, load_corpus_buffer
+
+        check_supported(model_cfg)
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
+        self.model_cfg = model_cfg
+        self.params = params
+        # short segments by default: steps_per_call is the admission
+        # granularity of continuous batching
+        self.cfg = fs_cfg or FusedSamConfig(steps_per_call=16)
+        self.B = batch_size
+        self.S = max_cache_len
+        self.eos_token_id = eos_token_id
+        self.prefill_buckets = tuple(b for b in prefill_buckets
+                                     if b <= max_cache_len)
+        self.inline_prefill = inline_prefill
+        self._init_kv()
+        self.corpus, self.corpus_len = load_corpus_buffer(
+            corpus, self.cfg.corpus_capacity, self.device)
+        M = self.cfg.block
+        self._draft = _retrieval_draft_argform(
+            S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
+            len_bias=self.cfg.len_bias, block=M)
+        # M columns past S: a slot stepped with the batch after it stopped
+        # writes its draft beyond its committed tokens, never over them
+        # (the reference's clamped update would overwrite them at S)
+        self.histories = torch.zeros((batch_size, self.S + M),
+                                     dtype=torch.int32, device=self.device)
+        dev = self.device
+        self._chain_pos = torch.arange(M, dtype=torch.int32, device=dev)
+        self._eos = torch.tensor(eos_token_id, dtype=torch.int32, device=dev)
+        # host-side slot bookkeeping
+        self._slot_req: List[Optional[int]] = [None] * batch_size
+        self._slot_prompt = [0] * batch_size
+        self._slot_max_new = [0] * batch_size
+        self._slot_steps = [0] * batch_size
+        self.queue = []
+        self.results = {}
+        self._next_id = 0
+        self.steps_run = 0      # [B, M] decode forwards, over all runs
+
+    # -- subclass hooks (the paged variant swaps the KV backend) ---------
+    def _init_kv(self):
+        self.kv_k, self.kv_v = init_kv_cache(self.model_cfg, self.B, self.S,
+                                             self.device)
+
+    def _prefill_slot(self, slot: int, ids) -> int:
+        """Admit one request's prompt into ``slot``: a batch-1 prefill into
+        a fresh cache, written into the slot; returns the next token."""
+        P = _bucket(len(ids), self.prefill_buckets)
+        fk, fv = init_kv_cache(self.model_cfg, 1, self.S, self.device)
+        nt = self._prefill_forward(ids, P, fk, fv, self.S)
+        update_slot(self.kv_k, fk, slot)
+        update_slot(self.kv_v, fv, slot)
+        self._seed_history(slot, ids)
+        return nt
+
+    def _alloc_limits(self) -> np.ndarray:
+        """Per-slot KV capacity for the next segment (paged: the pages
+        allocated)."""
+        return np.full((self.B,), self.S, np.int32)
+
+    def _paged_aux(self) -> Optional[PagedAux]:
+        return None
+
+    def _pre_segment(self, hist_lens, actives) -> None:
+        """Called before each segment (paged: grow page tables)."""
+
+    def _release_slot(self, slot: int) -> None:
+        """Called when a request finishes (paged: free its pages)."""
+
+    def _should_retry_slot(self, slot: int, hist_len: int,
+                           budget: int) -> bool:
+        """A slot ended the segment not live but unfinished for a reason
+        that can clear (paged: pool capacity) → keep it active."""
+        return False
+
+    def _post_segment(self, stepped: int) -> None:
+        """Called with the segment's total live steps (paged: stall
+        guard)."""
+
+    def _can_admit(self, ids) -> bool:
+        """Whether the next queued prompt can be admitted now (paged: the
+        pool must have pages for its prefill bucket)."""
+        return True
+
+    def _admit_inline(self, slot: int) -> None:
+        """Inline-prefill admission bookkeeping (paged: free the previous
+        occupant's pages; growth happens per segment)."""
+
+    # -- device pieces ---------------------------------------------------
+    def _prefill_forward(self, ids, P: int, fk, fv, W: int) -> int:
+        """The bucket-padded prompt's forward at offset 0 into a batch-1
+        cache of W slots; returns the greedy next token."""
+        dev = self.device
+        padded = torch.zeros((1, P), dtype=torch.int32)
+        padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        logits, _ = forward(self.params, self.model_cfg, padded.to(dev),
+                            torch.arange(P, device=dev)[None, :], fk, fv, 0,
+                            prefill_mask(1, P, W, dev))
+        return int(torch.argmax(logits[0, len(ids) - 1]))
+
+    def _seed_history(self, slot: int, ids) -> None:
+        """The slot's history row: the prompt, zeros after it."""
+        row = torch.zeros((self.histories.shape[1],), dtype=torch.int32)
+        row[:len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        self.histories[slot] = row.to(self.device)
+
+    def _masks(self, hist_lens: torch.Tensor, dlens: torch.Tensor,
+               paged: Optional[PagedAux]) -> torch.Tensor:
+        """Each slot's chain mask: the committed prefix, then the draft
+        prefix up to its length, and every row's own column.  Dense [B, M,
+        S]; paged, the [B, M, W*page] boundary windows."""
+        tm = chain_tree_mask(dlens, self.cfg.block)            # [B, M, M]
+        if paged is not None:
+            return boundary_mask_window(tm, hist_lens, self.kv_k.page_size)
+        return block_decode_mask(tm, hist_lens, self.S)
+
+    def _step(self, hist_lens, starts, budgets, lives, slot_steps,
+              prompt_lens, alloc_limits, paged):
+        """One draft → verify → accept → commit step of all B slots, on the
+        device (reference body, ``samd_tpu/fused_sam.py:649-732``).
+        Writes the KV and the history in place; returns the new
+        (hist_lens, starts, budgets, lives, slot_steps)."""
+        fc, M, S = self.cfg, self.cfg.block, self.S
+        chain_pos = self._chain_pos
+        hist = self.histories
+        match, drafts, cont_avail = self._draft(
+            self.corpus, self.corpus_len, hist[:, :S], hist_lens, starts)
+        n = torch.clamp(1 + (match.float() * fc.alpha).to(torch.int32),
+                        max=fc.n_predicts + 1)
+        dlens = torch.where(match > 0, torch.minimum(n, 1 + cont_avail),
+                            1).to(torch.int32)
+        pos = hist_lens[:, None] + chain_pos[None, :]             # [B, M]
+        if self.inline_prefill:
+            # a slot still inside its prompt drafts the NEXT M prompt
+            # tokens as a forced-accept chain
+            pf_rest = prompt_lens - hist_lens
+            in_pf = pf_rest > 0
+            forced = torch.clamp(pf_rest, max=M).to(torch.int32)
+            drafts = torch.where(in_pf[:, None],
+                                 torch.gather(hist, 1, pos.long()), drafts)
+            dlens = torch.where(in_pf, forced, dlens)
+        logits, _ = forward(
+            self.params, self.model_cfg, torch.clamp(drafts, min=0), pos,
+            self.kv_k, self.kv_v, hist_lens,
+            self._masks(hist_lens, dlens, paged), paged=paged)
+        argmax_tok = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, M]
+
+        def at(col):               # argmax_tok[b, max(col[b], 0)]
+            return torch.gather(argmax_tok, 1, torch.clamp(
+                col, min=0).long()[:, None])[:, 0]
+
+        in_draft = chain_pos[None, :] < dlens[:, None]
+        hit = (drafts[:, 1:] == argmax_tok[:, :-1]) & in_draft[:, 1:]
+        alens = (torch.cumprod(hit.to(torch.int32), dim=1).sum(dim=1)
+                 + 1).to(torch.int32)
+        bonus = at(alens - 1)
+        if self.inline_prefill:
+            # prompt rows are accepted as forced; the boundary block's bonus
+            # is the first generated token, mid-prompt the next start is the
+            # next prompt token; EOS and budget do not apply to the prompt
+            alens = torch.where(in_pf, forced, alens)
+            bonus = torch.where(in_pf, at(forced - 1), bonus)
+            nxt_prompt = torch.gather(hist, 1, torch.clamp(
+                hist_lens + M, max=S - 1).long()[:, None])[:, 0]
+            bonus = torch.where(in_pf & (pf_rest > M), nxt_prompt, bonus)
+        is_eos = (drafts == self._eos) & (chain_pos[None, :] < alens[:, None])
+        if self.inline_prefill:
+            is_eos = is_eos & ~in_pf[:, None]
+        any_eos = is_eos.any(dim=1)
+        alens = torch.where(
+            any_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
+            alens).to(torch.int32)
+        alens = torch.where(lives, alens, 0)
+        bonus = torch.where(any_eos, at(alens - 1), bonus)
+        hist.scatter_(1, pos.long(), torch.clamp(drafts, min=0))
+        hist_lens = hist_lens + alens
+        counted = lives.to(torch.int32)
+        if self.inline_prefill:   # prompt tokens consume no budget
+            budgets = budgets - torch.where(in_pf, 0, alens)
+            counted = torch.where(in_pf, 0, counted)
+        else:
+            budgets = budgets - alens
+        slot_steps = slot_steps + counted
+        starts = torch.where(lives, bonus, starts)
+        lives = lives & ~any_eos & (budgets > 0) \
+            & (hist_lens + M <= alloc_limits)
+        return hist_lens, starts, budgets, lives, slot_steps
+
+    def _segment(self, hist_lens, starts, budgets, actives, prompt_lens,
+                 refill: bool) -> np.ndarray:
+        """Up to ``steps_per_call`` steps; ends early when no slot is live
+        or, with ``refill``, when a slot frees.  Returns the last control
+        matrix [5, B] on the host."""
+        M, dev = self.cfg.block, self.device
+        limits = self._alloc_limits()
+        init_lives = actives & (budgets > 0) & (hist_lens + M <= limits)
+        ctrl = np.stack([hist_lens, starts, budgets,
+                         init_lives.astype(np.int32),
+                         np.zeros_like(hist_lens)]).astype(np.int32)
+        if not init_lives.any():
+            return ctrl
+        paged = self._paged_aux()
+
+        def up(a, dtype=torch.int32):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=dev, dtype=dtype)
+
+        state = (up(hist_lens), up(starts), up(budgets),
+                 up(init_lives, torch.bool), up(np.zeros_like(hist_lens)))
+        prompt_t, limits_t = up(prompt_lens), up(limits)
+        lives, steps = init_lives, 0
+        while lives.any() and steps < self.cfg.steps_per_call \
+                and not (refill and (init_lives & ~lives).any()):
+            state = self._step(*state, prompt_t, limits_t, paged)
+            self.steps_run += 1
+            # the step's one host read
+            ctrl = torch.stack([t.to(torch.int32) for t in state]
+                               ).cpu().numpy()
+            lives = ctrl[3].astype(bool)
+            steps += 1
+        return ctrl
+
+    # -- scheduler -------------------------------------------------------
+    def add_request(self, input_ids: Sequence[int],
+                    gen_config: Optional[GenerationConfig] = None) -> int:
+        gen = gen_config or GenerationConfig()
+        require_greedy(gen)
+        ids = list(input_ids)
+        if not ids:
+            raise ValueError("add_request() requires a non-empty prompt")
+        rid = self._next_id
+        self._next_id += 1
+        self.queue.append((rid, ids, gen))
+        return rid
+
+    def run(self):
+        """Serve every queued request; returns {request id: Outputs}."""
+        B = self.B
+        hist_lens = np.zeros(B, np.int32)
+        starts = np.zeros(B, np.int32)
+        budgets = np.zeros(B, np.int32)
+        actives = np.zeros(B, bool)
+        prompt_lens = np.zeros(B, np.int32)
+
+        while self.queue or actives.any():
+            # admit
+            for i in range(B):
+                if actives[i] or not self.queue:
+                    continue
+                if not self._can_admit(self.queue[0][1]):
+                    break  # paged: no pages for a prompt yet; retry later
+                rid, ids, gen = self.queue.pop(0)
+                if self.inline_prefill:
+                    self._admit_inline(i)
+                    self._seed_history(i, ids)
+                    nt = ids[0]          # host-known; no fetch
+                    hist_lens[i] = 0
+                    prompt_lens[i] = len(ids)
+                else:
+                    nt = self._prefill_slot(i, ids)
+                    hist_lens[i] = len(ids)
+                    prompt_lens[i] = 0
+                self._slot_req[i] = rid
+                self._slot_prompt[i] = len(ids)
+                self._slot_max_new[i] = gen.max_new_tokens
+                self._slot_steps[i] = 0
+                starts[i] = nt
+                budgets[i] = gen.max_new_tokens
+                actives[i] = True
+            if not actives.any():
+                break
+            self._pre_segment(hist_lens, actives)
+            ctrl = self._segment(hist_lens, starts, budgets, actives,
+                                 prompt_lens, bool(self.queue))
+            hist_lens = ctrl[0].copy()
+            starts = ctrl[1].copy()
+            budgets = ctrl[2].copy()
+            lives = ctrl[3].astype(bool)
+            steps_arr = ctrl[4]
+            self._post_segment(int(steps_arr[actives].sum())
+                               if actives.any() else 0)
+            self._emit_stream_progress(actives, hist_lens)
+            hist_np = None
+            for i in range(B):
+                if not actives[i]:
+                    continue
+                self._slot_steps[i] += int(steps_arr[i])
+                if lives[i] or self._should_retry_slot(
+                        i, int(hist_lens[i]), int(budgets[i])):
+                    continue        # still going, or a transient stall
+                # finished: extract output
+                if hist_np is None:
+                    hist_np = self.histories.cpu().numpy()
+                ids = hist_np[i, :hist_lens[i]].tolist()
+                plen = self._slot_prompt[i]
+                gen_part = ids[plen:]
+                if self.eos_token_id in gen_part:
+                    gen_part = gen_part[:gen_part.index(
+                        self.eos_token_id) + 1]
+                gen_part = gen_part[:self._slot_max_new[i]]
+                self.results[self._slot_req[i]] = Outputs(
+                    ids[:plen] + gen_part, len(gen_part),
+                    self._slot_steps[i], [])
+                self._stream_done(self._slot_req[i])
+                actives[i] = False
+                self._slot_req[i] = None
+                self._release_slot(i)
+        out, self.results = self.results, {}
+        return out
+
+
+# ----------------------------------------------------------------------
+# Paged batched fused serving over a shared page pool
+# ----------------------------------------------------------------------
+
+class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
+    """``BatchedFusedSamEngine`` whose KV lives in a shared page pool
+    (reference ``samd_tpu/fused_sam.py:894-1069``).
+
+    Each step's forward scatters the fresh KV into pages and attends
+    straight over the pool through the page tables (K4,
+    ``ops.paged_attention``).  Per segment the host pre-allocates each live
+    slot's worst-case growth (``steps_per_call * block`` tokens) and passes
+    the tables and per-slot capacity limits to the steps; a tight pool
+    shortens the segment, and a slot that stops at capacity retries once
+    pages free.  A finished request returns its pages, so the footprint
+    follows the live tokens, not B x S.
+
+    ``quantized_kv=True`` stores int8 pages with f32 per-row scales: half
+    the page bytes of bf16.  The prefill runs a dense batch-1 forward into
+    a fresh bf16 cache of the prompt's bucket and scatters it into pages
+    (quantized on the way for an int8 pool), as the reference does.  Chain
+    drafts commit a prefix of the written block, so no KV compaction is
+    needed.
+    """
+
+    def __init__(self, *args, n_pages: int = 64, page_size: int = 128,
+                 quantized_kv: bool = False, **kwargs):
+        self._n_pages = n_pages
+        self._page_size = page_size
+        self._quantized_kv = quantized_kv
+        super().__init__(*args, **kwargs)
+
+    # -- hooks -------------------------------------------------------------
+    def _init_kv(self):
+        if self.S % self._page_size != 0:
+            raise ValueError("max_cache_len must be a multiple of page_size")
+        if self.model_cfg.kv_quant:
+            raise ValueError("the paged engine manages its own KV "
+                             "quantization (quantized_kv=True); use a "
+                             "kv_quant=False model config")
+        self.pool = PagedKVPool(self.model_cfg, n_pages=self._n_pages,
+                                page_size=self._page_size,
+                                device=self.device,
+                                quantized=self._quantized_kv)
+        self.kv_k, self.kv_v = self.pool.k, self.pool.v
+        self.page_reqs = [PagedRequest(self.pool, self.S)
+                          for _ in range(self.B)]
+        self._limits = np.zeros((self.B,), np.int32)
+        self._tables_cache = None
+        self._stall = 0
+        self.peak_pages = 0   # high-water mark of allocated pages
+        # a stopped slot's kv_limit (hist + block) can pass S by up to one
+        # block: -1 columns keep its table reads in range (and its writes
+        # on the scratch page)
+        self._table_pad = -(-self.cfg.block // self._page_size) + 1
+
+    def _tables(self) -> torch.Tensor:
+        """[B, P + pad] device tables, uploaded again only when a page
+        assignment changed."""
+        host = np.stack([r.host_table() for r in self.page_reqs])
+        host = np.pad(host, ((0, 0), (0, self._table_pad)),
+                      constant_values=-1)
+        if self._tables_cache is None or \
+                not np.array_equal(self._tables_cache[0], host):
+            self._tables_cache = (host,
+                                  torch.from_numpy(host).to(self.device))
+        return self._tables_cache[1]
+
+    def _alloc_limits(self) -> np.ndarray:
+        return self._limits
+
+    def _paged_aux(self) -> PagedAux:
+        return PagedAux(self._tables(), self.pool.scratch_page)
+
+    def _pre_segment(self, hist_lens, actives) -> None:
+        grow = self.cfg.steps_per_call * self.cfg.block
+        for i in range(self.B):
+            if not actives[i]:
+                self._limits[i] = 0
+                continue
+            want = min(self.S, int(hist_lens[i]) + grow)
+            # best-effort: a tight pool shortens the segment (the slot's
+            # limit guard ends it at capacity) instead of failing
+            self._limits[i] = self.page_reqs[i].ensure_upto(want)
+        self.peak_pages = max(self.peak_pages,
+                              self.pool.n_pages - len(self.pool._free))
+
+    def _release_slot(self, slot: int) -> None:
+        self.page_reqs[slot].release()
+
+    def _should_retry_slot(self, slot: int, hist_len: int,
+                           budget: int) -> bool:
+        # unfinished only because allocation stopped short of the slot's
+        # dense limit: keep it active, pages free as others finish (a
+        # coincidental EOS here merely generates past it; the finish trim
+        # keeps the output right)
+        M = self.cfg.block
+        return (budget > 0 and hist_len + M <= self.S
+                and hist_len + M > int(self._limits[slot]))
+
+    def _post_segment(self, stepped: int) -> None:
+        if stepped == 0:
+            self._stall += 1
+            if self._stall >= 3:
+                raise MemoryError(
+                    "paged KV pool too small: no slot could step for 3 "
+                    f"consecutive segments ({self.pool.n_pages} pages of "
+                    f"{self._page_size})")
+        else:
+            self._stall = 0
+
+    def _can_admit(self, ids) -> bool:
+        P = _bucket(len(ids), self.prefill_buckets)
+        return self.pool.pages_for(P) <= len(self.pool._free)
+
+    def live_kv_tokens(self) -> int:
+        """Pool tokens allocated to requests right now."""
+        return sum(len(r.pages) for r in self.page_reqs) * self._page_size
+
+    def _admit_inline(self, slot: int) -> None:
+        self.page_reqs[slot].release()
+
+    # -- prefill: dense batch-1 forward, scattered into pages ---------------
+    def _prefill_slot(self, slot: int, ids) -> int:
+        P = _bucket(len(ids), self.prefill_buckets)
+        req = self.page_reqs[slot]
+        req.release()
+        req.ensure(min(-(-P // self._page_size) * self._page_size, self.S))
+        # a bf16 (cfg.dtype) cache of P slots, also over an int8 pool
+        fk, fv = init_kv_cache(self.model_cfg, 1, P, self.device)
+        nt = self._prefill_forward(ids, P, fk, fv, P)
+        flat_pg, flat_sl = paged_flat_indices(
+            req.table(self.device)[None],
+            torch.zeros((1,), dtype=torch.int32, device=self.device), P,
+            self._page_size, self.pool.scratch_page)
+        for l in range(self.model_cfg.num_layers):
+            paged_write_block(self.kv_k[l], fk[l], flat_pg, flat_sl)
+            paged_write_block(self.kv_v[l], fv[l], flat_pg, flat_sl)
+        self._seed_history(slot, ids)
+        return nt

@@ -19,13 +19,19 @@ the reference's pre-dequant ``qmatmul``.  An int8 ``QuantizedKV`` cache
 route reads it in the verify kernel's int8 mode, the plain route through
 the reference's bf16 pre-dequant.
 
-Not ported yet: the MoE MLP (ROADMAP queue 1 item 14), per-slot ``[B]``
-write offsets (item 9), paged KV (item 10).
+Batched serving: a ``[B]`` write offset writes each slot's block at its
+own offset and attends with the plain ``_attention`` over the whole cache,
+as the reference does; with ``paged=PagedAux(...)`` the cache is a pair of
+``paged_kv.PagedKV`` pools, the block is scattered into pages and the
+attention reads the pool through the page tables (``ops.paged_attention``,
+the K4 kernel on a CUDA pool).
+
+Not ported yet: the MoE MLP (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +41,12 @@ from ..device import require_full_f32
 from ..ops.flash_attention import MAX_T as FLASH_MAX_T
 from ..ops.flash_attention import flash_block_attention
 from ..ops.int4_matmul import int4_matmul
+from ..ops.paged_attention import paged_block_attention
 from ..ops.quant import Int4Tensor, QuantizedTensor, Weight, dequant, qmatmul
 from .configs import ModelConfig, check_supported
+
+if TYPE_CHECKING:
+    from ..paged_kv import PagedAux
 
 Params = Dict[str, object]
 
@@ -166,49 +176,122 @@ def _head(h: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            position_ids: torch.Tensor, kv_k: torch.Tensor,
-            kv_v: torch.Tensor, write_offset: Union[int, torch.Tensor],
-            attn_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            position_ids: torch.Tensor, kv_k, kv_v,
+            write_offset: Union[int, torch.Tensor],
+            attn_mask: torch.Tensor, *,
+            paged: Optional["PagedAux"] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward pass that writes the block's KV into the cache.
 
     Args:
       tokens:       [B, T] int
       position_ids: [B, T] int (RoPE positions)
-      kv_k, kv_v:   [L, B, KH, S, D] cache, or ``cache.QuantizedKV``,
-                    updated IN PLACE at [write_offset, write_offset + T)
-      write_offset: scalar (a Python int or a 0-dim integer tensor on the
-                    cache's device); the caller keeps write_offset + T <= S
+      kv_k, kv_v:   [L, B, KH, S, D] cache, or ``cache.QuantizedKV``, or in
+                    paged mode ``paged_kv.PagedKV`` pools; updated IN PLACE
+      write_offset: a scalar (a Python int or a 0-dim integer tensor on the
+                    cache's device): the block goes to [offset, offset + T)
+                    of every row, and the caller keeps offset + T <= S; or
+                    a [B] integer tensor, one offset per slot (batched
+                    serving; a slot past S - T writes its last T columns,
+                    as the reference's clamped update does)
       attn_mask:    [B, T, S] bool, True where attention is allowed; no
-                    column at or past write_offset + T is allowed
+                    column at or past offset + T is allowed.  In paged mode
+                    the [B, T, W*page] boundary windows of
+                    ``ops.paged_attention.boundary_mask_window``.
+      paged:        ``paged_kv.PagedAux(tables, scratch_page)``: the pools'
+                    page tables; needs a [B] offset
 
     Returns (logits [B,T,V] f32, hidden [B,T,H]).
 
-    With ``attention_impl="flash"`` (the default), B == 1 and T <= 128 the
-    attention goes through ``ops.flash_attention.flash_block_attention``
-    (the CUDA kernel on a CUDA cache); larger blocks take the plain
-    ``_attention``.  When the offset is a Python int (a prefill), the plain
-    route reads only the columns ``[0, write_offset + T)`` a row can see,
-    P columns instead of the cache's S.  On CUDA it raises while TF32
-    matmuls are on.
+    With a scalar offset, ``attention_impl="flash"`` (the default), B == 1
+    and T <= 128 the attention goes through
+    ``ops.flash_attention.flash_block_attention`` (the CUDA kernel on a
+    CUDA cache); larger blocks take the plain ``_attention``.  When the
+    offset is a Python int (a prefill), the plain route reads only the
+    columns ``[0, write_offset + T)`` a row can see, P columns instead of
+    the cache's S.  A [B] offset takes the plain ``_attention`` over all S
+    columns (the reference's flash route is batch-1 only); paged mode
+    takes ``ops.paged_attention.paged_block_attention``.  On CUDA it raises
+    while TF32 matmuls are on.
     """
+    from ..paged_kv import PagedKV, paged_flat_indices, paged_write_block
+
     check_supported(cfg)
-    if torch.is_tensor(write_offset) and write_offset.dim() != 0:
-        raise NotImplementedError(
-            "per-slot [B] write offsets are batched serving (ROADMAP queue 1 "
-            "item 9)")
     B, T = tokens.shape
     D, NH, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    dev = kv_k.device
+    per_slot = torch.is_tensor(write_offset) and write_offset.dim() == 1
+    if torch.is_tensor(write_offset) and write_offset.dim() > 1:
+        raise ValueError("write_offset must be a scalar or a [B] tensor")
+    if paged is not None and not (per_slot and isinstance(kv_k, PagedKV)
+                                  and isinstance(kv_v, PagedKV)):
+        raise ValueError("paged mode needs a [B] write offset and PagedKV "
+                         "pools")
+    dev = kv_k.pool.device if paged is not None else kv_k.device
     require_full_f32(dev)
-    offset = torch.as_tensor(write_offset, dtype=torch.int64, device=dev)
-    slots = offset + torch.arange(T, device=dev)
-    use_flash = cfg.attention_impl == "flash" and B == 1 and T <= FLASH_MAX_T
-    kv_limit = (offset + T).to(torch.int32) if use_flash else None
-    # columns the plain route reads: the live prefix when it is known on
-    # the host (a prefill reads P columns, not S), else the whole cache
-    live = write_offset + T if isinstance(write_offset, int) \
-        else kv_k.shape[3]
     quantized = isinstance(kv_k, kvcache.QuantizedKV)
+    use_flash = cfg.attention_impl == "flash" and B == 1 \
+        and T <= FLASH_MAX_T and not per_slot
+    if paged is not None:
+        flat_pg, flat_sl = paged_flat_indices(
+            paged.tables, write_offset, T, kv_k.page_size,
+            paged.scratch_page)
+        kv_limits = (write_offset + T).to(torch.int32)
+    elif per_slot:
+        # [B, T] columns; a start clamps to S - T as JAX's update does
+        starts = torch.clamp(write_offset.to(torch.int64),
+                             max=kv_k.shape[3] - T)
+        cols = starts[:, None] + torch.arange(T, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)[:, None]
+    else:
+        offset = torch.as_tensor(write_offset, dtype=torch.int64, device=dev)
+        slots = offset + torch.arange(T, device=dev)
+        kv_limit = (offset + T).to(torch.int32) if use_flash else None
+        # columns the plain route reads: the live prefix when it is known
+        # on the host (a prefill reads P columns, not S), else the whole
+        # cache
+        live = write_offset + T if isinstance(write_offset, int) \
+            else kv_k.shape[3]
+
+    def write(cache, block):
+        """block [B, T, KH, D] into one layer's cache."""
+        if paged is not None:
+            paged_write_block(cache, block.transpose(1, 2), flat_pg, flat_sl)
+        elif per_slot:          # cache[b, :, cols[b, t]] = block[b, t]
+            if quantized:
+                qb, sc = kvcache.quantize_kv_block(block)   # per row
+                cache.q[rows, :, cols] = qb
+                cache.scale[rows, :, cols] = sc
+            else:
+                cache[rows, :, cols] = block
+        else:
+            block = block.transpose(1, 2)                 # [B,KH,T,D]
+            if quantized:
+                qb, sc = kvcache.quantize_kv_block(block)
+                cache.q.index_copy_(2, slots, qb)
+                cache.scale.index_copy_(2, slots, sc)
+            else:
+                cache.index_copy_(2, slots, block)
+
+    def attend(q, k_cache, v_cache):
+        if paged is not None:
+            return paged_block_attention(
+                q, k_cache.pool, v_cache.pool, paged.tables, attn_mask,
+                kv_limits, k_cache.scale, v_cache.scale)
+        if per_slot:
+            return _attention(q, kvcache.dequantize_kv(k_cache, q.dtype),
+                              kvcache.dequantize_kv(v_cache, q.dtype),
+                              attn_mask, cfg)
+        if use_flash and quantized:
+            return flash_block_attention(q, k_cache.q, v_cache.q, attn_mask,
+                                         kv_limit, k_cache.scale,
+                                         v_cache.scale)
+        if use_flash:
+            return flash_block_attention(q, k_cache, v_cache, attn_mask,
+                                         kv_limit)
+        return _attention(
+            q, kvcache.dequantize_kv(k_cache[:, :, :live], q.dtype),
+            kvcache.dequantize_kv(v_cache[:, :, :live], q.dtype),
+            attn_mask[..., :live], cfg)
 
     h = F.embedding(tokens.long(), params["embed"])       # [B,T,H]
     cos, sin = rope_tables(position_ids, D, cfg.rope_theta)
@@ -224,27 +307,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q = apply_rope(q.reshape(B, T, NH, D), cos, sin)
         k = apply_rope(k.reshape(B, T, KH, D), cos, sin)
         v = v.reshape(B, T, KH, D)
-        k_cache, v_cache = kv_k[l], kv_v[l]               # [B,KH,S,D] views
-        for cache, block in ((k_cache, k), (v_cache, v)):
-            block = block.transpose(1, 2)                 # [B,KH,T,D]
-            if quantized:
-                qb, sc = kvcache.quantize_kv_block(block)
-                cache.q.index_copy_(2, slots, qb)
-                cache.scale.index_copy_(2, slots, sc)
-            else:
-                cache.index_copy_(2, slots, block)
-        if use_flash and quantized:
-            ctx = flash_block_attention(q, k_cache.q, v_cache.q, attn_mask,
-                                        kv_limit, k_cache.scale,
-                                        v_cache.scale)
-        elif use_flash:
-            ctx = flash_block_attention(q, k_cache, v_cache, attn_mask,
-                                        kv_limit)
-        else:
-            ctx = _attention(
-                q, kvcache.dequantize_kv(k_cache[:, :, :live], q.dtype),
-                kvcache.dequantize_kv(v_cache[:, :, :live], q.dtype),
-                attn_mask[..., :live], cfg)
+        k_cache, v_cache = kv_k[l], kv_v[l]               # per-layer views
+        write(k_cache, k)
+        write(v_cache, v)
+        ctx = attend(q, k_cache, v_cache)
         h = h + _mm(ctx, layers["wo"], l, cfg)
         x = rms_norm(h, layers["mlp_norm"][l], cfg.rms_eps)
         gated = F.silu(_mm(x, layers["w_gate"], l, cfg)) \
@@ -272,18 +338,22 @@ def block_decode_mask(tree_mask: torch.Tensor,
                       batch: int = 1) -> torch.Tensor:
     """Mask for a draft block of M tokens written at ``cache_len``: every
     query sees the committed prefix [0, cache_len) plus its tree ancestors
-    inside the block.  tree_mask: [M, M] bool.  Returns [B, M, S].
+    inside the block.  tree_mask: [M, M] bool with a scalar cache_len →
+    [batch, M, S]; or one tree per slot, [B, M, M] with cache_len [B] →
+    [B, M, S].
 
     This satisfies the verify kernel's mask contract: columns below
     ``cache_len`` are all True, and no column at or past
     ``cache_len + M`` is."""
-    M = tree_mask.shape[0]
+    M = tree_mask.shape[-1]
     dev = tree_mask.device
-    cache_len = torch.as_tensor(cache_len, device=dev)
-    s = torch.arange(cache_size, device=dev)[None, :]              # [1, S]
+    cache_len = torch.as_tensor(cache_len, device=dev)[..., None]  # [..,1]
+    s = torch.arange(cache_size, device=dev)                       # [S]
     prefix = s < cache_len
     rel = torch.clamp(s - cache_len, 0, M - 1)
     in_block = (s >= cache_len) & (s < cache_len + M)
-    tm = torch.gather(tree_mask, 1, rel.expand(M, cache_size))     # [M, S]
-    allowed = prefix | (in_block & tm)
-    return allowed.expand(batch, M, cache_size)
+    idx = rel[..., None, :].expand(*tree_mask.shape[:-1], cache_size)
+    tm = torch.gather(tree_mask, -1, idx)                          # [..,M,S]
+    allowed = prefix[..., None, :] | (in_block[..., None, :] & tm)
+    return allowed.expand(batch, M, cache_size) if allowed.dim() == 2 \
+        else allowed

@@ -43,8 +43,10 @@ def _check(q, k, v, mask, kv_limit, k_scale, v_scale) -> None:
     B, T, NH, D = q.shape
     if B != 1 or k.shape[0] != 1:
         raise NotImplementedError(
-            "batch != 1: batched and paged verify attention are ROADMAP "
-            "queue 1 items 9 and 10 (kernel K4)")
+            "batch != 1: batched verify attention over a page pool is "
+            "ops.paged_attention.paged_block_attention (K4, ROADMAP queue 1 "
+            "items 9-10); a dense batched cache takes the plain attention "
+            "in models.llama.forward")
     if T > MAX_T:
         raise ValueError(
             f"T = {T} > {MAX_T}: larger blocks take the plain attention in "

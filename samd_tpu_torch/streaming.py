@@ -1,0 +1,79 @@
+"""Per-request progress streaming for the batched serving engines
+(counterpart of ``samd_tpu/streaming.py``; the port keeps its own copy).
+
+A listener registered under a request id receives each newly COMMITTED
+chunk of generated token ids (prompt excluded, budget/EOS-clamped exactly
+like the final ``Outputs``) as soon as the segment that produced it
+returns to the host.  Chunk granularity is the engine's ``steps_per_call``
+segment.  Listeners run on the thread that runs the engine and must be
+cheap and non-blocking; an exception from one is logged with its
+traceback and dropped, so a dead client does not kill the batch.
+"""
+
+from __future__ import annotations
+
+import logging
+
+log = logging.getLogger(__name__)
+
+
+class ProgressStreamMixin:
+    """Opt-in per-request token streaming for batched engines.
+
+    ``engine.progress_listeners[rid] = fn`` registers a callback; the engine
+    calls ``fn(chunk_ids)`` with each new list of generated tokens.  The
+    fused engines (device-resident histories) call
+    ``_emit_stream_progress`` once per segment: it reads the history matrix
+    from the device only when a streaming listener is active and emits the
+    UNSEEN span of each streamed slot.  (The reference's per-step hook for
+    host-history engines comes with them, ROADMAP queue 1 item 12.)
+
+    ``_stream_done(rid)`` drops the per-request bookkeeping when it
+    finishes (the listener itself is owned, and removed, by whoever
+    registered it).
+    """
+
+    @property
+    def progress_listeners(self) -> dict:
+        d = getattr(self, "_progress_listeners", None)
+        if d is None:
+            d = {}
+            self._progress_listeners = d
+            self._stream_pos = {}       # rid -> absolute history index
+        return d
+
+    def _emit_stream_progress(self, actives, hist_lens) -> None:
+        """Per-segment hook: emit each streamed slot's newly committed span.
+
+        Clamping matches the finish path bit for bit: tokens beyond
+        ``prompt + max_new`` never stream (the device can overshoot by up
+        to one block), and nothing streams after an EOS."""
+        listeners = getattr(self, "_progress_listeners", None)
+        if not listeners:
+            return
+        todo = [i for i in range(self.B)
+                if actives[i] and self._slot_req[i] in listeners]
+        if not todo:
+            return
+        hist_np = self.histories.cpu().numpy()
+        for i in todo:
+            rid = self._slot_req[i]
+            plen = self._slot_prompt[i]
+            limit = plen + self._slot_max_new[i]
+            start = self._stream_pos.setdefault(rid, plen)
+            end = min(int(hist_lens[i]), limit)
+            if end <= start:
+                continue
+            chunk = hist_np[i, start:end].tolist()
+            if self.eos_token_id in chunk:
+                chunk = chunk[:chunk.index(self.eos_token_id) + 1]
+                end = limit  # suppress anything the device wrote after EOS
+            self._stream_pos[rid] = end
+            try:
+                listeners[rid](chunk)
+            except Exception:       # a dead client must not stop the batch
+                log.exception("progress listener of request %s raised", rid)
+
+    def _stream_done(self, rid) -> None:
+        if getattr(self, "_progress_listeners", None):
+            self._stream_pos.pop(rid, None)

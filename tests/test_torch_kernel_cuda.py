@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions: the verify
-attention (with k/v of q's type and in int8-KV mode) and the int4
-weight-streaming matmul.
+attention (with k/v of q's type and in int8-KV mode), its paged mode over
+a page pool (K4), and the int4 weight-streaming matmul.
 
 Needs a card: every test here carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor samd_tpu, so it also runs
@@ -19,6 +19,11 @@ from samd_tpu_torch.ops import int4_matmul as k3
 from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
                                                 flash_block_attention_ref,
                                                 kernel_tolerance)
+from samd_tpu_torch.ops.paged_attention import (boundary_mask_window,
+                                                gather_pages,
+                                                paged_block_attention,
+                                                paged_block_attention_ref,
+                                                window_to_mask)
 from samd_tpu_torch.ops.quant import quantize_weight4
 from samd_tpu_torch.ops.treeops import tree_mask_from_parents
 
@@ -50,10 +55,12 @@ def make_case(T, NH, KH, D, S, cache_len, dtype, device, seed=0,
 
 
 # (T, NH, KH, D, S, cache_len, prefill): tiny, llama_1b decode / T = 1 /
-# prefill, and a llama_7b (KH >= 8) shape
+# prefill, a llama_7b (KH >= 8) shape, and llama_7b's bf16 prefill into
+# the paged engine's 128-slot batch-1 cache
 SHAPES = [(8, 8, 2, 16, 128, 40, False), (16, 16, 8, 32, 256, 180, False),
           (60, 32, 4, 64, 2048, 700, False), (1, 32, 4, 64, 2048, 300, False),
-          (128, 32, 4, 64, 2048, 0, True), (60, 32, 32, 128, 2048, 300, False)]
+          (128, 32, 4, 64, 2048, 0, True), (60, 32, 32, 128, 2048, 300, False),
+          (128, 32, 32, 128, 128, 0, True)]
 
 
 @pytest.mark.cuda
@@ -127,13 +134,13 @@ def int4_case(L, IN, OUT, R, device, seed=0):
     return x.to(torch.bfloat16), t.packed, t.scale
 
 
-# (in, out) of llama_7b's projections and head, at decode rows and the
-# prefill buckets 128 and 256
+# (in, out) of llama_7b's projections and head, at decode rows, the
+# prefill buckets 128 and 256, and B * M = 12 * 16 rows of batched serving
 K3_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [16, 128, 256])
+@pytest.mark.parametrize("R", [16, 128, 192, 256])
 @pytest.mark.parametrize("IN,OUT", K3_SHAPES)
 def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R):
     """Within ``ops.int4_matmul.kernel_tolerance`` of the plain version in
@@ -165,3 +172,120 @@ def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R):
                                 out_dtype=torch.float32)
         assert torch.equal(alone[0], got[r]) and torch.equal(placed[6],
                                                              got[r])
+
+
+def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, device,
+               seed=0):
+    """A page pool with shuffled tables: slot b holds ``committed[b]``
+    tokens plus its block of T (None: an inactive slot, table all -1,
+    kv_limit T); a random tree block mask per slot.  Returns (args of
+    paged_block_attention, the active slots, the pages in no table)."""
+    rng = np.random.default_rng(seed)
+    P = -(-1024 // page) + -(-T // page) + 1      # table width, with pad
+    lims = [T + (c or 0) for c in committed]
+    used = sum(-(-lim // page) for c, lim in zip(committed, lims)
+               if c is not None)
+    n_pages = used + 5
+
+    def normal(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+
+    kp, vp = normal(n_pages + 1, KH, page, D), normal(n_pages + 1, KH, page, D)
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = (quantize_kv_block(t) for t in (kp, vp))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    perm = rng.permutation(n_pages)
+    tables = np.full((B, P), -1, np.int32)
+    at = 0
+    for b, (c, lim) in enumerate(zip(committed, lims)):
+        if c is None:
+            continue
+        npg = -(-lim // page)
+        tables[b, :npg] = perm[at:at + npg]
+        at += npg
+    wins = []
+    for b in range(B):
+        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        tree = tree_mask_from_parents(torch.tensor(parents)).to(device)
+        wins.append(boundary_mask_window(tree, committed[b] or 0, page))
+    q = normal(B, T, NH, D).to(dtype)
+    args = (q, kp, vp, torch.from_numpy(tables).to(device),
+            torch.stack(wins).contiguous(),
+            torch.tensor(lims, dtype=torch.int32, device=device), ks, vs)
+    active = [b for b, c in enumerate(committed) if c is not None]
+    return args, active, sorted(set(range(n_pages)) - set(perm[:at])) \
+        + [n_pages]
+
+
+def poison_pages(args, active, spare, page):
+    """Copies of the pools with 1e30 (int8: 127 with scales of 1e30) past
+    each active slot's kv_limit in its last page, in every page outside the
+    tables and in the scratch page."""
+    q, kp, vp, tables, win, lims, ks, vs = args
+    kp, vp = kp.clone(), vp.clone()
+    ks, vs = (None, None) if ks is None else (ks.clone(), vs.clone())
+    big = 127 if kp.dtype == torch.int8 else 1e30
+    spots = [(p, 0) for p in spare]
+    for b in active:
+        lim = int(lims[b])
+        if lim % page:
+            spots.append((int(tables[b, lim // page]), lim % page))
+    for p, r0 in spots:
+        kp[p, :, r0:] = big
+        vp[p, :, r0:] = -big
+        if ks is not None:
+            ks[p, :, r0:] = 1e30
+            vs[p, :, r0:] = 1e30
+    return (q, kp, vp, tables, win, lims, ks, vs)
+
+
+# (B, T, NH, KH, D, page, committed lengths, int8 pool): llama_7b decode
+# at B = 12 over int8 pages (live lengths spread over 0-1008, some
+# page-aligned, two slots inactive), and llama_1b decode over a q-typed pool
+PAGED_CASES = [
+    (12, 16, 32, 32, 128, 128,
+     [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700, 1008], True),
+    (4, 16, 32, 4, 64, 128, [300, None, 64, 1008], False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+def test_paged_kernel_matches_plain_and_verify_kernel(cuda_device, dtype,
+                                                      case):
+    """K4: within ``kernel_tolerance`` of its plain version; two runs
+    bitwise equal; each active slot bitwise equal to the verify kernel on
+    the slot's gathered dense KV; poison past kv_limit, in pages outside
+    the tables and in the scratch page changes nothing; one count per
+    launch."""
+    B, T, NH, KH, D, page, committed, int8 = PAGED_CASES[case]
+    args, active, spare = paged_case(B, T, NH, KH, D, page, committed, dtype,
+                                     int8, cuda_device, seed=case)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(paged_block_attention, counter)
+    got = paged_block_attention(*args)
+    again = paged_block_attention(*args)
+    poisoned = paged_block_attention(*poison_pages(args, active, spare,
+                                                   page))
+    torch.cuda.synchronize()
+    assert getattr(paged_block_attention, counter) == before + 3
+    ref = paged_block_attention_ref(*args)[active]
+    excess = (got[active].float() - ref.float()).abs() - kernel_tolerance(ref)
+    assert excess.max().item() <= 0, excess.max().item()
+    assert torch.equal(got, again)
+    assert torch.equal(got[active], poisoned[active])
+    q, kp, vp, tables, win, lims, ks, vs = args
+    for b in active:
+        tb = tables[b:b + 1]
+        kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+        sc = () if ks is None else (gather_pages(ks, tb),
+                                    gather_pages(vs, tb))
+        mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                              kd.shape[2])
+        dense = flash_block_attention(q[b:b + 1].contiguous(), kd, vd, mask,
+                                      lims[b], *sc)
+        assert torch.equal(got[b], dense[0]), f"slot {b}"
