@@ -22,8 +22,12 @@ Phases, in order; any failure exits non-zero:
         16, 128, 192 and 256 rows (decode, the prefill buckets 128 and 256,
         and B * M = 12 * 16 rows of batched serving), in bf16 and f32
         output; row invariance: a row alone, or placed at another row of
-        another block, gives the same bits; two planted faults in copies of
-        the plain version fall outside the bound;
+        another block, gives the same bits, and every 16-row block of an R
+        = 192 call equals the same rows run at R = 16; ragged R = 1, 13
+        and 200 (w_gate, head) and an f32 x (the CUDA-core body) within
+        the bound; two planted faults in copies of the plain version's
+        product, summed in the tensor-core kernel's order, fall outside
+        the bound;
      d. the paged verify attention (K4) over a page pool with shuffled
         tables and inactive slots: llama_7b B = 12 over int8 pages and
         llama_1b B = 4 over pages of q's type, bf16 and f32 q; each active
@@ -75,6 +79,7 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # f32 outside the tensor cores
 L2_BYTES = 50 << 20                       # H100 L2 cache
+SLEEP_CYCLES = 100_000_000                # ~50 ms at the H100's clocks
 # Kernel vs plain version is held per element:
 #  - verify attention (both modes): ops.flash_attention.kernel_tolerance —
 #    1e-4 in f32 (another summation order); in bf16, one rounding of the
@@ -83,9 +88,10 @@ L2_BYTES = 50 << 20                       # H100 L2 cache
 #    zero-mean entries, two f32 sums of the same products in different
 #    orders: 2 * 8 * 2^-24 * sqrt(in) * sqrt(x^2 @ (q-8)^2) * scale, plus
 #    the scale multiply's rounding, 2^-23 |ref|; a bf16 output adds one
-#    rounding, 2^-7 (1.01 |ref| + that bound).  Two planted faults (one k
-#    dropped per slice, each slice's partial rounded to bf16) must fall
-#    outside it at every llama_7b shape.
+#    rounding, 2^-7 (1.01 |ref| + that bound).  The tensor-core kernel's
+#    order (16-k sums truncated toward zero, eight slices) must fall inside
+#    it and two planted faults (one k dropped per slice, each slice's
+#    partial rounded to bf16) outside it at every llama_7b shape.
 
 
 def nvidia_smi() -> str:
@@ -96,12 +102,15 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index)."""
+    """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index).
+    A sleep kernel holds the stream while the host enqueues the calls, so
+    a kernel shorter than its host-side launch is timed, not the launch."""
     import torch
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -321,23 +330,79 @@ def check_int8_attention(card: str) -> dict:
     return row
 
 
-def sliced_sum(x, q, skip_first=False, round_partials=False, slices=16):
-    """A copy of the plain version's f32 product x @ q, summed as the int4
-    kernel cuts it (``slices`` fixed k slices, partials added in ascending
-    order), with a fault planted: ``skip_first`` drops each slice's first
-    k, ``round_partials`` rounds each slice's partial to bf16."""
+def sliced_sum(x, q, skip_first=False, round_partials=False, slices=8,
+               step=16):
+    """A copy of the plain version's product x @ q, summed as the int4
+    tensor-core kernel cuts it: each ``step`` k's products summed exactly
+    and truncated toward zero to f32 (a pessimistic stand-in for the mma's
+    truncated 16-term sum), added in f32 in ascending k within ``slices``
+    fixed slices, the slices' partials added in ascending order; with a
+    fault planted: ``skip_first`` drops each slice's first k,
+    ``round_partials`` rounds each slice's partial to bf16."""
     import torch
 
     n = q.shape[0]
-    step = -(-n // slices)
+    steps = n // step
+    per = -(-steps // slices)
+    xs = x.double().reshape(x.shape[0], steps, step).clone()
+    if skip_first:
+        xs[:, ::per, 0] = 0
+    exact = torch.einsum("rsk,skc->rsc", xs,
+                         q.double().reshape(steps, step, q.shape[1]))
+    chunk = exact.float()
+    chunk = torch.where(chunk.double().abs() > exact.abs(),
+                        torch.nextafter(chunk, torch.zeros_like(chunk)),
+                        chunk)
     total = torch.zeros((x.shape[0], q.shape[1]), device=x.device)
-    for a in range(0, n, step):
-        lo = a + int(skip_first)
-        part = x[:, lo:a + step] @ q[lo:a + step]
+    for a in range(0, steps, per):
+        part = torch.zeros_like(total)
+        for s in range(a, min(a + per, steps)):
+            part = part + chunk[:, s]
         if round_partials:
             part = part.to(torch.bfloat16).float()
         total = total + part
     return total
+
+
+def check_int4_rows(name, packed, scale, out_dtype, x192, gen) -> None:
+    """Phase 3c's row checks at one shape: each 16-row block of an R = 192
+    call bitwise equal to the same rows run at R = 16 (one row tile against
+    64-row tiles); ragged R = 1, 13 and 200 (w_gate and the head) and an
+    f32 x (the CUDA-core body) within the bound, bitwise repeatable."""
+    import torch
+
+    from samd_tpu_torch.ops.int4_matmul import (int4_matmul,
+                                                int4_matmul_ref,
+                                                kernel_tolerance)
+
+    IN = packed.shape[1]
+    big = int4_matmul(x192, packed, scale, 0, out_dtype=out_dtype)
+    for a in (0, 56, 176):
+        small = int4_matmul(x192[a:a + 16].contiguous(), packed, scale, 0,
+                            out_dtype=out_dtype)
+        fail_if(not torch.equal(small, big[a:a + 16]),
+                f"int4_matmul {name}: rows {a}..{a + 15} differ between R = "
+                "16 and R = 192")
+    cases = [(13, torch.float32), (16, torch.float32)]
+    if name in ("w_gate/w_up", "lm_head"):
+        cases += [(1, torch.bfloat16), (13, torch.bfloat16),
+                  (200, torch.bfloat16)]
+    for R, xdt in cases:
+        x = torch.randn((R, IN), generator=gen, device="cuda").to(xdt)
+        for dt in (torch.bfloat16, torch.float32):
+            got = int4_matmul(x, packed, scale, 0, out_dtype=dt)
+            again = int4_matmul(x, packed, scale, 0, out_dtype=dt)
+            ref = int4_matmul_ref(x, packed, scale, 0, out_dtype=dt)
+            torch.cuda.synchronize()
+            err, _ = check_close(
+                f"int4_matmul {name} R={R} {str(xdt).split('.')[1]} x "
+                f"{str(dt).split('.')[1]} out", got, ref,
+                kernel_tolerance(x, packed, scale, 0, ref), again)
+        print(f"int4_matmul {name} R={R} {str(xdt).split('.')[1]} x: within "
+              f"the bound in both output types (f32-out err {err:.3e})",
+              flush=True)
+    print(f"int4_matmul {name}: R = 16 blocks bitwise equal inside R = 192",
+          flush=True)
 
 
 def check_int4(card: str) -> dict:
@@ -368,10 +433,12 @@ def check_int4(card: str) -> dict:
             + 1e-3
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
+        xs = {}
         for R in (16, 128, 192, 256):
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
+            xs[R] = x
             errs = {}
             for dt in (out_dtype, torch.float32 if out_dtype
                        == torch.bfloat16 else torch.bfloat16):
@@ -387,6 +454,11 @@ def check_int4(card: str) -> dict:
                     got = got_dt
                 if dt == torch.float32 and R == 16:     # planted faults
                     q = unpack4(packed[0]).float()
+                    order = sliced_sum(x.float(), q) * scale[0]
+                    fail_if(((order - ref).abs() > tol).any(),
+                            f"int4_matmul {label}: the bound rejects the "
+                            "tensor-core kernel's summation order")
+                    del order
                     for fault in ("skip_first", "round_partials"):
                         bad = sliced_sum(x.float(), q, **{fault: True}) \
                             * scale[0]
@@ -433,7 +505,8 @@ def check_int4(card: str) -> dict:
             if label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms)
-        del packed, scale, w16
+        check_int4_rows(name, packed, scale, out_dtype, xs[192], gen)
+        del packed, scale, w16, xs
         torch.cuda.empty_cache()
     row["max_abs_err"] = max_err
     return row

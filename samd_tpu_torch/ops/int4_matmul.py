@@ -9,9 +9,11 @@ computes the same function with ``int4_matmul_ref``, the plain version.  A
 stacked ``[L, in, out/2]`` weight is passed whole with a layer index: the
 kernel offsets into it, and nothing copies the layer.
 
-The kernel sums each output over ``in`` in one fixed order, whatever the
-number of rows and whatever row it falls in, so a row's result does not
-depend on the rows beside it (``csrc/int4_matmul.cu`` says how).
+A bf16 ``x`` runs on the tensor cores (``mma.sync``, the int4 unpacked in
+registers); an f32 ``x`` on the CUDA cores.  Either sums each output over
+``in`` in one fixed order, whatever the number of rows and whatever row it
+falls in, so a row's result does not depend on the rows beside it
+(``csrc/int4_matmul.cu`` says how).
 """
 
 from __future__ import annotations
@@ -86,7 +88,16 @@ def kernel_tolerance(x: torch.Tensor, packed: torch.Tensor,
     sum does; a sum that drops a term per k slice, or rounds a slice's
     partial sum to bf16, lands outside it at llama_7b's lengths.  A bf16
     output then rounds each to bf16, half a bf16 ulp (2^-8 of the value)
-    apiece: ``e + 2^-7 (1.01 |ref| + e)``."""
+    apiece: ``e + 2^-7 (1.01 |ref| + e)``.
+
+    The tensor-core kernel (bf16 x) sums each 16 consecutive products in
+    one mma from a zero accumulator: the products are exact, but the sum
+    is aligned and truncated (Fasi, Higham, Mantovani and Mary, 2021), an
+    error of at most a few u of that 16-term sum and of its sign, not zero
+    mean.  Those sums then enter an ordinary round-to-nearest f32 chain.
+    For such x the 16-term sums have independent random signs, so their
+    one-sided errors add as zero-mean terms of size ≤ 2u |c_i| with
+    Σ_i c_i² ≤ 16 Σ_k t_k², far inside the same bound."""
     packed, scale, layer = _layer(packed, scale, layer)
     q = unpack4(packed[layer]).float()
     n = q.shape[0]
@@ -147,6 +158,13 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"the kernel reads 4 packed bytes at a time: out/2 "
                          f"= {OUTH} must be a multiple of 4 and packed "
                          "4-byte aligned")
+    if x.dtype == torch.bfloat16 and (
+            IN % 16 or OUTH % 16 or packed.data_ptr() % 16
+            or x.data_ptr() % 16):
+        raise ValueError(f"the tensor-core kernel copies 16 bytes at a time "
+                         f"and steps 16 k per product: in = {IN} and out/2 "
+                         f"= {OUTH} must be multiples of 16 and x and "
+                         "packed 16-byte aligned")
     R = x.numel() // IN
     y = torch.empty((*x.shape[:-1], 2 * OUTH), dtype=out_dtype,
                     device=x.device)

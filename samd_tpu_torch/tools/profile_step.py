@@ -36,7 +36,7 @@ import time
 from collections import defaultdict
 
 # substrings of the port's own kernels' names in a profiler trace
-OWN_KERNELS = {"int4_matmul": "int4_matmul_kernel",
+OWN_KERNELS = {"int4_matmul": "int4_matmul_",
                "verify_attention": "flash_block_attention_kernel",
                "paged_attention": "paged_block_attention_kernel"}
 

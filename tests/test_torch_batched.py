@@ -31,6 +31,7 @@ from samd_tpu_torch.fused_base import _retrieval_draft_argform
 from samd_tpu_torch.fused_sam import (BatchedFusedSamEngine, FusedSamConfig,
                                       FusedSamEngine, suffix_match)
 from samd_tpu_torch.models import block_decode_mask, forward
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
 
 FSC = dict(n_predicts=15, steps_per_call=6, corpus_capacity=256)

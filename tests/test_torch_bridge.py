@@ -13,6 +13,7 @@ from samd_tpu.models import tiny_qwen2_config
 from samd_tpu.ops.quant import quantize_llama_params
 from samd_tpu_torch.bridge import params_from_jax
 from samd_tpu_torch.ops.quant import Int4Tensor, QuantizedTensor
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _leaves(tree, prefix=""):

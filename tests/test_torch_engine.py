@@ -24,6 +24,7 @@ from samd_tpu_torch.engine import ArBaseline
 from samd_tpu_torch.models import ModelConfig
 from samd_tpu_torch.ops.treeops import pack_draft_host, unpack_draft
 from samd_tpu_torch.verify import greedy_accept
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
 def random_draft(rng, M):

@@ -16,6 +16,7 @@ from samd_tpu.ops.pallas_attention import flash_block_attention as jax_flash
 from samd_tpu.sam.trees import ancestor_closure
 from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
                                                 kernel_tolerance)
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
 def make_case(T, NH, KH, D, S, cache_len, seed=0):

@@ -21,6 +21,7 @@ from samd_tpu_torch.engine import ArBaseline
 from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
 from samd_tpu_torch.fused_sam import suffix_match
 from samd_tpu_torch.models import ModelConfig
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
 def both_match(buf, buf_len, query, tail, tail_len, Q, ext):

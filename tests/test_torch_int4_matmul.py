@@ -18,6 +18,7 @@ from samd_tpu.ops.quant import quantize_weight4 as jax_quantize_weight4
 from samd_tpu_torch.ops.int4_matmul import (int4_matmul, int4_matmul_ref,
                                             kernel_tolerance)
 from samd_tpu_torch.ops.quant import unpack4
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 U = 2.0 ** -24
 
@@ -137,16 +138,32 @@ def test_kernel_tolerance_admits_another_order_and_bf16_rounding():
     assert (one_step > tol).all()
 
 
-def sliced_sum(x, q, skip_first=False, round_partials=False, slices=16):
-    """x @ q summed as the kernel cuts it: ``slices`` fixed k slices whose
-    f32 partial sums are added in ascending order.  ``skip_first`` drops
-    each slice's first k; ``round_partials`` rounds each partial to bf16."""
+def sliced_sum(x, q, skip_first=False, round_partials=False, slices=8,
+               step=16):
+    """x @ q summed as the tensor-core kernel cuts it: each ``step`` k's
+    products summed exactly and truncated toward zero to f32 (a pessimistic
+    stand-in for the mma's aligned and truncated 16-term sum), those sums
+    added in f32 in ascending k within each of ``slices`` fixed slices of
+    the steps, and the slices' partials added in ascending order.
+    ``skip_first`` drops each slice's first k; ``round_partials`` rounds
+    each slice's partial to bf16."""
     n = q.shape[0]
-    step = -(-n // slices)
-    total = torch.zeros((x.shape[0], q.shape[1]))
-    for a in range(0, n, step):
-        lo = a + int(skip_first)
-        part = x[:, lo:a + step] @ q[lo:a + step]
+    steps = n // step
+    per = -(-steps // slices)
+    xs = x.double().reshape(x.shape[0], steps, step).clone()
+    if skip_first:
+        xs[:, ::per, 0] = 0
+    exact = torch.einsum("rsk,skc->rsc", xs,
+                         q.double().reshape(steps, step, q.shape[1]))
+    chunk = exact.float()
+    chunk = torch.where(chunk.double().abs() > exact.abs(),
+                        torch.nextafter(chunk, torch.zeros_like(chunk)),
+                        chunk)
+    total = torch.zeros((x.shape[0], q.shape[1]), device=x.device)
+    for a in range(0, steps, per):
+        part = torch.zeros_like(total)
+        for s in range(a, min(a + per, steps)):
+            part = part + chunk[:, s]
         if round_partials:
             part = part.to(torch.bfloat16).float()
         total = total + part
@@ -156,8 +173,9 @@ def sliced_sum(x, q, skip_first=False, round_partials=False, slices=16):
 @pytest.mark.parametrize("fault", ["none", "skip_first", "round_partials"])
 def test_kernel_tolerance_at_7b_length(fault):
     """At w_down's contraction length (11008) the bound admits the f64
-    result and the kernel's order of slices, and rejects a sum that drops
-    one k per slice or rounds each slice's partial to bf16."""
+    result and the kernel's order (truncated 16-k sums, eight slices), and
+    rejects a sum that drops one k per slice or rounds each slice's partial
+    to bf16."""
     rng = np.random.default_rng(11)
     n, out, R = 11008, 128, 8
     packed = torch.from_numpy(

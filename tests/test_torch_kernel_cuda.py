@@ -140,14 +140,18 @@ K3_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [16, 128, 192, 256])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 13, 16, 128, 192, 200, 256])
 @pytest.mark.parametrize("IN,OUT", K3_SHAPES)
-def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R):
+def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R, xdt):
     """Within ``ops.int4_matmul.kernel_tolerance`` of the plain version in
     bf16 and f32 outputs; two runs bitwise equal; row invariance: each row
     equals the same x row run alone at R = 1 and placed at another row of
-    another block, bitwise; one count per launch."""
+    another block, bitwise; one count per launch.  A bf16 x runs on the
+    tensor cores (row tiles of 16 up to R = 16, of 64 beyond: R = 1, 13
+    and 200 end inside one), an f32 x on the CUDA cores."""
     x, packed, scale = int4_case(2, IN, OUT, R, cuda_device, seed=IN + OUT)
+    x = x.to(xdt)
     layer = 1
     if OUT == 32000:          # the head: a 2-D weight, no layer index
         packed, scale, layer = packed[1], scale[1], None
@@ -163,15 +167,32 @@ def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R):
         excess = (got.float() - ref.float()).abs() - tol
         assert excess.max().item() <= 0, (out_dtype, excess.max().item())
         assert torch.equal(got, again)
-    for r in (0, 5, R - 1):
+    for r in sorted({0, min(5, R - 1), R - 1}):
         alone = k3.int4_matmul(x[r:r + 1].contiguous(), packed, scale, layer,
                                out_dtype=torch.float32)
-        other = torch.randn((7, IN), device=cuda_device).to(torch.bfloat16)
+        other = torch.randn((7, IN), device=cuda_device).to(xdt)
         other[6] = x[r]
         placed = k3.int4_matmul(other, packed, scale, layer,
                                 out_dtype=torch.float32)
         assert torch.equal(alone[0], got[r]) and torch.equal(placed[6],
                                                              got[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("IN,OUT", K3_SHAPES)
+def test_int4_kernel_row_invariant_across_r(cuda_device, IN, OUT):
+    """A row's output is the same bits at R = 16 (one 16-row tile) as
+    inside R = 192 (64-row tiles), wherever the 16 rows sit in it."""
+    x, packed, scale = int4_case(2, IN, OUT, 192, cuda_device, seed=3)
+    layer = 1
+    if OUT == 32000:
+        packed, scale, layer = packed[1], scale[1], None
+    for out_dtype in (torch.bfloat16, torch.float32):
+        big = k3.int4_matmul(x, packed, scale, layer, out_dtype=out_dtype)
+        for a in (0, 56, 176):
+            small = k3.int4_matmul(x[a:a + 16].contiguous(), packed, scale,
+                                   layer, out_dtype=out_dtype)
+            assert torch.equal(small, big[a:a + 16]), (out_dtype, a)
 
 
 def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, device,

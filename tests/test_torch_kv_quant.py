@@ -31,6 +31,7 @@ from samd_tpu_torch.engine import ArBaseline
 from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
 from samd_tpu_torch.ops.flash_attention import flash_block_attention
 from samd_tpu_torch.ops.quant import INT4, quantize_llama_params as t_quant
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
 from test_torch_quant import forward_both, kernel_cfg
 

@@ -25,6 +25,18 @@ from samd_tpu_torch.models import ModelConfig, block_decode_mask, forward
 from samd_tpu_torch.models import prefill_mask
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test process: the suite runs in several
+    processes at once, and torch's default of one thread per core each
+    would oversubscribe the cores many times over.  The other port test
+    files import this fixture, which makes it autouse there too."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def port_config(jcfg) -> ModelConfig:
     """The port's ModelConfig with the same fields as a JAX one: the
     reference's interpret-mode kernel routes map to the port's kernel

@@ -50,6 +50,7 @@ from samd_tpu_torch.paged_kv import (PagedAux, PagedKV, PagedKVPool,
                                      paged_write_block)
 from test_torch_batched import (FSC, KW, batched, jax_forward_jit, prompts,
                                 same_streams, serve)
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
 
 PAGE = 16

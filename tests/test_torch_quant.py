@@ -24,6 +24,7 @@ from samd_tpu_torch.engine import check_params_device
 from samd_tpu_torch.models import block_decode_mask, forward, prefill_mask
 from samd_tpu_torch.models import tiny_config as port_tiny
 from samd_tpu_torch.ops import quant as tq
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
 
 JAX_TYPES = {"int8": jnp.int8, "float8_e4m3fn": jnp.float8_e4m3fn,
