@@ -25,9 +25,8 @@ Phases, in order; any failure exits non-zero:
         another block, gives the same bits, and every 16-row block of an R
         = 192 call equals the same rows run at R = 16; ragged R = 1, 13
         and 200 (w_gate, head) and an f32 x (the CUDA-core body) within
-        the bound; two planted faults in copies of the plain version's
-        product, summed in the tensor-core kernel's order, fall outside
-        the bound;
+        the bound; a model of the tensor-core kernel's order and rounding
+        falls inside the bound, and two planted faults in it outside;
      d. the paged verify attention (K4) over a page pool with shuffled
         tables and inactive slots: llama_7b B = 12 over int8 pages and
         llama_1b B = 4 over pages of q's type, bf16 and f32 q; each active
@@ -79,7 +78,6 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # f32 outside the tensor cores
 L2_BYTES = 50 << 20                       # H100 L2 cache
-SLEEP_CYCLES = 100_000_000                # ~50 ms at the H100's clocks
 # Kernel vs plain version is held per element:
 #  - verify attention (both modes): ops.flash_attention.kernel_tolerance —
 #    1e-4 in f32 (another summation order); in bf16, one rounding of the
@@ -89,9 +87,10 @@ SLEEP_CYCLES = 100_000_000                # ~50 ms at the H100's clocks
 #    orders: 2 * 8 * 2^-24 * sqrt(in) * sqrt(x^2 @ (q-8)^2) * scale, plus
 #    the scale multiply's rounding, 2^-23 |ref|; a bf16 output adds one
 #    rounding, 2^-7 (1.01 |ref| + that bound).  The tensor-core kernel's
-#    order (16-k sums truncated toward zero, eight slices) must fall inside
-#    it and two planted faults (one k dropped per slice, each slice's
-#    partial rounded to bf16) outside it at every llama_7b shape.
+#    order (16-k sums with the mma's alignment truncation modelled, eight
+#    slices per CTA, k_splits CTAs: ops.int4_matmul.mma_order_sum) must
+#    fall inside it and two planted faults (one k dropped per slice, each
+#    slice's partial rounded to bf16) outside it at every llama_7b shape.
 
 
 def nvidia_smi() -> str:
@@ -102,23 +101,12 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index).
-    A sleep kernel holds the stream while the host enqueues the calls, so
-    a kernel shorter than its host-side launch is timed, not the launch."""
-    import torch
+    """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index),
+    the stream held by a sleep kernel while the host enqueues them:
+    ``samd_tpu_torch.tools.time_int4.event_ms``."""
+    from samd_tpu_torch.tools.time_int4 import event_ms
 
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for i in range(iters):
-        fn(i)
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return event_ms(fn, iters, warmup)
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -330,40 +318,6 @@ def check_int8_attention(card: str) -> dict:
     return row
 
 
-def sliced_sum(x, q, skip_first=False, round_partials=False, slices=8,
-               step=16):
-    """A copy of the plain version's product x @ q, summed as the int4
-    tensor-core kernel cuts it: each ``step`` k's products summed exactly
-    and truncated toward zero to f32 (a pessimistic stand-in for the mma's
-    truncated 16-term sum), added in f32 in ascending k within ``slices``
-    fixed slices, the slices' partials added in ascending order; with a
-    fault planted: ``skip_first`` drops each slice's first k,
-    ``round_partials`` rounds each slice's partial to bf16."""
-    import torch
-
-    n = q.shape[0]
-    steps = n // step
-    per = -(-steps // slices)
-    xs = x.double().reshape(x.shape[0], steps, step).clone()
-    if skip_first:
-        xs[:, ::per, 0] = 0
-    exact = torch.einsum("rsk,skc->rsc", xs,
-                         q.double().reshape(steps, step, q.shape[1]))
-    chunk = exact.float()
-    chunk = torch.where(chunk.double().abs() > exact.abs(),
-                        torch.nextafter(chunk, torch.zeros_like(chunk)),
-                        chunk)
-    total = torch.zeros((x.shape[0], q.shape[1]), device=x.device)
-    for a in range(0, steps, per):
-        part = torch.zeros_like(total)
-        for s in range(a, min(a + per, steps)):
-            part = part + chunk[:, s]
-        if round_partials:
-            part = part.to(torch.bfloat16).float()
-        total = total + part
-    return total
-
-
 def check_int4_rows(name, packed, scale, out_dtype, x192, gen) -> None:
     """Phase 3c's row checks at one shape: each 16-row block of an R = 192
     call bitwise equal to the same rows run at R = 16 (one row tile against
@@ -412,8 +366,9 @@ def check_int4(card: str) -> dict:
     import torch
 
     from samd_tpu_torch.ops.int4_matmul import (int4_matmul,
-                                                int4_matmul_ref,
-                                                kernel_tolerance)
+                                                int4_matmul_ref, k_splits,
+                                                kernel_tolerance,
+                                                mma_order_sum)
     from samd_tpu_torch.ops.quant import Int4Tensor, dequant, unpack4
 
     shapes = [("wq/wk/wv/wo", 4096, 4096, torch.bfloat16),
@@ -454,13 +409,16 @@ def check_int4(card: str) -> dict:
                     got = got_dt
                 if dt == torch.float32 and R == 16:     # planted faults
                     q = unpack4(packed[0]).float()
-                    order = sliced_sum(x.float(), q) * scale[0]
+                    splits = k_splits(IN, OUT // 2)
+                    order = mma_order_sum(x.float(), q, splits,
+                                          cols=2048) * scale[0]
                     fail_if(((order - ref).abs() > tol).any(),
                             f"int4_matmul {label}: the bound rejects the "
                             "tensor-core kernel's summation order")
                     del order
                     for fault in ("skip_first", "round_partials"):
-                        bad = sliced_sum(x.float(), q, **{fault: True}) \
+                        bad = mma_order_sum(x.float(), q, splits,
+                                            cols=2048, **{fault: True}) \
                             * scale[0]
                         outside = (bad - ref).abs() > tol
                         fail_if(not outside.any(), f"int4_matmul {label}: "

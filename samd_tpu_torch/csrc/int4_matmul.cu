@@ -44,10 +44,16 @@
 //   fixed k slice through its own kStages-deep cp.async ring of 16-byte
 //   copies (neighbouring lanes on neighbouring addresses), with x's tile
 //   staged beside the weights: eight warps per CTA, each with three stages
-//   of weights in flight.  At R = 16 this streams at a sixth to a third of
-//   HBM's rate (PERF.md); the narrow 32-byte column strip per CTA is the
-//   first suspect, and a wider strip with a fixed-order k split across
-//   CTAs the next design to try.
+//   of weights in flight.  A strip of 32 bytes gives 64 CTAs at 4096
+//   outputs, half of the card's 132 SMs, so `splits` CTAs share each
+//   strip's k range (grid z): the wrapper picks it from (in, out) alone
+//   (ops/int4_matmul.py:k_splits), the most that keep R <= 16 within one
+//   CTA per SM (two at 4096 outputs: 128 CTAs; one at w_gate and the
+//   head).  Each writes its slices' sum to an f32 scratch row and a second
+//   pass adds the CTAs' sums in ascending order; with one split the CTA
+//   writes y itself.  (On the H100 two splits cut 4096 -> 4096 at R = 16
+//   from 0.0146 to 0.0116 ms and 11008 -> 4096 from 0.0327 to 0.0215;
+//   four splits and deeper rings did worse: PERF.md, time_int4.py.)
 // - Operations: a row tile of 8 * kNT rows (kNT = 2 for R <= 16, else 8)
 //   reuses each unpacked fragment kNT times; column tiles are the grid's
 //   slow axis, so the row tiles of one column tile run together and read
@@ -56,15 +62,17 @@
 // Determinism and row invariance (the greedy equality oracle needs both:
 // the fused engine puts a token at row i where the oracle puts it at row 0,
 // and prefills at another R): each output's sum runs through one order that
-// depends only on `in`, never on R, the row's index or its tile.  Each
+// depends only on (in, out), never on R, the row's index or its tile.  Each
 // mma.sync sums one k16 step's 16 products from a zero accumulator; its
 // result is added to an f32 register accumulator with an ordinary
-// round-to-nearest add, ascending in k within the warp's slice; the
-// kSlices slice sums are then added in ascending slice order.  (Tensor
-// cores align and truncate inside the 16-term sum -- Fasi, Higham,
-// Mantovani and Mary, 2021 -- so the one-sided part of the error stays
-// inside each step.)  Padded rows are zeros; no atomics; the row tile size
-// changes nothing of an output's order.
+// round-to-nearest add, ascending in k within the warp's slice; a CTA adds
+// its kSlices slice sums in ascending slice order, and the second pass the
+// CTAs' sums in ascending split order.  (Tensor cores align the products
+// to the largest one's exponent and truncate the bits shifted out -- Fasi,
+// Higham, Mantovani and Mary, 2021 -- so that error stays inside each
+// step, a few u of its largest product; ops/int4_matmul.py:
+// kernel_tolerance says why the bound covers it.)  Padded rows are zeros;
+// no atomics; the row tile size changes nothing of an output's order.
 //
 // The f32-x body keeps the CUDA-core design: one CTA per 128 packed columns
 // x 4 rows, 16 warps with one k slice each, f32 FMAs of the exactly upcast
@@ -163,13 +171,15 @@ __device__ __forceinline__ void unpack_pair(uint32_t w0, uint32_t w1, int t,
 }
 
 // x [R, IN] bf16; w: the layer's packed bytes [IN, OUTH]; scale: the
-// layer's [2 * OUTH]; y [R, 2 * OUTH].  Grid: (row tiles, column tiles).
+// layer's [2 * OUTH]; y [R, 2 * OUTH]; partial [splits, R, 2 * OUTH] f32
+// when splits > 1.  Grid: (row tiles, column tiles, splits).
 template <int kNT, typename TO>
 __global__ void __launch_bounds__(kThreadsMma)
 int4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        const uint8_t* __restrict__ w,
                        const float* __restrict__ scale, TO* __restrict__ y,
-                       int R, int IN, int OUTH) {
+                       float* __restrict__ partial, int R, int IN, int OUTH,
+                       int splits) {
   constexpr int kRT = 8 * kNT;  // rows per CTA
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31;
@@ -179,10 +189,10 @@ int4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int row0 = blockIdx.x * kRT;
   const int j0 = blockIdx.y * kColBytes;
 
-  // this warp's slice of the k16 steps: fixed by IN alone
+  // this warp's slice of the k16 steps: fixed by IN and splits alone
   const int steps = IN / kStepK;
-  const int per = (steps + kSlices - 1) / kSlices;
-  const int sbeg = min(steps, warp * per);
+  const int per = (steps + kSlices * splits - 1) / (kSlices * splits);
+  const int sbeg = min(steps, (blockIdx.z * kSlices + warp) * per);
   const int send = min(steps, sbeg + per);
   const int kbeg = sbeg * kStepK, kend = send * kStepK;
   const int nstage = (kend - kbeg + kStageK - 1) / kStageK;
@@ -291,31 +301,60 @@ int4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int p = 0; p < kSlices; ++p) s += part[(p * kRT + r) * kOutsMma + o];
     const int oc = j + half * OUTH;
-    y[(size_t)(row0 + r) * 2 * OUTH + oc] = from_float<TO>(s * scale[oc]);
+    const size_t at = (size_t)(row0 + r) * 2 * OUTH + oc;
+    if (splits == 1)
+      y[at] = from_float<TO>(s * scale[oc]);
+    else
+      partial[(size_t)blockIdx.z * R * 2 * OUTH + at] = s;
   }
+}
+
+// y = (sum of the splits' partials, ascending) * scale, rounded once.
+template <typename TO>
+__global__ void int4_matmul_sum_kernel(const float* __restrict__ partial,
+                                       const float* __restrict__ scale,
+                                       TO* __restrict__ y, int R, int OUT,
+                                       int splits) {
+  const size_t n = (size_t)R * OUT;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[z * n + e];
+  y[e] = from_float<TO>(s * scale[e % OUT]);
 }
 
 template <int kNT, typename TO>
 int launch_mma(const void* x, const uint8_t* w, const float* scale, void* y,
-               int R, int IN, int OUTH, cudaStream_t stream) {
+               float* partial, int R, int IN, int OUTH, int splits,
+               cudaStream_t stream) {
   auto kernel = int4_matmul_mma_kernel<kNT, TO>;
   constexpr int bytes = smem_bytes<kNT>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((R + 8 * kNT - 1) / (8 * kNT),
-            (OUTH + kColBytes - 1) / kColBytes);
+            (OUTH + kColBytes - 1) / kColBytes, splits);
   kernel<<<grid, kThreadsMma, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), w, scale, static_cast<TO*>(y), R,
-      IN, OUTH);
+      static_cast<const __nv_bfloat16*>(x), w, scale, static_cast<TO*>(y),
+      partial, R, IN, OUTH, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)R * 2 * OUTH;
+  int4_matmul_sum_kernel<TO><<<(unsigned)((n + 255) / 256), 256, 0,
+                               stream>>>(partial, scale, static_cast<TO*>(y),
+                                         R, 2 * OUTH, splits);
   return (int)cudaGetLastError();
 }
 
 template <typename TO>
 int launch_bf16(const void* x, const uint8_t* w, const float* scale, void* y,
-                int R, int IN, int OUTH, cudaStream_t stream) {
-  if (R <= 16) return launch_mma<2, TO>(x, w, scale, y, R, IN, OUTH, stream);
-  return launch_mma<8, TO>(x, w, scale, y, R, IN, OUTH, stream);
+                float* partial, int R, int IN, int OUTH, int splits,
+                cudaStream_t stream) {
+  if (R <= 16)
+    return launch_mma<2, TO>(x, w, scale, y, partial, R, IN, OUTH, splits,
+                             stream);
+  return launch_mma<8, TO>(x, w, scale, y, partial, R, IN, OUTH, splits,
+                           stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -451,13 +490,17 @@ extern "C" {
 // y [R, 2*OUTH] = x [R, IN] @ dequant(layer `layer` of packed [L, IN, OUTH],
 // scale [L, 2*OUTH]).  Launches on `stream` and returns cudaGetLastError()
 // (0 on success).  x_bf16 / out_bf16: 1 for bfloat16, 0 for float32.
-// f32 x needs OUTH % 4 == 0 and a 4-byte aligned `packed`; bf16 x needs
-// IN % 16 == 0, OUTH % 16 == 0 and 16-byte aligned `x` and `packed`.
+// f32 x needs OUTH % 4 == 0, a 4-byte aligned `packed` and splits == 1;
+// bf16 x needs IN % 16 == 0, OUTH % 16 == 0, 16-byte aligned `x` and
+// `packed`, and for splits > 1 an f32 scratch `partial` of
+// splits * R * 2 * OUTH.
 int samd_int4_matmul(const void* x, const void* packed, const void* scale,
-                     void* y, int R, int IN, int OUTH, int layer, int x_bf16,
-                     int out_bf16, void* stream) {
+                     void* y, void* partial, int R, int IN, int OUTH,
+                     int layer, int splits, int x_bf16, int out_bf16,
+                     void* stream) {
   const int align = x_bf16 ? 16 : 4;
   if (R <= 0 || IN <= 0 || OUTH <= 0 || OUTH % align != 0 || layer < 0 ||
+      splits < 1 || (splits > 1 && (!x_bf16 || partial == nullptr)) ||
       reinterpret_cast<uintptr_t>(packed) % align != 0 ||
       (x_bf16 && (IN % kStepK != 0 ||
                   reinterpret_cast<uintptr_t>(x) % 16 != 0)))
@@ -466,9 +509,11 @@ int samd_int4_matmul(const void* x, const void* packed, const void* scale,
       static_cast<const uint8_t*>(packed) + (size_t)layer * IN * OUTH;
   const float* s = static_cast<const float*>(scale) + (size_t)layer * 2 * OUTH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
   if (x_bf16 && out_bf16)
-    return launch_bf16<__nv_bfloat16>(x, w, s, y, R, IN, OUTH, st);
-  if (x_bf16) return launch_bf16<float>(x, w, s, y, R, IN, OUTH, st);
+    return launch_bf16<__nv_bfloat16>(x, w, s, y, p, R, IN, OUTH, splits, st);
+  if (x_bf16)
+    return launch_bf16<float>(x, w, s, y, p, R, IN, OUTH, splits, st);
   if (out_bf16) return launch_f32<__nv_bfloat16>(x, w, s, y, R, IN, OUTH, st);
   return launch_f32<float>(x, w, s, y, R, IN, OUTH, st);
 }

@@ -10,10 +10,11 @@ stacked ``[L, in, out/2]`` weight is passed whole with a layer index: the
 kernel offsets into it, and nothing copies the layer.
 
 A bf16 ``x`` runs on the tensor cores (``mma.sync``, the int4 unpacked in
-registers); an f32 ``x`` on the CUDA cores.  Either sums each output over
-``in`` in one fixed order, whatever the number of rows and whatever row it
-falls in, so a row's result does not depend on the rows beside it
-(``csrc/int4_matmul.cu`` says how).
+registers), its k range split across ``k_splits(in, out/2)`` CTAs whose
+f32 partials a second pass adds in order; an f32 ``x`` on the CUDA cores.
+Either sums each output over ``in`` in one fixed order, whatever the
+number of rows and whatever row it falls in, so a row's result does not
+depend on the rows beside it (``csrc/int4_matmul.cu`` says how).
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ from .quant import unpack4
 F32_EPS = 2.0 ** -24      # unit roundoff of f32
 BF16_ULP = 2.0 ** -7      # bf16 ulp relative to the leading power of two
 LAMBDA = 8.0              # standard deviations in kernel_tolerance
+# The tensor-core kernel's cut of the k range (csrc/int4_matmul.cu):
+COL_BYTES = 32            # packed columns per CTA
+WARP_SLICES = 8           # k slices per CTA, one per warp
+MIN_STEPS = 8             # k16 steps per warp slice at the least
+SMS = 132                 # the H100 SXM's SMs: at most one CTA each at R <= 16
 
 
 def _layer(packed: torch.Tensor, scale: torch.Tensor,
@@ -91,13 +97,20 @@ def kernel_tolerance(x: torch.Tensor, packed: torch.Tensor,
     apiece: ``e + 2^-7 (1.01 |ref| + e)``.
 
     The tensor-core kernel (bf16 x) sums each 16 consecutive products in
-    one mma from a zero accumulator: the products are exact, but the sum
-    is aligned and truncated (Fasi, Higham, Mantovani and Mary, 2021), an
-    error of at most a few u of that 16-term sum and of its sign, not zero
-    mean.  Those sums then enter an ordinary round-to-nearest f32 chain.
-    For such x the 16-term sums have independent random signs, so their
-    one-sided errors add as zero-mean terms of size ≤ 2u |c_i| with
-    Σ_i c_i² ≤ 16 Σ_k t_k², far inside the same bound."""
+    one mma from a zero accumulator.  The products t_k are exact; the mma
+    aligns them to the exponent of the largest, truncates the bits shifted
+    out, and normalizes the sum to f32 (Fasi, Higham, Mantovani and Mary,
+    2021).  With f32's 24 bits kept below the largest product's leading
+    bit, each truncation takes less than 2u·max_{k∈i}|t_k| off a product,
+    against its sign, and the normalization less than 2u|c_i| off the sum
+    c_i, against c_i's sign.  For such x those signs are independent and
+    zero mean, so the model above holds with 16 terms of size ≤
+    2u·max_{k∈i}|t_k| and one of size ≤ 2u|c_i| per chunk i.  As
+    max_{k∈i} t_k² ≤ Σ_{k∈i} t_k² and c_i² ≤ 16 Σ_{k∈i} t_k², each group
+    adds at most λ·8u‖t‖₂: 16λu‖t‖₂ in all, against the kernel's half of
+    the bound, λu√n‖t‖₂ (64λu‖t‖₂ at in = 4096), of which the f32 chain
+    over the n/16 chunk sums takes at most λu√(n/16)‖t‖₂.
+    ``mma_order_sum`` models that order with the truncation."""
     packed, scale, layer = _layer(packed, scale, layer)
     q = unpack4(packed[layer]).float()
     n = q.shape[0]
@@ -109,11 +122,69 @@ def kernel_tolerance(x: torch.Tensor, packed: torch.Tensor,
     return e + BF16_ULP * (1.01 * ref.float().abs() + e)
 
 
+def k_splits(IN: int, OUTH: int) -> int:
+    """How many CTAs of the tensor-core kernel share one 32-byte column
+    strip's k range, by the weight's shape alone (never by R, so a row's
+    sum runs in one order at every R): the most that keep a call of R ≤ 16
+    within one CTA per SM (``SMS``), and no warp slice under
+    ``MIN_STEPS`` k16 steps."""
+    strips = -(-OUTH // COL_BYTES)
+    most = max(1, IN // 16 // (WARP_SLICES * MIN_STEPS))
+    return max(1, min(SMS // strips, most))
+
+
+def mma_order_sum(x: torch.Tensor, q: torch.Tensor, splits: int, *,
+                  skip_first: bool = False, round_partials: bool = False,
+                  extra_bits: int = 0, cols: int = 512) -> torch.Tensor:
+    """``x @ q`` (f32 [R, in] by [in, out], bf16-exact x, small-integer q)
+    summed as the tensor-core kernel cuts it, with a model of the mma's
+    rounding: each 16 k's products are truncated toward zero onto the
+    grid 2^(e − 23 − ``extra_bits``), e the exponent of the largest of the
+    16, summed exactly and truncated toward zero to f32; those sums are
+    added in f32 in ascending k within each of ``WARP_SLICES * splits``
+    slices; each CTA adds its ``WARP_SLICES`` slices in order, then the
+    CTAs' sums are added in order.  Planted faults: ``skip_first`` drops
+    each slice's first k, ``round_partials`` rounds each slice's partial to
+    bf16.  Works over ``cols`` output columns at a time."""
+    R, n = x.shape
+    steps = n // 16
+    per = -(-steps // (WARP_SLICES * splits))
+    xs = x.double().reshape(R, steps, 16).clone()
+    if skip_first:
+        xs[:, ::per, 0] = 0
+    out = []
+    for c0 in range(0, q.shape[1], cols):
+        qs = q[:, c0:c0 + cols].double().reshape(steps, 16, -1)
+        t = xs[..., None] * qs[None]                       # [R, s, 16, c]
+        _, e = torch.frexp(t.abs().amax(dim=2, keepdim=True))
+        grid = torch.ldexp(torch.ones_like(t[:, :, :1]),
+                           e - 24 - extra_bits)
+        exact = (torch.trunc(t / grid) * grid).sum(dim=2)  # [R, s, c]
+        chunk = exact.float()
+        chunk = torch.where(chunk.double().abs() > exact.abs(),
+                            torch.nextafter(chunk, torch.zeros_like(chunk)),
+                            chunk)
+        total = torch.zeros((R, chunk.shape[2]), device=x.device)
+        for z in range(splits):
+            cta = torch.zeros_like(total)
+            for w in range(WARP_SLICES):
+                a = (z * WARP_SLICES + w) * per
+                part = torch.zeros_like(total)
+                for s in range(a, min(a + per, steps)):
+                    part = part + chunk[:, s]
+                if round_partials:
+                    part = part.to(torch.bfloat16).float()
+                cta = cta + part
+            total = total + cta
+        out.append(total)
+    return torch.cat(out, dim=1)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int4_matmul")
     fn = lib.samd_int4_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.samd_int4_error_string.argtypes = [ctypes.c_int]
@@ -170,12 +241,16 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                     device=x.device)
     if R == 0:
         return y
+    splits = k_splits(IN, OUTH) if x.dtype == torch.bfloat16 else 1
+    partial = None if splits == 1 else torch.empty(
+        (splits, R, 2 * OUTH), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.samd_int4_matmul(
             x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            R, IN, OUTH, layer, int(x.dtype == torch.bfloat16),
+            None if partial is None else partial.data_ptr(), R, IN, OUTH,
+            layer, splits, int(x.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("int4_matmul kernel launch failed: "

@@ -16,7 +16,8 @@ import torch
 from samd_tpu.ops.int4_matmul import int4_matmul as jax_int4_matmul
 from samd_tpu.ops.quant import quantize_weight4 as jax_quantize_weight4
 from samd_tpu_torch.ops.int4_matmul import (int4_matmul, int4_matmul_ref,
-                                            kernel_tolerance)
+                                            k_splits, kernel_tolerance,
+                                            mma_order_sum)
 from samd_tpu_torch.ops.quant import unpack4
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
@@ -138,44 +139,39 @@ def test_kernel_tolerance_admits_another_order_and_bf16_rounding():
     assert (one_step > tol).all()
 
 
-def sliced_sum(x, q, skip_first=False, round_partials=False, slices=8,
-               step=16):
-    """x @ q summed as the tensor-core kernel cuts it: each ``step`` k's
-    products summed exactly and truncated toward zero to f32 (a pessimistic
-    stand-in for the mma's aligned and truncated 16-term sum), those sums
-    added in f32 in ascending k within each of ``slices`` fixed slices of
-    the steps, and the slices' partials added in ascending order.
-    ``skip_first`` drops each slice's first k; ``round_partials`` rounds
-    each slice's partial to bf16."""
-    n = q.shape[0]
-    steps = n // step
-    per = -(-steps // slices)
-    xs = x.double().reshape(x.shape[0], steps, step).clone()
-    if skip_first:
-        xs[:, ::per, 0] = 0
-    exact = torch.einsum("rsk,skc->rsc", xs,
-                         q.double().reshape(steps, step, q.shape[1]))
-    chunk = exact.float()
-    chunk = torch.where(chunk.double().abs() > exact.abs(),
-                        torch.nextafter(chunk, torch.zeros_like(chunk)),
-                        chunk)
-    total = torch.zeros((x.shape[0], q.shape[1]), device=x.device)
-    for a in range(0, steps, per):
-        part = torch.zeros_like(total)
-        for s in range(a, min(a + per, steps)):
-            part = part + chunk[:, s]
-        if round_partials:
-            part = part.to(torch.bfloat16).float()
-        total = total + part
-    return total
+def test_order_model_truncates_below_the_largest_product():
+    """``mma_order_sum`` drops what the mma's alignment shifts out: with
+    products 1, −2^-25, −2^-25 the exact sum 1 − 2^-24 is an f32, but both
+    small products fall below the largest's 24 bits and truncate to zero;
+    with two extra bits kept they survive."""
+    x = torch.zeros((1, 16))
+    x[0, :3] = torch.tensor([1.0, -2.0 ** -25, -2.0 ** -25])
+    q = torch.ones((16, 1))
+    assert (x.double() @ q.double()).float().item() == 1 - 2.0 ** -24
+    assert mma_order_sum(x, q, 1).item() == 1.0
+    assert mma_order_sum(x, q, 1, extra_bits=2).item() == 1 - 2.0 ** -24
+
+
+def test_k_splits_by_shape_alone():
+    """The tensor-core kernel's k split at llama_7b's shapes: q/k/v/o and
+    w_down over two CTAs (128 of them at R ≤ 16, within one per SM of
+    132), w_gate and the head over one; no warp slice under eight k16
+    steps; a narrow weight's split stops at that floor."""
+    shapes = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+    got = [k_splits(i, o // 2) for i, o in shapes]
+    assert got == [2, 1, 2, 1]
+    for (i, o), z in zip(shapes, got):
+        assert (z == 1 or -(-o // 64) * z <= 132) and i // 16 // (8 * z) >= 8
+    assert k_splits(4096, 16) == 4096 // 16 // (8 * 8)
 
 
 @pytest.mark.parametrize("fault", ["none", "skip_first", "round_partials"])
 def test_kernel_tolerance_at_7b_length(fault):
     """At w_down's contraction length (11008) the bound admits the f64
-    result and the kernel's order (truncated 16-k sums, eight slices), and
-    rejects a sum that drops one k per slice or rounds each slice's partial
-    to bf16."""
+    result and the kernel's order as w_down cuts it (16-k sums with the
+    mma's truncation modelled, two CTAs of eight slices), and rejects a
+    sum that drops one k per slice or rounds each slice's partial to
+    bf16."""
     rng = np.random.default_rng(11)
     n, out, R = 11008, 128, 8
     packed = torch.from_numpy(
@@ -187,12 +183,14 @@ def test_kernel_tolerance_at_7b_length(fault):
     ref = int4_matmul_ref(x, packed, scale)
     tol = kernel_tolerance(x, packed, scale, None, ref)
     q = unpack4(packed).float()
+    splits = k_splits(n, 4096 // 2)
     if fault == "none":
         exact = ((x.double() @ q.double()) * scale.double()).float()
         assert ((exact - ref).abs() <= tol).all()
-        assert ((sliced_sum(x, q) * scale - ref).abs() <= tol).all()
+        assert ((mma_order_sum(x, q, splits) * scale - ref).abs()
+                <= tol).all()
     else:
-        bad = sliced_sum(x, q, **{fault: True}) * scale
+        bad = mma_order_sum(x, q, splits, **{fault: True}) * scale
         assert ((bad - ref).abs() > tol).any()
 
 

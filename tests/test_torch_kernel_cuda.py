@@ -149,7 +149,8 @@ def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R, xdt):
     equals the same x row run alone at R = 1 and placed at another row of
     another block, bitwise; one count per launch.  A bf16 x runs on the
     tensor cores (row tiles of 16 up to R = 16, of 64 beyond: R = 1, 13
-    and 200 end inside one), an f32 x on the CUDA cores."""
+    and 200 end inside one; q/k/v/o and w_down split k over two CTAs and
+    a second pass), an f32 x on the CUDA cores."""
     x, packed, scale = int4_case(2, IN, OUT, R, cuda_device, seed=IN + OUT)
     x = x.to(xdt)
     layer = 1
