@@ -7,17 +7,21 @@ Phases, in order; any failure exits non-zero:
   1. card: name and power limit, torch and CUDA versions, TF32 flags;
   2. build: compile every kernel from samd_tpu_torch/csrc, one nvcc per
      source, all started together; print nvcc's seconds and ptxas's
-     register and spill lines;
+     register and spill lines; cuobjdump -sass must show HMMA in each of
+     the verify source's 32 bf16-q instantiations;
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the main paths' shapes, check that two runs are bitwise equal, and
      time the kernel, the plain version and one PyTorch library call beside
      the least time the card could take:
      a. the verify attention, k/v of q's type, at llama_1b and llama_7b
-        shapes, and llama_7b's bf16 T = 128 prefill into the paged engine's
-        128-slot cache; poison past kv_limit must change nothing;
+        shapes (T = 16 at G = 1: the kernel's column-quarter layout), and
+        llama_7b's bf16 T = 128 prefill into the paged engine's 128-slot
+        cache; poison past kv_limit must change nothing, and the same live
+        prefix in a cache cut to max(256, kv_limit rounded up to 64)
+        columns must give the same bits;
      b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
         shape, and one llama_1b shape; int8 bytes of 127 and scales of 1e30
-        past kv_limit change nothing;
+        past kv_limit change nothing; the same cut-cache check;
      c. the int4 matmul at every llama_7b projection and head shape, at
         16, 128, 192 and 256 rows (decode, the prefill buckets 128 and 256,
         and B * M = 12 * 16 rows of batched serving), in bf16 and f32
@@ -103,8 +107,8 @@ def nvidia_smi() -> str:
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device ms of ``fn(i)`` over ``iters`` calls (i = call index),
     the stream held by a sleep kernel while the host enqueues them:
-    ``samd_tpu_torch.tools.time_int4.event_ms``."""
-    from samd_tpu_torch.tools.time_int4 import event_ms
+    ``samd_tpu_torch.tools.time_kernels.event_ms``."""
+    from samd_tpu_torch.tools.time_kernels import event_ms
 
     return event_ms(fn, iters, warmup)
 
@@ -122,30 +126,6 @@ def fail_if(cond: bool, msg: str) -> None:
         raise SystemExit(msg)
 
 
-def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False):
-    import torch
-
-    from samd_tpu_torch.models.llama import block_decode_mask, prefill_mask
-    from samd_tpu_torch.ops.treeops import tree_mask_from_parents
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-    q, k, v = normal(1, T, NH, D), normal(1, KH, S, D), normal(1, KH, S, D)
-    if prefill:
-        mask = prefill_mask(1, T, S, "cuda").contiguous()
-    else:
-        rng = np.random.default_rng(seed)
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
-        tree = tree_mask_from_parents(torch.tensor(parents)).cuda()
-        mask = block_decode_mask(tree, cache_len, S).contiguous()
-    kv_limit = torch.tensor(cache_len + T, dtype=torch.int32, device="cuda")
-    return q, k, v, mask, kv_limit
-
-
 def attention_bound(T, NH, KH, D, kv_limit, dtype_name, kv_bytes=None):
     """Each input byte read once (q, the live K/V and, in int8 mode, their
     scales, the mask's boundary window, kv_limit), the output written once,
@@ -155,24 +135,6 @@ def attention_bound(T, NH, KH, D, kv_limit, dtype_name, kv_bytes=None):
     nbytes = (T * NH * D * isz + kvb + T * min(T, kv_limit) + 4
               + T * NH * D * isz)
     return bound(nbytes, 4 * NH * T * D * kv_limit, dtype_name)
-
-
-def library_attention(q, k, v, mask, kv_limit):
-    """scaled_dot_product_attention over the same live columns (timed as a
-    yardstick only; the port never calls it)."""
-    import torch
-    import torch.nn.functional as F
-
-    _, T, NH, D = q.shape
-    KH = k.shape[1]
-    lim = int(kv_limit)
-    col = torch.arange(lim, device=q.device)
-    allowed = (col < lim - T) | mask[0, :, :lim]
-    ql = q.transpose(1, 2)
-    kl = k[:, :, :lim].repeat_interleave(NH // KH, dim=1)
-    vl = v[:, :, :lim].repeat_interleave(NH // KH, dim=1)
-    m = allowed[None, None]
-    return lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
 
 
 def check_close(label, got, ref, tol, again=None):
@@ -192,12 +154,36 @@ def check_close(label, got, ref, tol, again=None):
     return diff.max().item(), tol.flatten()[int(diff.argmax())].item()
 
 
+def s_invariance(label, dname, got, S, kv, q, k, v, mask, lim,
+                 scales=()) -> str:
+    """Fail unless the same live prefix in a cache cut to S' = max(256,
+    kv_limit rounded up to 64) columns gives ``got``'s bits (the single-
+    stream engine moves a request between cache buckets); a note for the
+    kernel's line, empty where S' is not below S."""
+    import torch
+
+    from samd_tpu_torch.ops.flash_attention import flash_block_attention
+
+    cut = max(256, -(-kv // 64) * 64)
+    if cut >= S:
+        return ""
+    small = flash_block_attention(
+        q, k[:, :, :cut].contiguous(), v[:, :, :cut].contiguous(),
+        mask[:, :, :cut].contiguous(), lim,
+        *(t[:, :, :cut].contiguous() for t in scales))
+    fail_if(not torch.equal(got, small),
+            f"{label} {dname}: S = {cut} and S = {S} give different bits")
+    return f" S-invariant (S = {cut} equals S = {S})"
+
+
 def check_kernels(card: str) -> dict:
     """Phase 3a: the verify attention with k/v of q's type."""
     import torch
 
     from samd_tpu_torch.ops.flash_attention import (
         flash_block_attention, flash_block_attention_ref, kernel_tolerance)
+    from samd_tpu_torch.tools.time_kernels import (attention_case,
+                                                   library_attention)
 
     cases = []   # (label, T, NH, KH, D, S, cache_len, prefill)
     for cl in (0, 63, 64, 160, 700, 2048 - 60):
@@ -208,6 +194,9 @@ def check_kernels(card: str) -> dict:
     cases.append(("llama_1b T=128 prefill", 128, 32, 4, 64, 2048, 0, True))
     cases.append(("llama_7b T=60 cache_len=700 (KH>=8)", 60, 32, 32, 128,
                   2048, 700, False))
+    # bf16 k/v at llama_7b decode: the column-quarter layout (R = 16)
+    cases.append(("llama_7b T=16 cache_len=200 (KH>=8)", 16, 32, 32, 128,
+                  1024, 200, False))
     # the paged engine's prefill: a bf16 batch-1 cache of P = 128 slots
     cases.append(("llama_7b T=128 prefill S=128 (KH>=8)", 128, 32, 32, 128,
                   128, 0, True))
@@ -234,6 +223,8 @@ def check_kernels(card: str) -> dict:
                 fail_if(not torch.equal(got, poisoned),
                         f"{label} {dname}: poison past kv_limit changed the "
                         "result")
+            s_note = s_invariance(label, dname, got, S, kv, q, k, v, mask,
+                                  lim)
             ms = cuda_ms(lambda i: flash_block_attention(q, k, v, mask, lim))
             plain_ms = cuda_ms(
                 lambda i: flash_block_attention_ref(q, k, v, mask, lim))
@@ -242,8 +233,8 @@ def check_kernels(card: str) -> dict:
             print(f"kernel flash_block_attention {label} {dname}: max_abs_err "
                   f"{err:.3e} (tol at that element {tol_at:.3e}) kernel_ms "
                   f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                  f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}) "
-                  f"[{card}]", flush=True)
+                  f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})"
+                  f"{s_note} [{card}]", flush=True)
             if dname == "bfloat16" and (label.startswith("llama_1b")
                                         or "S=128" in label):   # on paths
                 max_err_main = max(max_err_main, err)
@@ -262,6 +253,8 @@ def check_int8_attention(card: str) -> dict:
     from samd_tpu_torch.cache import quantize_kv_block
     from samd_tpu_torch.ops.flash_attention import (
         flash_block_attention, flash_block_attention_ref, kernel_tolerance)
+    from samd_tpu_torch.tools.time_kernels import (attention_case,
+                                                   library_attention)
 
     cases = [(f"llama_7b T=16 cache_len={cl}", 16, 32, 32, 128, 1024, cl,
               False) for cl in (0, 63, 200, 700, 1008)]
@@ -297,6 +290,8 @@ def check_int8_attention(card: str) -> dict:
                 fail_if(not torch.equal(got, poisoned),
                         f"{label} int8-KV {dname}: poison past kv_limit "
                         "changed the result")
+            s_note = s_invariance(f"{label} int8-KV", dname, got, S, kv, q,
+                                  kq, vq, mask, lim, (ks, vs))
             ms = cuda_ms(lambda i: flash_block_attention(*args))
             plain_ms = cuda_ms(lambda i: flash_block_attention_ref(*args))
             kd = dequantize_kv(QuantizedKV(kq, ks), dtype)
@@ -308,7 +303,7 @@ def check_int8_attention(card: str) -> dict:
                   f"max_abs_err {err:.3e} (tol at that element {tol_at:.3e}) "
                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} (SDPA, dequantized live KV) bound_ms "
-                  f"{bound_ms:.5f} ({bound_by}) [{card}]", flush=True)
+                  f"{bound_ms:.5f} ({bound_by}){s_note} [{card}]", flush=True)
             if dname == "bfloat16" and label.startswith("llama_7b"):
                 max_err = max(max_err, err)
             if dname == "bfloat16" and label == main_label:
@@ -470,58 +465,6 @@ def check_int4(card: str) -> dict:
     return row
 
 
-def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed):
-    """A page pool on the card with shuffled tables: slot b holds
-    ``committed[b]`` tokens plus its block of T (None: an inactive slot,
-    table all -1, kv_limit T), a random tree block mask per slot.  Returns
-    (the arguments of paged_block_attention, the active slots, the pages in
-    no table plus the scratch page)."""
-    import torch
-
-    from samd_tpu_torch.cache import quantize_kv_block
-    from samd_tpu_torch.ops.paged_attention import boundary_mask_window
-    from samd_tpu_torch.ops.treeops import tree_mask_from_parents
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    rng = np.random.default_rng(seed)
-    P = -(-1024 // page) + -(-T // page) + 1      # table width, with pad
-    lims = [T + (c or 0) for c in committed]
-    used = sum(-(-lim // page) for c, lim in zip(committed, lims)
-               if c is not None)
-    n_pages = used + 5
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    kp = normal(n_pages + 1, KH, page, D)
-    vp = normal(n_pages + 1, KH, page, D)
-    ks = vs = None
-    if int8:
-        (kp, ks), (vp, vs) = (quantize_kv_block(t) for t in (kp, vp))
-    else:
-        kp, vp = kp.to(dtype), vp.to(dtype)
-    perm = rng.permutation(n_pages)
-    tables = np.full((B, P), -1, np.int32)
-    at = 0
-    for b, (c, lim) in enumerate(zip(committed, lims)):
-        if c is not None:
-            npg = -(-lim // page)
-            tables[b, :npg] = perm[at:at + npg]
-            at += npg
-    wins = []
-    for b in range(B):
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
-        tree = tree_mask_from_parents(torch.tensor(parents)).cuda()
-        wins.append(boundary_mask_window(tree, committed[b] or 0, page))
-    args = (normal(B, T, NH, D).to(dtype), kp, vp,
-            torch.from_numpy(tables).cuda(), torch.stack(wins).contiguous(),
-            torch.tensor(lims, dtype=torch.int32, device="cuda"), ks, vs)
-    active = [b for b, c in enumerate(committed) if c is not None]
-    spare = sorted(set(range(n_pages)) - set(perm[:at].tolist()))
-    return args, active, spare + [n_pages]
-
-
 def poison_pages(args, active, spare, page):
     """Copies of the pools with 1e30 (int8: 127 with scales of 1e30) past
     each active slot's kv_limit in its last page, in every page outside the
@@ -547,7 +490,6 @@ def poison_pages(args, active, spare, page):
 def check_paged(card: str) -> dict:
     """Phase 3d: the paged verify attention, K4."""
     import torch
-    import torch.nn.functional as F
 
     from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
                                                     kernel_tolerance)
@@ -555,6 +497,7 @@ def check_paged(card: str) -> dict:
                                                     paged_block_attention,
                                                     paged_block_attention_ref,
                                                     window_to_mask)
+    from samd_tpu_torch.tools.time_kernels import library_paged, paged_case
 
     # (name, label, B, T, NH, KH, D, page, committed lengths, int8 pool)
     cases = [
@@ -585,7 +528,6 @@ def check_paged(card: str) -> dict:
             fail_if(not torch.equal(got[active], poisoned[active]),
                     f"paged_block_attention {tag}: poison changed the result")
             q, kp, vp, tables, win, lims, ks, vs = args
-            dense = []        # each active slot's gathered KV, for SDPA too
             for b in active:
                 tb = tables[b:b + 1]
                 kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
@@ -598,21 +540,8 @@ def check_paged(card: str) -> dict:
                 fail_if(not torch.equal(got[b], one[0]),
                         f"paged_block_attention {tag}: slot {b} differs from "
                         "the verify kernel on its gathered KV")
-                lim = int(lims[b])
-                if sc:
-                    kd = (kd.float() * sc[0][..., None]).to(dtype)
-                    vd = (vd.float() * sc[1][..., None]).to(dtype)
-                G = NH // KH
-                dense.append((q[b:b + 1].transpose(1, 2),
-                              kd[:, :, :lim].repeat_interleave(G, dim=1),
-                              vd[:, :, :lim].repeat_interleave(G, dim=1),
-                              mask[:, None, :, :lim]))
             torch.cuda.synchronize()
-
-            def library(i):
-                for ql, kl, vl, m in dense:
-                    F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
-
+            library = library_paged(args, active, page)
             ms = cuda_ms(lambda i: paged_block_attention(*args))
             plain_ms = cuda_ms(lambda i: paged_block_attention_ref(*args),
                                iters=10)
@@ -1107,6 +1036,17 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+
+    # the tensor-core bodies: HMMA in every bf16-q instantiation of the
+    # verify source's two entry points (32), FFMA counted beside it
+    sass = _build.sass_counts("flash_block_attention", ("HMMA", "FFMA"))
+    bf16 = {f: c for f, c in sass.items()
+            if "attention_kernelI13__nv_bfloat16" in f}
+    fail_if(len(bf16) != 32 or min(c["HMMA"] for c in bf16.values()) == 0,
+            f"sass: {len(bf16)} bf16-q attention kernels, HMMA counts "
+            f"{sorted(c['HMMA'] for c in bf16.values())}")
+    for f, c in sorted(sass.items()):
+        print(f"sass: {f} HMMA {c['HMMA']} FFMA {c['FFMA']}")
 
     # phase 3: kernels against their plain versions
     rows = {"flash_block_attention": check_kernels(card),

@@ -81,6 +81,28 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def sass_counts(name: str, ops: Tuple[str, ...] = ("HMMA",)
+                ) -> Dict[str, Dict[str, int]]:
+    """Each kernel function (mangled name) of the built library ``name``
+    and how many instructions of each opcode in ``ops`` its SASS holds,
+    from ``cuobjdump -sass``; builds the library first if needed."""
+    _compile(name)
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_paths(name)[1])],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if f" {op}" in line or f"\t{op}" in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``name`` (built first if needed)."""

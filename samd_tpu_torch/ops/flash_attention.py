@@ -34,6 +34,9 @@ from . import _build
 NEG_INF = -1e30
 MAX_T = 128            # the kernel serves blocks of at most this many rows
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+TILE = 64              # the kernel's KV tile, at absolute multiples of 64
+LOG2_E = 1.4426950408889634  # the bf16-q kernel keeps scores in base 2
+QUARTER_MAX_ROWS = 16  # R <= 16: each warp a quarter of every KV tile
 
 
 def _check(q, k, v, mask, kv_limit, k_scale, v_scale) -> None:
@@ -131,13 +134,150 @@ def kernel_tolerance(ref: torch.Tensor) -> torch.Tensor:
     on these O(1) outputs, held to 1e-4.  In bf16 each then rounds its own
     f32 result to bf16, and two results on either side of a rounding point
     differ by one bf16 ulp of the value, at most 2^-7 |ref|; a floor of two
-    bf16 ulps of max |ref| covers the f32 difference near 0."""
+    bf16 ulps of max |ref| covers the f32 difference near 0.
+
+    The tensor-core body (bf16 q, ``csrc/flash_block_attention.cu``) adds
+    three error terms to the f32 result, each far below half a bf16 ulp
+    (2^-9 relative), so the bound is the same (u = 2^-24 below):
+
+    - the mma's aligned truncation.  The products of bf16 values (int8 k
+      and v are exact in bf16) are exact in f32; each m16n8k16 aligns its
+      16 products and its accumulator to the largest exponent among them
+      and truncates the bits shifted out (Fasi, Higham, Mantovani and
+      Mary, 2021), less than 2u of that largest term per term.  A score,
+      a chain of D/16 mmas, is then off by at most 2u (D + D/16) max_d
+      |q_d k_d| D^-0.5, under 2^-13 absolute for |q|, |k| <= 4 at D = 128
+      (the plain version's own f32 dot is off by ~ D u of the same): p
+      changes by that fraction of itself.  A 16-column chunk of P.V is
+      off by at most 2u * 33 max_c |p_c v_c|, and the l-weighted average
+      of the chunks by 66u max |v|;
+    - P's hi/lo split.  P_hi = bf16(p) and P_lo = bf16(p - P_hi) leave
+      |p - P_hi - P_lo| <= 2^-9 * 2^-8 |p| = 2^-17 |p|, so the output, a
+      p-weighted average of v over l, moves by at most 2^-17 max |v|;
+    - the int8 reassociation and the base-2 scores.  The plain version
+      rounds each k8 * kscale and v8 * vscale to f32 before its products;
+      the kernel forms (q.k8) * kscale * log2(e) D^-0.5 and (p * vscale)
+      v8, two or three f32 roundings of the same products in another
+      order: a few u relative.  Its scores in base 2 (exp2 of s log2 e
+      for exp of s) round s * log2(e) D^-0.5 once more, an absolute
+      error of u |s log2 e| on the exponent: p moves by under 2^-18 of
+      itself for |s| < 32, and an output by that fraction of max |v|.
+
+    Together that is under 2^-15 max |v| on outputs that average v, which
+    the bf16 rounding term covers wherever |ref| is within 2^8 of max |v|,
+    and the two-ulp floor elsewhere while max |ref| is within 2^9 of max
+    |v| (an average of random v over n columns is about n^-1/2 of it).  ``tiled_order_attention`` models
+    the kernel's order, split and reassociation on the CPU; the tests hold
+    it inside this bound of the plain version and of JAX's kernel."""
     if ref.dtype == torch.float32:
         return torch.full_like(ref, 1e-4)
     r = ref.float().abs()
     ulp_max = 2.0 ** (torch.floor(torch.log2(r.max().clamp(min=2 ** -126)))
                       - 7)
     return 2 * ulp_max + 2.0 ** -7 * r
+
+
+def row_layout(T: int, NH: int, KH: int) -> str:
+    """The bf16-q kernel's row layout, from the shapes alone: "quarters"
+    (one 16-row tile, each warp a quarter of every KV tile's columns) at
+    R = G * T <= 16, else "rows" (64-row tiles, each warp 16 rows)."""
+    return "quarters" if (NH // KH) * T <= QUARTER_MAX_ROWS else "rows"
+
+
+def _mma_chain(acc: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """acc + a @ b summed exactly and rounded once to f32: one mma, its
+    alignment truncation bounded in ``kernel_tolerance``, not modelled."""
+    return (acc.double() + a.double() @ b.double()).float()
+
+
+def tiled_order_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: torch.Tensor, kv_limit: torch.Tensor,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """A CPU model of the bf16-q kernel's order and rounding, for tests:
+    the same function as ``flash_block_attention_ref``, computed as the
+    kernel computes it.
+
+    KV tiles of ``TILE`` columns at absolute multiples of 64 up to
+    cdiv(min(kv_limit, S), 64); a score is a chain of 16-d mmas from zero,
+    then ``* c`` with c = log2(e) D^-0.5 in f32, a base-2 score (int8:
+    ``(s * kscale) * c``), masked to exactly -1e30; an online softmax in
+    f32 with exp2 per column group (the whole tile in the "rows" layout; at
+    R <= 16 four quarters of 16 columns, one per warp) with p = 0 for a
+    masked score; p (int8: p * vscale) split into
+    bf16 P_hi and P_lo, each 16-column chunk's P_hi.V + P_lo.V added to the
+    rescaled f32 accumulator in ascending column order; the groups combined
+    in order 0..3; the output acc / max(l, 1e-30) rounded to q's type.
+    Not modelled: the mma's truncation, the lanes' summation order and
+    exp's last bit (``kernel_tolerance`` bounds them).  Arguments as
+    ``flash_block_attention``, on the CPU."""
+    _, T, NH, D = q.shape
+    _, KH, S, _ = k.shape
+    G = NH // KH
+    R = G * T
+    lim = int(kv_limit)
+    kv_lim = min(lim, S)
+    committed = lim - T
+    groups = 4 if row_layout(T, NH, KH) == "quarters" else 1
+    width = TILE // groups
+    qh = q[0].float().transpose(0, 1).reshape(KH, R, D)          # r = g*T+t
+    t_of_row = torch.arange(R) % T
+    scale = torch.tensor(LOG2_E / D ** 0.5, dtype=torch.float32)
+    m = torch.full((groups, KH, R, 1), NEG_INF)
+    l = torch.zeros((groups, KH, R, 1))
+    acc = torch.zeros((groups, KH, R, D))
+    for j0 in range(0, kv_lim, TILE):
+        n = min(TILE, kv_lim - j0)
+        cols = torch.arange(j0, j0 + TILE)
+
+        def tile(x):                      # [KH, S, ...] -> [KH, TILE, ...]
+            t = torch.zeros((KH, TILE) + tuple(x.shape[2:]))
+            t[:, :n] = x[:, j0:j0 + n].float()
+            return t
+
+        kt, vt = tile(k[0]), tile(v[0])
+        s = torch.zeros((KH, R, TILE))
+        for d0 in range(0, D, 16):
+            s = _mma_chain(s, qh[..., d0:d0 + 16],
+                           kt[..., d0:d0 + 16].transpose(1, 2))
+        if k_scale is not None:
+            s = (s * tile(k_scale[0])[:, None, :]) * scale
+        else:
+            s = s * scale
+        inblock = mask[0][t_of_row][:, torch.clamp(cols, max=S - 1)]
+        allowed = (cols < kv_lim) & ((cols < committed) | inblock)
+        s = torch.where(allowed[None], s, torch.tensor(NEG_INF))
+        vs = tile(v_scale[0]) if v_scale is not None else None
+        for w in range(groups):
+            c0 = w * width
+            sw = s[..., c0:c0 + width]
+            m_new = torch.maximum(m[w], sw.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m[w] - m_new)
+            p = torch.where(sw > NEG_INF, torch.exp2(sw - m_new),
+                            torch.zeros(()))
+            l[w] = l[w] * alpha + p.sum(dim=-1, keepdim=True)
+            acc[w] = acc[w] * alpha
+            m[w] = m_new
+            if vs is not None:
+                p = p * vs[:, None, c0:c0 + width]
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            for c in range(0, width, 16):
+                vc = vt[:, c0 + c:c0 + c + 16]
+                d = _mma_chain(torch.zeros(()), hi[..., c:c + 16], vc)
+                acc[w] = acc[w] + _mma_chain(d, lo[..., c:c + 16], vc)
+    mm = m.amax(dim=0)
+    o = torch.zeros((KH, R, D))
+    ll = torch.zeros((KH, R, 1))
+    for w in range(groups):
+        f = torch.exp2(m[w] - mm)
+        o = o + acc[w] * f
+        ll = ll + l[w] * f
+    o = o / torch.clamp(ll, min=1e-30)
+    o = o.reshape(KH, G, T, D).permute(2, 0, 1, 3).reshape(1, T, NH * D)
+    return o.to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)

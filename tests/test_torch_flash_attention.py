@@ -2,7 +2,9 @@
 
 On the CPU the port's wrapper takes its plain version; it is held against
 JAX's ``flash_block_attention`` run in interpret mode, K1 (KH < 8) and K2
-(KH >= 8) shapes included.  The CUDA kernel itself is held against the
+(KH >= 8) shapes included.  ``tiled_order_attention``, the CPU model of the
+tensor-core kernel's order and rounding, is held against both in bf16,
+with k/v in bf16 and in int8.  The CUDA kernel itself is held against the
 plain version in ``test_torch_kernel_cuda.py``, on a card.
 """
 
@@ -11,11 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from samd_tpu.cache import QuantizedKV as JaxQKV
 from samd_tpu.models.llama import block_decode_mask
 from samd_tpu.ops.pallas_attention import flash_block_attention as jax_flash
 from samd_tpu.sam.trees import ancestor_closure
+from samd_tpu_torch.cache import quantize_kv_block
 from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
-                                                kernel_tolerance)
+                                                flash_block_attention_ref,
+                                                kernel_tolerance, row_layout,
+                                                tiled_order_attention)
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -114,3 +120,88 @@ def test_wrapper_rejects(name):
     with pytest.raises(exc, match=match):
         flash_block_attention(*args)
 
+
+
+def bf16_case(T, NH, KH, D, S, cache_len, int8, seed=0):
+    """bf16 q (and bf16 k/v, or int8 k/v with f32 scales from the port's
+    quantizer) as torch tensors, plus JAX's arguments holding the same
+    values."""
+    q, k, v, mask, kv_limit = make_case(T, NH, KH, D, S, cache_len, seed)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    if int8:
+        (kq, ks), (vq, vs) = (quantize_kv_block(torch.from_numpy(x))
+                              for x in (k, v))
+        port = (qt, kq, vq, torch.from_numpy(mask),
+                torch.tensor(kv_limit, dtype=torch.int32), ks, vs)
+        jk = JaxQKV(jnp.asarray(kq.numpy().transpose(0, 1, 3, 2)),
+                    jnp.asarray(ks.numpy()))
+        jv = JaxQKV(jnp.asarray(vq.numpy().transpose(0, 1, 3, 2)),
+                    jnp.asarray(vs.numpy()))
+        extra = dict(pre_transposed=True)
+    else:
+        kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+        port = (qt, kt, vt, torch.from_numpy(mask),
+                torch.tensor(kv_limit, dtype=torch.int32))
+        jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                  for x in (kt, vt))
+        extra = {}
+    jq = jnp.asarray(qt.float().numpy()).astype(jnp.bfloat16)
+    return port, (jq, jk, jv, jnp.asarray(mask), jnp.int32(kv_limit)), extra
+
+
+# (T, NH, KH, D, S, cache_len, block_s): each row layout of the kernel —
+# column quarters at R = G*T <= 16 (tiny MHA; llama_7b decode at
+# cache_len 200 and 0, where three warps' quarters hold no live column),
+# 64-row tiles above (GQA; K2's fold-KV regime; a T = 128 block)
+MODEL_CASES = [
+    (8, 4, 4, 16, 128, 40, 64),
+    (16, 32, 32, 128, 256, 200, 256),
+    (16, 32, 32, 128, 256, 0, 256),
+    (8, 8, 2, 16, 128, 40, 64),
+    (16, 16, 8, 32, 256, 180, 64),
+    (128, 8, 2, 16, 256, 0, 128),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,NH,KH,D,S,cache_len,block_s", MODEL_CASES)
+def test_tiled_order_model_within_tolerance(T, NH, KH, D, S, cache_len,
+                                            block_s, int8):
+    """The kernel's order and rounding (64-column tiles, mma chains, bf16
+    hi/lo P, the int8 scale reassociation, the quarter combine at R <= 16)
+    stay within ``kernel_tolerance`` of JAX's interpreted Pallas kernel and
+    of the plain version, in bf16."""
+    port, jargs, extra = bf16_case(T, NH, KH, D, S, cache_len, int8)
+    got = tiled_order_attention(*port)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, T, NH * D)
+    want = jax_flash(*jargs, block_s=block_s, interpret=True, **extra)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(
+        torch.bfloat16)
+    plain = flash_block_attention_ref(*port)
+    for ref in (want, plain):
+        excess = (got.float() - ref.float()).abs() - kernel_tolerance(ref)
+        assert excess.max().item() <= 0, excess.max().item()
+
+
+@pytest.mark.parametrize("T,NH,KH", [(16, 4, 4), (8, 8, 2)])
+def test_tiled_order_model_is_s_invariant(T, NH, KH):
+    """The same live prefix in a 256- and a 1024-column cache gives the
+    same bits: the tiles stop at kv_limit, whatever S is."""
+    port, _, _ = bf16_case(T, NH, KH, 32, 1024, 200, False, seed=3)
+    q, k, v, mask, lim = port
+    cut = (q, k[:, :, :256].contiguous(), v[:, :, :256].contiguous(),
+           mask[:, :, :256].contiguous(), lim)
+    assert torch.equal(tiled_order_attention(*port),
+                       tiled_order_attention(*cut))
+
+
+def test_row_layout_by_shape():
+    """Column quarters exactly at R = G*T <= 16: llama_7b decode (G 1,
+    T 16) and llama_1b at T = 1 (G 8); 64-row tiles at llama_1b decode
+    (T 60) and the T = 128 prefill."""
+    assert row_layout(16, 32, 32) == "quarters"
+    assert row_layout(1, 32, 4) == "quarters"
+    assert row_layout(13, 32, 32) == "quarters"
+    assert row_layout(17, 32, 32) == "rows"
+    assert row_layout(60, 32, 4) == "rows"
+    assert row_layout(128, 32, 32) == "rows"

@@ -55,12 +55,16 @@ def make_case(T, NH, KH, D, S, cache_len, dtype, device, seed=0,
 
 
 # (T, NH, KH, D, S, cache_len, prefill): tiny, llama_1b decode / T = 1 /
-# prefill, a llama_7b (KH >= 8) shape, and llama_7b's bf16 prefill into
-# the paged engine's 128-slot batch-1 cache
+# prefill, a llama_7b (KH >= 8) shape, llama_7b's bf16 prefill into the
+# paged engine's 128-slot batch-1 cache, and llama_7b decode in bf16 at
+# T = 16 with ragged R = 1 and 13 (bf16 q: the column-quarter layout)
 SHAPES = [(8, 8, 2, 16, 128, 40, False), (16, 16, 8, 32, 256, 180, False),
           (60, 32, 4, 64, 2048, 700, False), (1, 32, 4, 64, 2048, 300, False),
           (128, 32, 4, 64, 2048, 0, True), (60, 32, 32, 128, 2048, 300, False),
-          (128, 32, 32, 128, 128, 0, True)]
+          (128, 32, 32, 128, 128, 0, True),
+          (16, 32, 32, 128, 1024, 200, False),
+          (1, 32, 32, 128, 1024, 300, False),
+          (13, 32, 32, 128, 1024, 300, False)]
 
 
 @pytest.mark.cuda
@@ -89,12 +93,15 @@ def test_kernel_matches_plain(cuda_device, dtype, T, NH, KH, D, S,
 
 
 # int8-KV mode: (T, NH, KH, D, S, cache_len, prefill): tiny, llama_7b
-# decode at several live lengths and its T = 128 prefill, a llama_1b shape
+# decode at several live lengths and its T = 128 prefill, a llama_1b
+# shape, and ragged R = 1 and 13 at G = 1
 Q8_SHAPES = [(8, 8, 2, 16, 128, 40, False), (16, 32, 32, 128, 1024, 0, False),
              (16, 32, 32, 128, 1024, 200, False),
              (16, 32, 32, 128, 1024, 1008, False),
              (128, 32, 32, 128, 1024, 0, True),
-             (60, 32, 4, 64, 2048, 700, False)]
+             (60, 32, 4, 64, 2048, 700, False),
+             (1, 32, 32, 128, 1024, 300, False),
+             (13, 32, 32, 128, 1024, 300, False)]
 
 
 @pytest.mark.cuda
@@ -124,6 +131,39 @@ def test_int8_kv_kernel_matches_plain(cuda_device, dtype, T, NH, KH, D, S,
     assert excess.max().item() <= 0, excess.max().item()
     assert torch.equal(got, again)
     assert torch.equal(got, poisoned)
+
+
+# (T, NH, KH, D, cache_len, prefill): both row layouts, decode and prefill
+S_INVARIANT_CASES = [(16, 32, 32, 128, 200, False), (13, 32, 32, 128, 0, False),
+                     (60, 32, 4, 64, 160, False), (128, 32, 32, 128, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,NH,KH,D,cache_len,prefill", S_INVARIANT_CASES)
+def test_kernel_s_invariant(cuda_device, T, NH, KH, D, cache_len, prefill,
+                            int8):
+    """The same live prefix in a 256- and a 1024-column cache gives the
+    same bits (bf16 q): the single-stream engine moves a request between
+    cache buckets, and its oracle equality needs a row's result to ignore
+    the columns past kv_limit."""
+    q, k, v, mask, lim = make_case(T, NH, KH, D, 1024, cache_len,
+                                   torch.float32, cuda_device,
+                                   prefill=prefill)
+    q = q.to(torch.bfloat16)
+    if int8:
+        (k, ks), (v, vs) = (quantize_kv_block(t) for t in (k, v))
+        sc, sc256 = (ks, vs), (ks[:, :, :256].contiguous(),
+                               vs[:, :, :256].contiguous())
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        sc = sc256 = ()
+    big = flash_block_attention(q, k, v, mask, lim, *sc)
+    small = flash_block_attention(q, k[:, :, :256].contiguous(),
+                                  v[:, :, :256].contiguous(),
+                                  mask[:, :, :256].contiguous(), lim, *sc256)
+    torch.cuda.synchronize()
+    assert torch.equal(big, small)
 
 
 def int4_case(L, IN, OUT, R, device, seed=0):
