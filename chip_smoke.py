@@ -40,7 +40,16 @@ Phases, in order; any failure exits non-zero:
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
-     forward went through the verify kernel;
+     forward went through the verify kernel.  Then one sampled request per
+     accept mode (rejection at temperature 0.8 with top_k 50, typical,
+     nucleus with top_p 0.9), each run twice with its seed, must give the
+     same tokens both times, every forward through the verify kernel;
+     point-mass sampled requests (top_k 1, or top_p 1e-6, at temperature
+     1e-5: every draw forced) through the rejection and nucleus rules must
+     equal the ArBaseline oracle token for token; and
+     chain_sampling_accept over 4000 trials at V = 8 with the card's
+     generator must stay within total variation 0.05 of the target, for a
+     likely and an unlikely proposal;
   5. llama_7b path: llama_7b at full width with packed-int4 weights
      (requantized from an int8 base drawn on the card from seed 0) and an
      int8 KV cache, FusedSamConfig(n_predicts=15, corpus_capacity=4096,
@@ -59,9 +68,29 @@ Phases, in order; any failure exits non-zero:
      engine's alpha = 0 oracle bit for bit; every page comes back; K4 int8
      launches 32 per step, the bf16 verify 32 per P = 128 prefill, K3 225
      per forward;
+  8. the server: samd_tpu_torch.server over HTTP (127.0.0.1, a free port)
+     in front of phase 6's engine and weights with a 2^20-token corpus
+     (random tokens, phase 6's four repeated requests' outputs in its last
+     quarter) behind its n-gram index; the index probe must equal the scan
+     on 64 queries.  Four client threads send phase 6's 16 greedy requests
+     (each equal to phase 6's alpha = 0 oracle), 8 sampled ones (four
+     prompts, each twice with one seed: equal in pairs), a batch mixing
+     greedy (equal to the oracle) and sampled requests (another seed
+     differs), a batch mixing greedy requests and point-mass sampled ones
+     (top_k 1 at temperature 1e-5, each its own prompt and seed: all equal
+     to the oracle), one SSE request on a prompt that commits over several
+     segments (at least two chunks, equal to its blocking reply) and, while
+     a sampled request is in flight, one of another signature (400), and
+     bodies the engine cannot serve (400, the server serving on);
+     /health answers ok; every page comes back; launches as in phase 6;
   7. llama_1b batched paths: BatchedFusedSamEngine (dense) and
      PagedBatchedFusedSamEngine (bf16 pages of 128) at B = 4 answer six
-     requests of 64 new tokens, each equal to its own alpha = 0 oracle.
+     requests of 64 new tokens, each equal to its own alpha = 0 oracle; at
+     each request where the two engines differ, the logits of a plain
+     prefill over the shared prefix, with bf16 and with f32 probabilities,
+     give the top-2 gap by the near-tie rule; and the dense engine run again
+     with f32 probabilities (a scratch copy of the plain attention) is
+     compared with the paged engine.
 Then a JSON line of kernels, the nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -75,6 +104,8 @@ import math
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -676,7 +707,125 @@ def main_path_1b(card: str) -> int:
     print(f"llama_1b path: flash_block_attention launches {launches} = "
           f"{cfg.num_layers} layers x (3 prefills + decode steps)",
           flush=True)
+    sampled_1b(card, cfg, plain_engine, prompts["c_repetitive"])
+    point_mass_1b(card, engines, prompts, refs)
+    chain_rejection_tv(card)
     return launches
+
+
+# every draw of a sampled request forced: top_k = 1 (or a nucleus of the
+# top token alone) in the chain, and a temperature so low that the first
+# token, drawn from last_logits / temperature without top-p/top-k as in the
+# reference, is the argmax.  Such a request's answer is the greedy oracle's.
+POINT_MASS = {"rejection": dict(temperature=1e-5, top_k=1),
+              "nucleus": dict(temperature=1e-5, top_p=1e-6)}
+
+
+def point_mass_1b(card, engines, prompts, refs) -> None:
+    """Phase 4, sampled with an independent answer: point-mass requests
+    through the sampling branch equal the ArBaseline oracle token for
+    token, on prompts whose chains accept one token a step and many."""
+    from samd_tpu_torch.config import GenerationConfig
+
+    runs = (("rejection", "b_own_corpus"), ("rejection", "c_repetitive"),
+            ("nucleus", "a_random"), ("nucleus", "b_own_corpus"))
+    for i, (mode, name) in enumerate(runs):
+        ref = refs[name]
+        gen = GenerationConfig(
+            max_new_tokens=ref.decode_tokens, max_cache_len=2048,
+            greedy=False, seed=60 + i, accept_mode=mode, **POINT_MASS[mode])
+        out = engines[name].generate(prompts[name], gen)
+        if out.output_ids != ref.output_ids:
+            diff = next((j for j, (a, b) in enumerate(
+                zip(out.output_ids, ref.output_ids)) if a != b),
+                min(len(out.output_ids), len(ref.output_ids)))
+            raise SystemExit(f"llama_1b point-mass {mode} request {name}: "
+                             f"tokens differ from the oracle at {diff}")
+        print(f"llama_1b point-mass sampled {mode} {POINT_MASS[mode]} "
+              f"request {name}: new {out.decode_tokens} decode_steps "
+              f"{out.decode_steps} mean_accept "
+              f"{out.decode_tokens / out.decode_steps:.3f}; equal to the "
+              f"ArBaseline oracle [{card}]", flush=True)
+
+
+def sampled_1b(card, cfg, engine, prompt) -> None:
+    """Phase 4, sampled: one request per accept mode, each twice with its
+    seed, must give the same tokens both times (and tokens of the
+    vocabulary, within budget); every forward through the verify kernel."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+
+    modes = {"rejection": dict(temperature=0.8, top_k=50),
+             "typical": dict(temperature=0.8),
+             "nucleus": dict(temperature=0.8, top_p=0.9)}
+    new = 64
+    for mode, knobs in modes.items():
+        gen = GenerationConfig(max_new_tokens=new, max_cache_len=2048,
+                               greedy=False, seed=17, accept_mode=mode,
+                               **knobs)
+        reset_counts()                          # this request's path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = engine.generate(prompt, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        b = engine.generate(prompt, gen)
+        fail_if(a.output_ids != b.output_ids,
+                f"llama_1b sampled {mode}: the same seed gave other tokens")
+        fail_if(a.decode_tokens != new or not all(
+            0 <= t < cfg.vocab_size for t in a.output_ids),
+                f"llama_1b sampled {mode}: malformed output")
+        want = cfg.num_layers * (1 + a.decode_steps)
+        fail_if(counts["flash_block_attention"] != want or any(
+            v for k, v in counts.items() if k != "flash_block_attention"),
+                f"llama_1b sampled {mode}: launch counts {counts}, expected "
+                f"{want} verify launches")
+        print(f"llama_1b sampled {mode} {knobs}: new {a.decode_tokens} "
+              f"decode_steps {a.decode_steps} mean_accept "
+              f"{a.decode_tokens / a.decode_steps:.3f} ms_per_step "
+              f"{dt / a.decode_steps * 1e3:.3f} (prefill included); the "
+              f"same tokens on a second run with seed 17; verify launches "
+              f"{want} [{card}]", flush=True)
+
+
+def chain_rejection_tv(card) -> None:
+    """Phase 4, on the card: chain_sampling_accept over 4000 trials at
+    V = 8 with noise from the card's generator; the emitted token's total
+    variation from the target softmax stays under 0.05, for a likely and
+    an unlikely proposal."""
+    import torch
+
+    from samd_tpu_torch.fused_sam import (ChainNoise, chain_sampling_accept,
+                                          gumbel_from_uniform)
+
+    V, n = 8, 4000
+    logits = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, V)).astype(np.float32) * 2).cuda()
+    target = torch.softmax(logits[0], dim=-1).cpu().numpy()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    order = np.argsort(-target)
+    for label, tok in (("likely", int(order[0])), ("unlikely",
+                                                   int(order[-2]))):
+        noise = ChainNoise(
+            torch.rand((n, 2), generator=gen, device="cuda"),
+            gumbel_from_uniform(torch.rand((n, 1, V), generator=gen,
+                                           device="cuda")))
+        draft = torch.tensor([5, tok], device="cuda").expand(n, 2)
+        alen, bonus = chain_sampling_accept(
+            logits.expand(n, 2, V), draft,
+            torch.full((n,), 2, device="cuda"), noise)
+        emitted = torch.where(alen >= 2, tok, bonus).cpu().numpy()
+        freq = np.bincount(emitted, minlength=V) / n
+        tv = 0.5 * np.abs(freq - target).sum()
+        fail_if(not tv < 0.05, f"chain rejection on the card: total "
+                f"variation {tv:.4f} >= 0.05 ({label} proposal)")
+        print(f"chain rejection on the card, {label} proposal (p = "
+              f"{target[tok]:.4f}): total variation {tv:.4f} < 0.05 over "
+              f"{n} trials, accepted {float((alen >= 2).float().mean()):.3f}"
+              f" [{card}]", flush=True)
 
 
 def bucket_prefill_check(card, cfg, params, prompt) -> None:
@@ -937,7 +1086,342 @@ def main_path_7b_paged(card: str, cfg, params) -> int:
     print(f"llama_7b paged vs single-stream FusedSamEngine (dense int8 KV): "
           f"{same} of {len(requests)} requests equal (not required)",
           flush=True)
-    return counts["paged_block_attention_int8kv"]
+    return counts["paged_block_attention_int8kv"], requests, oracle
+
+
+def http_post(url: str, body: dict, timeout: float = 900):
+    """POST /generate; returns (status, reply JSON)."""
+    req = urllib.request.Request(
+        f"{url}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def http_traffic(url: str, bodies: list, label: str) -> list:
+    """Send every body from four client threads; every reply must be 200;
+    returns the replies in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda b: http_post(url, b), bodies))
+    for i, (code, reply) in enumerate(got):
+        fail_if(code != 200, f"server {label} request {i}: HTTP {code} "
+                f"{reply}")
+    return [reply for _, reply in got]
+
+
+def idle(sched) -> None:
+    """Wait until the scheduler holds no sampling signature: the last
+    replies of a traffic group can arrive before its driver thread clears
+    it, and a request of another signature sent then would get 400."""
+    deadline = time.monotonic() + 60
+    while sched.stats()["sampling_signature"] is not None:
+        fail_if(time.monotonic() > deadline,
+                "server: the sampling signature was never released")
+        time.sleep(0.01)
+
+
+def query_windows(corpus: np.ndarray, hi: int, n: int, Q: int, ext: int,
+                  rng):
+    """n (query [Q], tail [ext], tail_len) windows of the draft function:
+    each a history of up to 200 tokens cut from ``corpus[:hi]``, and its
+    next token as the start."""
+    qs, ts, tls = [], [], []
+    for _ in range(n):
+        hlen = int(rng.integers(0, 200))
+        s = int(rng.integers(hlen, hi))
+        hist = corpus[s - hlen:s].tolist()
+        q = [-1] * (Q - 1) + hist
+        q = q[len(q) - (Q - 1):] + [int(corpus[s])]
+        pre = hist[:max(0, hlen - (Q - 1))]
+        t = ([-1] * ext + pre)[-ext:]
+        qs.append(q)
+        ts.append(t)
+        tls.append(min(ext, len(pre)))
+    return (np.asarray(qs, np.int32), np.asarray(ts, np.int32),
+            np.asarray(tls, np.int32))
+
+
+def index_against_scan(card, eng) -> None:
+    """Phase 8: the engine's index probe equals the scan on 64 queries cut
+    from the random three quarters of its 2^20-token corpus, integer for
+    integer (random tokens over 32000 ids repeat no 8-gram, so the scan's
+    earliest full window is the longest match); both timed at the
+    engine's B = 12 step shape."""
+    import torch
+
+    from samd_tpu_torch.fused_sam import suffix_match
+    from samd_tpu_torch.ops.ngram_index import indexed_suffix_match
+
+    fc = eng.cfg
+    n = int(eng.corpus_len)
+    corpus = eng.corpus[:n].cpu().numpy()
+    q, t, tl = (torch.from_numpy(a).cuda() for a in query_windows(
+        corpus, 3 * n // 4, 64, fc.max_ngram, fc.ext,
+        np.random.default_rng(5)))
+    kw = dict(max_ngram=fc.max_ngram, ext=fc.ext)
+
+    def probe(b):
+        return indexed_suffix_match(eng.corpus, eng.corpus_len,
+                                    eng.corpus_index, q[:b], t[:b], tl[:b],
+                                    **kw)
+
+    def scan(b):
+        return suffix_match(eng.corpus[None], eng.corpus_len, q[:b], t[:b],
+                            tl[:b], **kw)
+
+    (mi, ei), (ms, es) = probe(64), scan(64)
+    fail_if(not (torch.equal(mi, ms) and torch.equal(ei, es)),
+            f"index probe differs from the scan: {(mi != ms).sum().item()} "
+            f"match lengths, {(ei != es).sum().item()} end positions of 64")
+    probe_ms = cuda_ms(lambda i: probe(12), iters=20)
+    scan_ms = cuda_ms(lambda i: scan(12), iters=5, warmup=2)
+    print(f"index probe vs scan over the {n}-token corpus: equal on 64 "
+          f"queries (match lengths {mi.min().item()}..{mi.max().item()}, "
+          f"{int((mi >= fc.max_ngram).sum())} full windows); B = 12: probe "
+          f"{probe_ms:.4f} ms, scan {scan_ms:.4f} ms [{card}]", flush=True)
+
+
+def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
+    """Phase 8: the HTTP server over the paged 7B engine (int4 weights,
+    int8 pages, B = 12) with a 2^20-token indexed corpus."""
+    import torch
+
+    from samd_tpu_torch.fused_sam import (FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+    from samd_tpu_torch.server import serve
+
+    S, B, page, n_pages = 1024, 12, 128, 52
+    C = 1 << 20
+    rng = np.random.default_rng(21)
+    corpus = rng.integers(3, cfg.vocab_size, size=C).astype(np.int32)
+    at = 3 * C // 4 + 12345                   # the last quarter
+    for o in oracle[12:16]:                   # the four repeats' outputs
+        doc = np.asarray(o.output_ids + [0], np.int32)
+        corpus[at:at + len(doc)] = doc
+        at += len(doc) + int(rng.integers(1000, 5000))
+    fc = FusedSamConfig(n_predicts=15, steps_per_call=16, corpus_capacity=C,
+                        indexed=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = PagedBatchedFusedSamEngine(
+        cfg, params, fc, corpus=corpus, batch_size=B, max_cache_len=S,
+        eos_token_id=-1, prefill_buckets=(128, 256), n_pages=n_pages,
+        page_size=page, quantized_kv=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    idx = eng.corpus_index
+    print(f"server engine: {C}-token corpus, index of {len(idx.grams)} "
+          f"tables x {idx.table.shape[1]} buckets x {idx.bucket_cap} = "
+          f"{idx.nbytes} bytes ({idx.nbytes / 2 ** 20:.1f} MiB) on the card;"
+          f" engine and index built in {build_s:.2f} s [{card}]", flush=True)
+    index_against_scan(card, eng)
+    # the same greedy requests straight through the engine, all queued at
+    # once, for the server's cost beside it
+    alone, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
+    fail_if(any(a.output_ids != o.output_ids for a, o in zip(alone, oracle)),
+            "server engine alone: tokens differ from the alpha = 0 oracle")
+    print(f"server engine alone (no HTTP, 16 greedy requests queued at "
+          f"once): {steps} steps, wall {wall:.3f} s: "
+          f"{sum(a.decode_tokens for a in alone) / wall:.2f} tok/s, "
+          f"{wall / steps * 1e3:.3f} ms/step; every request equal to the "
+          f"alpha = 0 oracle [{card}]", flush=True)
+
+    def body(p, n, **kw):
+        return {"input_ids": p, "max_new_tokens": n, "max_cache_len": S,
+                **kw}
+
+    samp = dict(temperature=0.8, accept_mode="rejection")
+    server, sched = serve(eng, host="127.0.0.1", port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    sent = []             # (prompt, budget) of every request the engine ran
+    try:
+        reset_counts()                          # the path starts here
+        mark = (eng.steps_run, eng.stats_live_steps, eng.stats_corpus_steps)
+
+        def timed(bodies, label):
+            s0, l0 = eng.steps_run, eng.stats_live_steps
+            t0 = time.perf_counter()
+            replies = http_traffic(url, bodies, label)
+            wall = time.perf_counter() - t0
+            sent.extend((b["input_ids"], b["max_new_tokens"])
+                        for b in bodies)
+            for b, r in zip(bodies, replies):
+                out = r["output_ids"]
+                fail_if(len(out) != len(b["input_ids"]) + b["max_new_tokens"]
+                        or out[:len(b["input_ids"])] != b["input_ids"]
+                        or not all(0 <= x < cfg.vocab_size for x in out),
+                        f"server {label}: malformed reply")
+            new = sum(r["new_tokens"] for r in replies)
+            steps = eng.steps_run - s0
+            live = eng.stats_live_steps - l0
+            print(f"server {label}: {len(bodies)} requests over HTTP from "
+                  f"four client threads, {new} new tokens, {steps} steps of "
+                  f"[12, 16] ({live / steps:.2f} live slots per step), wall "
+                  f"{wall:.3f} s: {new / wall:.2f} tok/s, "
+                  f"{wall / steps * 1e3:.3f} ms/step [{card}]", flush=True)
+            return replies
+
+        # greedy: phase 6's 16 requests, each equal to its alpha = 0 oracle
+        greedy = timed([body(p, n) for p, n in requests], "greedy")
+        for i, (r, o) in enumerate(zip(greedy, oracle)):
+            fail_if(r["output_ids"] != o.output_ids, f"server greedy request "
+                    f"{i}: tokens differ from the alpha = 0 oracle")
+        acc = [r["new_tokens"] / r["decode_steps"] for r in greedy]
+        rep = [0, 1, 2, 3, 12, 13, 14, 15]     # outputs held by the corpus
+        print(f"server greedy: all 16 replies equal the alpha = 0 oracle; "
+              f"mean accept {np.mean([acc[i] for i in rep]):.3f} on the four"
+              f" repeated prompts (8 requests, outputs in the corpus), "
+              f"{np.mean([a for i, a in enumerate(acc) if i not in rep]):.3f}"
+              f" on the other 8", flush=True)
+
+        # sampled: four prompts, each twice with one seed
+        pairs = [body(p, n, seed=100 + i, **samp)
+                 for i, (p, n) in enumerate(requests[:4])]
+        sampled = timed([b for b in pairs for _ in range(2)], "sampled")
+        for i in range(4):
+            fail_if(sampled[2 * i]["output_ids"]
+                    != sampled[2 * i + 1]["output_ids"],
+                    f"server sampled prompt {i}: one seed, two outputs")
+
+        # mixed: greedy and sampled requests in turn, so the four in
+        # flight at any time hold both kinds in one batch
+        mixed_b = [b for i, (p, n) in enumerate(requests[:6]) for b in (
+            body(*requests[4 + i]), body(p, n, seed=200 + i, **samp))]
+        mixed = timed(mixed_b, "mixed")
+        for i, r in enumerate(mixed[0::2]):
+            fail_if(r["output_ids"] != oracle[4 + i].output_ids,
+                    f"server mixed greedy request {i}: tokens differ from "
+                    "the alpha = 0 oracle")
+        fail_if(mixed[1]["output_ids"] == sampled[0]["output_ids"],
+                "server: seeds 100 and 200 gave the same tokens on prompt 0")
+        print("server sampled: each pair equal per seed; seeds 100 and 200 "
+              "differ on prompt 0; mixed batch: its 6 greedy replies equal "
+              "the oracle", flush=True)
+
+        # point-mass sampled requests (every draw forced) beside greedy
+        # ones: each reply equals the alpha = 0 oracle; the first four
+        # prompts' outputs are in the corpus, so their chains run long
+        idle(sched)                     # a new signature: after the last
+        pm = dict(POINT_MASS["rejection"], accept_mode="rejection")
+        pm_b = [body(p, n, seed=300 + i, **pm)
+                for i, (p, n) in enumerate(requests[:8])]
+        pm_b[2:2] = [body(*requests[8])]
+        pm_b[5:5] = [body(*requests[9])]
+        pm_b += [body(*r) for r in requests[10:12]]
+        order = [0, 1, 8, 2, 3, 9, 4, 5, 6, 7, 10, 11]
+        point = timed(pm_b, "point-mass mixed")
+        for k, r in zip(order, point):
+            fail_if(r["output_ids"] != oracle[k].output_ids,
+                    f"server point-mass mixed request {k}: tokens differ "
+                    "from the alpha = 0 oracle")
+        acc = [r["new_tokens"] / r["decode_steps"] for r in point]
+        print(f"server point-mass: 8 sampled replies (top_k 1, temperature "
+              f"1e-5) and 4 greedy ones beside them equal the alpha = 0 "
+              f"oracle; mean accept {np.mean(acc[:2] + acc[3:5]):.3f} on "
+              f"the four sampled requests whose outputs are in the corpus",
+              flush=True)
+
+        # one SSE request on a prompt that commits about one token a step,
+        # so over several segments: its chunks equal its blocking reply
+        p4, n4 = requests[4]
+        raw = urllib.request.urlopen(urllib.request.Request(
+            f"{url}/generate", data=json.dumps(body(p4, n4, stream=True))
+            .encode(), headers={"Content-Type": "application/json"}),
+            timeout=900)
+        events = [json.loads(line.decode()[len("data: "):])
+                  for line in raw if line.startswith(b"data: ")]
+        raw.close()
+        sent.append((p4, n4))
+        streamed = [x for e in events[:-1] for x in e["tokens"]]
+        fail_if(not events or not events[-1].get("done")
+                or len(events) < 3
+                or streamed != greedy[4]["output_ids"][len(p4):]
+                or events[-1]["output_ids"] != greedy[4]["output_ids"],
+                f"server SSE: {len(events) - 1} chunks; fewer than 2, or "
+                "they differ from the blocking reply")
+        print(f"server SSE: {len(events) - 1} chunks concatenate to the "
+              f"blocking reply's {len(streamed)} tokens", flush=True)
+
+        # a conflicting signature while a sampled request is in flight
+        import threading
+
+        before = sched.stats()["submitted"]
+        bg = {}
+        long = threading.Thread(target=lambda: bg.update(
+            r=http_post(url, body(requests[1][0], 128, seed=7, **samp))))
+        long.start()
+        while sched.stats()["submitted"] == before:
+            time.sleep(0.01)
+        code, reply_c = http_post(url, body(requests[2][0], 16,
+                                            temperature=0.5))
+        long.join(timeout=900)
+        fail_if(long.is_alive(), "server: the request in flight never ended")
+        sent.append((requests[1][0], 128))
+        fail_if(code != 400 or "signature" not in reply_c.get("error", ""),
+                f"server: a conflicting signature got {code} {reply_c}")
+        fail_if(bg["r"][0] != 200, f"server: the request in flight got "
+                f"{bg['r']}")
+        # bodies the engine cannot serve: 400 before the driver thread,
+        # and the server serves on
+        idle(sched)
+        p2, n2 = requests[2]
+        bad = [body(p2 + [cfg.vocab_size], n2), body([-1] + p2, n2),
+               body((p2 * 8)[:257], n2),         # past the bucket of 256
+               body(p2, n2, temperature=0.8, top_k=cfg.vocab_size + 1),
+               body(p2, "16")]
+        for b in bad:
+            code, reply = http_post(url, b)
+            fail_if(code != 400, f"server: a body it cannot serve got "
+                    f"{code} {reply}")
+        code, reply = http_post(url, body(p2, n2))
+        sent.append((p2, n2))
+        fail_if(code != 200 or reply["output_ids"] != oracle[2].output_ids,
+                f"server: after the bad bodies, HTTP {code} or tokens "
+                "other than the oracle's")
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        fail_if(health.get("status") != "ok", f"server health: {health}")
+        print(f"server: a conflicting signature got 400 ({reply_c['error']});"
+              f" {len(bad)} bodies it cannot serve (ids outside the "
+              f"vocabulary, a prompt past the largest bucket, top_k past the"
+              f" vocabulary, a string budget) got 400, and the next request "
+              f"equals the oracle; health {health}", flush=True)
+        counts = read_counts()                  # the path ends here
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.close()
+    steps = eng.steps_run - mark[0]
+    live = eng.stats_live_steps - mark[1]
+    from_corpus = eng.stats_corpus_steps - mark[2]
+    fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
+            f"server: {n_pages - len(eng.pool._free)} pages not returned")
+    p128 = sum(len(p) <= 128 for p, _ in sent)
+    want = {"flash_block_attention": cfg.num_layers * p128,
+            "flash_block_attention_int8kv": 0,
+            "int4_matmul": (7 * cfg.num_layers + 1) * (steps + len(sent)),
+            "paged_block_attention": 0,
+            "paged_block_attention_int8kv": cfg.num_layers * steps}
+    fail_if(counts != want or not steps,
+            f"server: launch counts {counts}, expected {want} (K4 int8 32 "
+            "per step, the bf16 verify 32 per P = 128 prefill, K3 225 per "
+            "forward)")
+    print(f"server path: {len(sent)} requests, {steps} steps; K4 int8 "
+          f"launches {counts['paged_block_attention_int8kv']} = 32 x {steps};"
+          f" bf16 verify {counts['flash_block_attention']} = 32 x {p128} "
+          f"P = 128 prefills; int4_matmul {counts['int4_matmul']} = 225 x "
+          f"{steps + len(sent)} forwards; drafts from the corpus in "
+          f"{from_corpus} of {live} live slot-steps "
+          f"({from_corpus / live:.3f}); peak_pages {eng.peak_pages} of "
+          f"{n_pages}; all pages returned [{card}]", flush=True)
+    del eng
+    gc.collect()
+    return counts
 
 
 def main_path_1b_batched(card: str) -> int:
@@ -992,17 +1476,105 @@ def main_path_1b_batched(card: str) -> int:
         if name == "paged":
             fail_if(len(eng.pool._free) != 32,
                     "llama_1b paged: pages not returned")
-        runs[name] = (outs, counts)
+        runs[name] = (outs, counts, corpus)
         del eng
         gc.collect()
-    agree = sum(a.output_ids == b.output_ids
-                for a, b in zip(runs["dense"][0], runs["paged"][0]))
+    dense, paged = runs["dense"][0], runs["paged"][0]
+    agree = sum(a.output_ids == b.output_ids for a, b in zip(dense, paged))
     print(f"llama_1b batched: dense and paged engines agree on {agree} of "
           f"{len(requests)} requests (not required: the dense engine attends "
           f"plainly over all S columns, the paged one through K4); K4 bf16 "
           f"launches {runs['paged'][1]['paged_block_attention']} [{card}]",
           flush=True)
+    classify_dense_paged(card, cfg, params, dense, paged)
+    # the scratch run: the dense engine with f32 probabilities in the plain
+    # attention, as K4 keeps them
+    import samd_tpu_torch.models.llama as llama
+
+    saved = llama._attention
+    llama._attention = attention_f32_probs
+    try:
+        f32, _, _ = serve_batched(BatchedFusedSamEngine(
+            cfg, params, fcfg(), corpus=runs["dense"][2], **kw), requests,
+            cfg.vocab_size)
+    finally:
+        llama._attention = saved
+    print(f"llama_1b batched, scratch run with f32 probabilities in the "
+          f"dense engine's plain attention: agrees with the paged engine on "
+          f"{sum(a.output_ids == b.output_ids for a, b in zip(f32, paged))} "
+          f"and with the bf16-probability dense run on "
+          f"{sum(a.output_ids == b.output_ids for a, b in zip(f32, dense))} "
+          f"of {len(requests)} requests [{card}]", flush=True)
     return runs["paged"][1]["paged_block_attention"]
+
+
+def attention_f32_probs(q, k, v, mask, cfg):
+    """A scratch copy of ``models.llama._attention`` that keeps the
+    probabilities in f32 for the second product (as K4 does) instead of
+    casting them to v's type."""
+    import torch
+
+    from samd_tpu_torch.models.llama import NEG_INF
+
+    B, T = q.shape[0], q.shape[1]
+    KH, G, D = cfg.num_kv_heads, cfg.kv_groups, cfg.head_dim
+    qg = q.reshape(B, T, KH, G, D).permute(0, 2, 3, 1, 4)
+    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
+    scores = scores * (D ** -0.5)
+    bias = torch.where(mask[:, None, None], 0.0, NEG_INF)
+    probs = torch.softmax(scores + bias, dim=-1)
+    out = torch.matmul(probs, v.float()[:, :, None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, KH * G * D)
+
+
+def classify_dense_paged(card, cfg, params, dense, paged) -> None:
+    """Phase 7's disagreements by the near-tie rule: at each request's
+    first divergent token, the logits of one plain-attention prefill over
+    the shared prefix (canonical columns), with the probabilities cast to
+    bf16 as the dense engine does and kept in f32 as K4 does: the top-2
+    gap, and the gap between the dense and the paged engine's tokens
+    (a near-tie when |gap| <= 0.08, ``evaluation/neartie.py``'s tau)."""
+    import torch
+
+    import samd_tpu_torch.models.llama as llama
+    from samd_tpu_torch.cache import init_kv_cache
+    from samd_tpu_torch.models import forward, prefill_mask
+
+    pcfg = dataclasses.replace(cfg, attention_impl="xla")
+
+    def next_logits(prefix, f32_probs):
+        P = len(prefix)
+        kv = init_kv_cache(pcfg, 1, P, "cuda")
+        toks = torch.tensor(prefix, dtype=torch.int32, device="cuda")[None]
+        saved = llama._attention
+        if f32_probs:
+            llama._attention = attention_f32_probs
+        try:
+            logits, _ = forward(params, pcfg, toks,
+                                torch.arange(P, device="cuda")[None], *kv, 0,
+                                prefill_mask(1, P, P, "cuda"))
+        finally:
+            llama._attention = saved
+        return logits[0, -1].float()
+
+    for i, (d, p) in enumerate(zip(dense, paged)):
+        a, b = d.output_ids, p.output_ids
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        parts = []
+        for f32 in (False, True):
+            lg = next_logits(a[:j], f32)
+            top = torch.topk(lg, 2)
+            parts.append(
+                f"{'f32' if f32 else 'bf16'} probabilities: argmax "
+                f"{int(top.indices[0])}, top-2 gap "
+                f"{float(top.values[0] - top.values[1]):.5f}, "
+                f"logit[dense] - logit[paged] "
+                f"{float(lg[a[j]] - lg[b[j]]):.5f}")
+        print(f"llama_1b batched request {i}: dense and paged diverge at "
+              f"token {j} (dense {a[j]}, paged {b[j]}); " + "; ".join(parts)
+              + f" [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1063,8 +1635,11 @@ def main() -> int:
                                                              params7)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["paged_block_attention_int8kv"] = main_path_7b_paged(
-        card, cfg7, params7)
+    (launches["paged_block_attention_int8kv"], requests7,
+     oracle7) = main_path_7b_paged(card, cfg7, params7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_server(card, cfg7, params7, requests7, oracle7)
     del params7
     gc.collect()
     torch.cuda.empty_cache()

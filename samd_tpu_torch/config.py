@@ -36,7 +36,8 @@ class GenerationConfig:
     top_k: int = 0
     seed: int = 0
     # Acceptance rule for sampling mode: "rejection", "typical", "nucleus"
-    # (sampling is ROADMAP queue 1 item 7; the port runs greedy only)
+    # (the fused engines run all three; the host SamdEngine raises on
+    # sampling, ROADMAP queue 1 item 12)
     accept_mode: Literal["rejection", "typical", "nucleus"] = "rejection"
     posterior_threshold: float = 0.3
     posterior_alpha: float = 0.09
@@ -55,8 +56,10 @@ class GenerationConfig:
 
 
 def require_greedy(gen: GenerationConfig) -> None:
-    """The port decodes greedily; sampling acceptance is ROADMAP queue 1
-    item 7."""
+    """Only the host ``engine.SamdEngine`` (and its ``ArBaseline``) still
+    decodes greedily: its tree sampling paths are ROADMAP queue 1 item 12.
+    The fused engines sample."""
     if not gen.greedy:
         raise NotImplementedError(
-            "sampling is not ported yet (ROADMAP queue 1 item 7)")
+            "SamdEngine's sampling paths are not ported yet (ROADMAP queue "
+            "1 item 12); the fused engines sample")

@@ -11,9 +11,10 @@ M-wide step (one real token + padding).  Row position inside a block does
 not change a row's arithmetic, so its greedy output is bitwise comparable
 with a speculative engine's: it is the equality oracle.
 
-Not ported yet: sampling (ROADMAP queue 1 item 7), the tree drafters'
-harvest and hidden-state feedback (items 12-13), meshes (item 16), the
-profiler and ``stream_generate`` (item 15).
+Not ported yet: sampling (its tree accept rules, ROADMAP queue 1 item 12;
+the fused engines sample), the tree drafters' harvest and hidden-state
+feedback (items 12-13), meshes (item 16), the profiler and
+``stream_generate`` (item 15).
 """
 
 from __future__ import annotations

@@ -1,35 +1,41 @@
 """Shared pieces of the fused device-resident engines (counterpart of
 ``samd_tpu/fused_base.py:59-150``).
 
-The corpus buffer is an explicit argument of the retrieval function, never
-captured in a closure (the reference's lesson of edb6d83, fused_base.py
-:43-56).  The n-gram index is ROADMAP queue 1 item 11.
+The corpus buffer and its n-gram index are explicit arguments of the
+retrieval function, never captured in a closure (the reference's lesson of
+edb6d83, fused_base.py:43-56).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .fused_sam import suffix_match
+from .ops.ngram_index import NgramIndex, build_ngram_index
+from .ops.ngram_index import indexed_suffix_match
 
 
 def _retrieval_draft_argform(*, S: int, max_ngram: int, ext: int,
                              len_bias: int, block: int):
-    """Returns ``draft(corpus, corpus_len, history, hist_len, start) ->
-    (match [B], tokens [B, block], cont_avail [B])`` over a leading slot
-    axis: history [B, S], hist_len and start [B]; the corpus [C] and its
-    0-dim length are shared by the slots.  ``tokens[:, 0] == start``;
-    positions past the available continuation hold the raw clamped gather,
-    and callers apply their own length policy.  The single-stream engine
-    calls it with B = 1.  The reference's ``corpus_index`` argument comes
-    with the n-gram index (ROADMAP queue 1 item 11)."""
+    """Returns ``draft(corpus, corpus_len, history, hist_len, start,
+    corpus_index=None) -> (match [B], use_dyn [B], tokens [B, block],
+    cont_avail [B])`` over a leading slot axis: history [B, S], hist_len
+    and start [B]; the corpus [C], its 0-dim length and its optional
+    ``ops.ngram_index.NgramIndex`` are shared by the slots.  With an index
+    the corpus search is the index probe instead of the scan.  ``use_dyn``
+    says the draft continues the slot's own history rather than the corpus
+    (the history wins ties).  ``tokens[:, 0] == start``; positions past the
+    available continuation hold the raw clamped gather, and callers apply
+    their own length policy.  The single-stream engine calls it with
+    B = 1."""
     Q = max_ngram
     M = block
 
-    def draft(corpus, corpus_len, history, hist_len, start):
+    def draft(corpus, corpus_len, history, hist_len, start,
+              corpus_index: Optional[NgramIndex] = None):
         dev = history.device
         hl = hist_len[:, None]                                   # [B, 1]
 
@@ -43,8 +49,13 @@ def _retrieval_draft_argform(*, S: int, max_ngram: int, ext: int,
         tail_len = torch.clamp(hist_len - (Q - 1), 0, ext)
         m_dyn, e_dyn = suffix_match(history, hist_len, query, tail,
                                     tail_len, max_ngram=Q, ext=ext)
-        m_cor, e_cor = suffix_match(corpus[None], corpus_len, query, tail,
-                                    tail_len, max_ngram=Q, ext=ext)
+        if corpus_index is not None:
+            m_cor, e_cor = indexed_suffix_match(
+                corpus, corpus_len, corpus_index, query, tail, tail_len,
+                max_ngram=Q, ext=ext)
+        else:
+            m_cor, e_cor = suffix_match(corpus[None], corpus_len, query,
+                                        tail, tail_len, max_ngram=Q, ext=ext)
         m_cor_adj = m_cor - len_bias
         use_dyn = m_dyn >= m_cor_adj
         match = torch.maximum(m_dyn, m_cor_adj)
@@ -58,9 +69,24 @@ def _retrieval_draft_argform(*, S: int, max_ngram: int, ext: int,
         cont_avail = torch.clamp(src_len - (src + 1), 0, M - 1)
         tokens = torch.cat([start[:, None].to(cont.dtype), cont], dim=1
                            ).to(torch.int32)
-        return match, tokens, cont_avail
+        return match, use_dyn, tokens, cont_avail
 
     return draft
+
+
+def build_optional_index(corpus, cfg, device: Union[str, torch.device]
+                         ) -> Optional[NgramIndex]:
+    """The corpus's ``NgramIndex`` on ``device`` for an ``indexed`` fused
+    config, over the gram sizes that fit the ``max_ngram + ext`` window;
+    None when the config is not indexed or the corpus is empty."""
+    if not cfg.indexed or corpus is None or len(corpus) == 0:
+        return None
+    window = cfg.max_ngram + cfg.ext
+    return build_ngram_index(
+        np.asarray(corpus[:cfg.corpus_capacity], np.int32),
+        grams=tuple(g for g in cfg.index_grams if g <= window),
+        bucket_cap=cfg.index_bucket_cap, keep_latest=cfg.index_keep_latest,
+        device=device)
 
 
 def load_corpus_buffer(corpus, capacity: int,

@@ -1,10 +1,11 @@
-"""Fused device-resident SAM-style retrieval decoding, greedy (counterpart
-of ``samd_tpu/fused_sam.py:48-129, 233-439, 446-1069``).
+"""Fused device-resident SAM-style retrieval decoding (counterpart of
+``samd_tpu/fused_sam.py:48-439, 446-1069``).
 
 Each decode step drafts by longest-suffix match over the request's own
-history and a static corpus, verifies the chain draft with one forward over
-an M-token block, accepts the longest prefix that matches the argmax and
-commits it — all on the device.  The reference runs these steps inside one
+history and a static corpus (a scan, or with ``FusedSamConfig.indexed`` an
+n-gram index probe, ``ops.ngram_index``), verifies the chain draft with one
+forward over an M-token block, accepts a prefix of it and commits it — all
+on the device.  The reference runs these steps inside one
 ``lax.while_loop``; here a host loop runs one step at a time and reads one
 packed control vector (``fused_base.pack_ctrl``) per step, the only host
 sync of the step.  The KV cache and the history are updated in place.
@@ -17,22 +18,38 @@ batched engines run segments of at most ``steps_per_call`` steps, each
 step one ``[B, M]`` forward of every slot, live or not, so the shape never
 changes.
 
-Greedy output equals ``engine.ArBaseline(block_size=M)``'s exactly, and a
-batched engine's equals the same engine's with ``alpha=0`` (block-M AR
-through the same ``[B, M]`` forward).  The sampling branch is ROADMAP
-queue 1 item 7, the n-gram index item 11.
+Greedy requests accept the longest prefix that matches the argmax: their
+output equals ``engine.ArBaseline(block_size=M)``'s exactly, and a batched
+engine's equals the same engine's with ``alpha=0`` (block-M AR through the
+same ``[B, M]`` forward).  Sampled requests (``GenerationConfig(greedy=
+False)``) accept by the chain rules of the request's ``accept_mode``:
+rejection sampling (``chain_sampling_accept``, which keeps the target
+distribution), or the typical and nucleus posterior rules
+(``chain_posterior_accept``).  The rules are pure functions of the logits
+and of explicit noise (``ChainNoise``), computed over ``[..., M, V]`` at
+once.  Each sampled request owns one ``torch.Generator`` on the engine's
+device, seeded with ``GenerationConfig.seed``: it draws the first token
+after the prefill (from ``last_logits / temperature``, with no top-p or
+top-k, as the reference does) and then one fixed-size block of noise per
+step in which the request is live.  So a request's sampled stream depends
+only on its seed, its prompt, the weights and its own steps — not on its
+slot, the other requests in the batch, or where segments end.  In a
+batched engine greedy slots keep the argmax path exactly; the slots that
+sample at once must share one sampling signature (``run`` raises
+``ValueError`` otherwise).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from .cache import init_kv_cache, update_slot
-from .config import GenerationConfig, require_greedy
+from .config import GenerationConfig
 from .device import resolve_device
 from .engine import PREFILL_BUCKETS, Outputs, _bucket, check_params_device
 from .models.configs import ModelConfig, check_supported
@@ -41,7 +58,7 @@ from .ops.paged_attention import boundary_mask_window
 from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
                        paged_flat_indices, paged_write_block)
 from .streaming import ProgressStreamMixin
-from .verify import take
+from .verify import _process_logits, take
 
 
 @dataclass(frozen=True)
@@ -55,8 +72,17 @@ class FusedSamConfig:
     # admission points (the single-stream engine has no segments)
     steps_per_call: int = 256
     corpus_capacity: int = 1 << 15  # static corpus buffer size
-    # the reference's n-gram index fields (``indexed`` and its tuning) come
-    # with the index, ROADMAP queue 1 item 11
+    # n-gram hash index (ops.ngram_index): an O(bucket) corpus probe in
+    # place of the O(corpus) scan, for corpora of millions of tokens.  Every
+    # gram size 1..max_ngram is indexed, so an exact match of length m is
+    # served by the m-gram bucket; sizes past max_ngram (up to max_ngram +
+    # ext) hash over the tail too and separate repetitions that overflow an
+    # 8-gram bucket
+    indexed: bool = False
+    index_grams: Tuple[int, ...] = (32, 16, 8, 7, 6, 5, 4, 3, 2, 1)
+    index_bucket_cap: int = 8
+    # per-bucket extra table of the LATEST positions (dual probe); 0 = off
+    index_keep_latest: int = 0
     # per-request KV-cache sizes (ascending): a request's cache is the
     # smallest bucket >= prompt + budget + block; () = max_cache_len
     cache_buckets: Tuple[int, ...] = ()
@@ -135,8 +161,200 @@ def chain_tree_mask(dlens: torch.Tensor, M: int) -> torch.Tensor:
         | torch.eye(M, dtype=torch.bool, device=dev)
 
 
+# ----------------------------------------------------------------------
+# Chain sampling: accept rules over [..., M, V], with explicit noise
+# ----------------------------------------------------------------------
+
+class ChainNoise(NamedTuple):
+    """One step's randomness for the chain accept rules."""
+    uniform: torch.Tensor   # [..., M] in [0, 1): rejection's accept tests
+    gumbel: torch.Tensor    # [..., G, V] Gumbel(0, 1); the last row draws
+                            # the bonus, nucleus's rows 0..M-1 its samples
+
+
+def chain_noise_rows(sig: tuple, M: int) -> int:
+    """G, the Gumbel rows a step of signature ``sig`` reads: M + 1 for the
+    nucleus rule (one sample per position and the bonus), else 1."""
+    return M + 1 if sig[3] == "nucleus" else 1
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel(0, 1) noise from uniforms in [0, 1) (clamped to f32's
+    smallest normal, as ``jax.random.gumbel`` draws them)."""
+    return -torch.log(-torch.log(torch.clamp(
+        u, min=torch.finfo(torch.float32).tiny)))
+
+
+def draw_chain_noise(generators: Sequence[Optional[torch.Generator]],
+                     sig: tuple, M: int, V: int,
+                     device: Union[str, torch.device]) -> ChainNoise:
+    """One step's noise for B slots: ``[B, M]`` uniforms and ``[B, G, V]``
+    Gumbel noise.  Each slot with a generator draws ``M + G * V`` uniforms
+    from it; a slot without one (greedy, or not live this step) draws
+    nothing, so its stream does not advance, and gets zeros."""
+    G = chain_noise_rows(sig, M)
+    n = M + G * V
+    zeros = None
+    rows = []
+    for g in generators:
+        if g is None:
+            if zeros is None:
+                zeros = torch.zeros((n,), device=device)
+            rows.append(zeros)
+        else:
+            rows.append(torch.rand((n,), generator=g, device=device))
+    u = torch.stack(rows)
+    return ChainNoise(u[:, :M],
+                      gumbel_from_uniform(u[:, M:]).reshape(-1, G, V))
+
+
+def draw_first_token(generator: torch.Generator, last_logits: torch.Tensor,
+                     temperature: float) -> torch.Tensor:
+    """The first token after the prefill of a sampled request: a draw from
+    ``softmax(last_logits / temperature)`` ([V] f32) with V uniforms from
+    ``generator``.  No top-p or top-k here, as in the reference."""
+    u = torch.rand(last_logits.shape, generator=generator,
+                   device=last_logits.device)
+    return torch.argmax(last_logits / temperature
+                        + gumbel_from_uniform(u)).to(torch.int32)
+
+
+def _flat_chain(logits, draft_tokens, draft_len, noise):
+    """Leading axes flattened: ([N, M, V], [N, M] long, [N], [N, M],
+    [N, G, V])."""
+    M, V = logits.shape[-2:]
+    return (logits.reshape(-1, M, V), draft_tokens.reshape(-1, M).long(),
+            draft_len.reshape(-1), noise.uniform.reshape(-1, M),
+            noise.gumbel.reshape(-1, noise.gumbel.shape[-2], V))
+
+
+def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[n, i[n]]`` for x [N, M, V] and i [N]: [N, V]."""
+    return torch.gather(x, 1, i.long()[:, None, None].expand(
+        -1, 1, x.shape[2]))[:, 0]
+
+
+def chain_sampling_accept(warped: torch.Tensor, draft_tokens: torch.Tensor,
+                          draft_len: torch.Tensor, noise: ChainNoise
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative rejection sampling along chain drafts (a deterministic
+    proposal, q = 1), for every leading index at once: draft token i is
+    accepted while ``uniform_i <= p_{i-1}(token_i)`` over the live
+    positions ``i < draft_len``; at the first rejection the bonus is drawn
+    from p_{i-1} with the rejected token removed and renormalized, and when
+    all are accepted from the last accepted position's p.  The emitted
+    tokens keep the target distribution exactly (reference
+    ``samd_tpu/fused_sam.py:134-170``).
+
+    warped [..., M, V] processed logits; draft_tokens [..., M];
+    draft_len [...]; returns (accept_len, bonus), int32 [...]."""
+    lead = warped.shape[:-2]
+    w, d, dl, u, g = _flat_chain(warped, draft_tokens, draft_len, noise)
+    M, V = w.shape[1:]
+    p = torch.softmax(w, dim=-1)                                  # [N,M,V]
+    tok = torch.clamp(d, 0, V - 1)
+    p_tok = torch.gather(p[:, :-1], 2, tok[:, 1:, None])[..., 0]  # [N,M-1]
+    i = torch.arange(1, M, device=w.device)
+    ok = (u[:, 1:] <= p_tok) & (i[None, :] < dl[:, None])
+    alen = 1 + torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+    last = _row(p, alen - 1)                                      # [N, V]
+    rejected = alen < dl
+    rej_tok = torch.gather(tok, 1, torch.clamp(alen, max=M - 1).long()
+                           [:, None])
+    res = last.scatter(1, rej_tok, 0.0)
+    res = res / torch.clamp(res.sum(dim=1, keepdim=True), min=1e-20)
+    final = torch.where(rejected[:, None], res, last)
+    bonus = torch.argmax(torch.log(torch.clamp(final, min=1e-20))
+                         + g[:, -1], dim=1)
+    return (alen.to(torch.int32).reshape(lead),
+            bonus.to(torch.int32).reshape(lead))
+
+
+def chain_posterior_accept(logits: torch.Tensor, draft_tokens: torch.Tensor,
+                           draft_len: torch.Tensor, noise: ChainNoise, *,
+                           temperature: float, mode: str,
+                           posterior_threshold: float = 0.3,
+                           posterior_alpha: float = 0.09,
+                           top_p: float = 0.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Typical or nucleus posterior acceptance along chain drafts
+    (reference ``samd_tpu/fused_sam.py:173-208``).  ``typical``: token i
+    is accepted while its probability under position i-1 exceeds
+    ``min(posterior_threshold, exp(-entropy_{i-1}) * posterior_alpha)``;
+    ``nucleus``: while it equals position i-1's top-p sample.  The bonus is
+    drawn from the last accepted position's (warped) distribution.
+
+    logits [..., M, V] raw f32; returns (accept_len, bonus), int32
+    [...]."""
+    lead = logits.shape[:-2]
+    w, d, dl, _, g = _flat_chain(logits, draft_tokens, draft_len, noise)
+    M, V = w.shape[1:]
+    dev = w.device
+    w = w / max(temperature, 1e-5)
+    if mode == "nucleus":
+        w = _process_logits(w, 1.0, top_p, 0)
+    probs = torch.softmax(w, dim=-1)
+    pos = torch.arange(M, device=dev)
+    parent = torch.clamp(pos - 1, min=0)
+    if mode == "typical":
+        entropy = -(probs * torch.log(probs + 1e-5)).sum(dim=-1)  # [N, M]
+        thresh = torch.clamp(torch.exp(-entropy) * posterior_alpha,
+                             max=posterior_threshold)
+        cand_p = torch.gather(probs[:, parent], 2,
+                              torch.clamp(d, 0, V - 1)[:, :, None])[..., 0]
+        ok = cand_p > thresh[:, parent]
+    else:
+        sampled = torch.argmax(w + g[:, :M], dim=-1)              # [N, M]
+        ok = d == sampled[:, parent]
+    ok = ok & (pos[None, :] < dl[:, None])
+    alen = torch.cumprod(ok[:, 1:].to(torch.int32), dim=1).sum(dim=1) + 1
+    bonus = torch.argmax(_row(w, alen - 1) + g[:, -1], dim=-1)
+    return (alen.to(torch.int32).reshape(lead),
+            bonus.to(torch.int32).reshape(lead))
+
+
+AcceptFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, ChainNoise],
+                    Tuple[torch.Tensor, torch.Tensor]]
+
+
+def make_chain_accept_fn(sig: tuple) -> AcceptFn:
+    """``(logits [..., M, V], draft_tokens, draft_len, noise) ->
+    (accept_len, bonus)`` for a ``GenerationConfig.sampling_signature``."""
+    temperature, top_p, top_k, mode, pthr, palpha = sig
+    if mode in ("typical", "nucleus"):
+        def posterior(logits, draft_tokens, draft_len, noise):
+            return chain_posterior_accept(
+                logits, draft_tokens, draft_len, noise,
+                temperature=temperature, mode=mode, posterior_threshold=pthr,
+                posterior_alpha=palpha, top_p=top_p)
+        return posterior
+
+    def rejection(logits, draft_tokens, draft_len, noise):
+        warped = _process_logits(logits, temperature, top_p, top_k)
+        return chain_sampling_accept(warped, draft_tokens, draft_len, noise)
+
+    return rejection
+
+
+def check_request(ids: Sequence[int], gen: GenerationConfig,
+                  vocab_size: int) -> None:
+    """Raise ValueError for a request no engine can serve: an empty prompt,
+    a token id outside [0, vocab_size) (on CUDA the embedding's gather
+    would assert and poison the context for every later request), or a
+    sampled request whose top_k exceeds the vocabulary."""
+    if not ids:
+        raise ValueError("the prompt must be non-empty")
+    bad = [t for t in ids if not 0 <= t < vocab_size]
+    if bad:
+        raise ValueError(f"token id {bad[0]} outside [0, {vocab_size})")
+    if not gen.greedy and gen.top_k > vocab_size:
+        raise ValueError(f"top_k {gen.top_k} exceeds the vocabulary of "
+                         f"{vocab_size}")
+
+
 class FusedSamEngine:
-    """Greedy fused retrieval decoding over one batch-1 KV cache."""
+    """Fused retrieval decoding over one batch-1 KV cache: greedy, or
+    sampled by the request's accept rule."""
 
     def __init__(self, model_cfg: ModelConfig, params: Params,
                  fs_cfg: Optional[FusedSamConfig] = None, *,
@@ -144,7 +362,8 @@ class FusedSamEngine:
                  max_cache_len: int = 2048, eos_token_id: int = 2,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  device: Union[str, torch.device] = "cuda"):
-        from .fused_base import _retrieval_draft_argform, load_corpus_buffer
+        from .fused_base import (_retrieval_draft_argform,
+                                 build_optional_index, load_corpus_buffer)
 
         check_supported(model_cfg)
         self.cfg = fs_cfg or FusedSamConfig()
@@ -158,9 +377,12 @@ class FusedSamEngine:
                                      if b <= max_cache_len)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
-        # retrieval state is an explicit argument of every draft call
+        # retrieval state (the corpus and its optional index) is an
+        # explicit argument of every draft call
         self.corpus, self.corpus_len = load_corpus_buffer(
             corpus, self.cfg.corpus_capacity, self.device)
+        self.corpus_index = build_optional_index(corpus, self.cfg,
+                                                 self.device)
         self._draft = _retrieval_draft_argform(
             S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
             len_bias=self.cfg.len_bias, block=self.cfg.block)
@@ -168,9 +390,11 @@ class FusedSamEngine:
                                        device=self.device)
 
     # ------------------------------------------------------------------
-    def _prefill(self, input_ids, P: int, W: int) -> torch.Tensor:
+    def _prefill(self, input_ids, P: int, W: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fresh (zeroed) cache of W slots, prompt forward at offset 0;
-        returns the greedy next token (0-dim int32 on the device)."""
+        returns the greedy next token (0-dim int32 on the device) and the
+        last prompt row's logits [V]."""
         dev = self.device
         if self.kv_k.shape[3] != W:
             self.kv_k, self.kv_v = init_kv_cache(self.model_cfg, 1, W, dev)
@@ -184,19 +408,24 @@ class FusedSamEngine:
             self.params, self.model_cfg, padded.to(dev),
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, W, dev))
-        return torch.argmax(logits[0, len(input_ids) - 1]).to(torch.int32)
+        last = logits[0, len(input_ids) - 1]
+        return torch.argmax(last).to(torch.int32), last
 
     def _step(self, W: int, history: torch.Tensor, hist_len: torch.Tensor,
-              start: torch.Tensor, budget: torch.Tensor, eos: torch.Tensor):
-        """One draft → verify → accept → commit step, on the device.
-        Writes the block into the history and the KV cache in place and
-        returns (hist_len, start, budget, done) as 0-dim tensors.  The
-        caller keeps hist_len + M <= W."""
+              start: torch.Tensor, budget: torch.Tensor, eos: torch.Tensor,
+              accept: Optional[AcceptFn] = None,
+              noise: Optional[ChainNoise] = None):
+        """One draft → verify → accept → commit step, on the device; greedy
+        without ``accept``, else that chain rule with this step's
+        ``noise`` (leading slot axis of 1).  Writes the block into the
+        history and the KV cache in place and returns (hist_len, start,
+        budget, done) as 0-dim tensors.  The caller keeps hist_len + M <=
+        W."""
         fc, M = self.cfg, self.cfg.block
         chain_pos = self._chain_pos
-        match, draft_tokens, cont_avail = (t[0] for t in self._draft(
+        match, _, draft_tokens, cont_avail = (t[0] for t in self._draft(
             self.corpus, self.corpus_len, history[None], hist_len[None],
-            start[None]))
+            start[None], self.corpus_index))
         # adaptive draft length n = 1 + match * alpha (sam_only policy)
         n = torch.clamp(1 + (match.float() * fc.alpha).to(torch.int32),
                         max=fc.n_predicts + 1)
@@ -208,16 +437,21 @@ class FusedSamEngine:
             torch.clamp(draft_tokens, min=0)[None],
             (chain_pos + hist_len)[None], self.kv_k, self.kv_v, hist_len,
             mask)
-        argmax_tok = torch.argmax(logits[0], dim=-1).to(torch.int32)
-        in_draft = chain_pos < draft_len
-        hit = (draft_tokens[1:] == argmax_tok[:-1]) & in_draft[1:]
-        alen = torch.cumprod(hit.to(torch.int32), dim=0).sum() + 1
+        if accept is not None:
+            alen, bonus = (t[0] for t in accept(
+                logits, draft_tokens[None], draft_len[None], noise))
+        else:
+            argmax_tok = torch.argmax(logits[0], dim=-1).to(torch.int32)
+            in_draft = chain_pos < draft_len
+            hit = (draft_tokens[1:] == argmax_tok[:-1]) & in_draft[1:]
+            alen = torch.cumprod(hit.to(torch.int32), dim=0).sum() + 1
         is_eos = (draft_tokens == eos) & (chain_pos < alen)
         any_eos = torch.any(is_eos)
         alen = torch.where(any_eos,
                            torch.argmax(is_eos.to(torch.int32)) + 1,
                            alen).to(torch.int32)
-        bonus = take(argmax_tok, alen - 1)
+        if accept is None:
+            bonus = take(argmax_tok, alen - 1)
         history.index_copy_(0, (hist_len + chain_pos).long(), draft_tokens)
         hist_len = hist_len + alen
         budget = budget - alen
@@ -231,10 +465,10 @@ class FusedSamEngine:
                                  pack_ctrl)
 
         gen = gen_config or GenerationConfig()
-        require_greedy(gen)
         input_ids = list(input_ids)
         if not input_ids:
             raise ValueError("generate() requires a non-empty prompt")
+        check_request(input_ids, gen, self.model_cfg.vocab_size)
         dev, M = self.device, self.cfg.block
         P = _bucket(len(input_ids), self.prefill_buckets)
         # cache bucket: the smallest configured size covering this
@@ -245,7 +479,14 @@ class FusedSamEngine:
             if need <= w < self.S:
                 W = w
                 break
-        start = self._prefill(input_ids, P, W)
+        start, last = self._prefill(input_ids, P, W)
+        accept = rng = sig = None
+        if not gen.greedy:
+            sig = gen.sampling_signature
+            accept = make_chain_accept_fn(sig)
+            rng = torch.Generator(device=dev)
+            rng.manual_seed(gen.seed)
+            start = draw_first_token(rng, last, gen.temperature)
 
         history = init_history(input_ids, self.S, dev)
         hist_len = torch.tensor(len(input_ids), dtype=torch.int32,
@@ -256,8 +497,10 @@ class FusedSamEngine:
         hl, left, done = len(input_ids), gen.max_new_tokens, False
         decode_steps = 0
         while not done and left > 0 and hl + M <= W:
+            noise = None if rng is None else draw_chain_noise(
+                [rng], sig, M, self.model_cfg.vocab_size, dev)
             hist_len, start, budget, done_t = self._step(
-                W, history, hist_len, start, budget, eos)
+                W, history, hist_len, start, budget, eos, accept, noise)
             # the step's one host read
             hl, left, done_i = pack_ctrl(hist_len, budget,
                                          done_t).cpu().tolist()
@@ -275,22 +518,31 @@ class FusedSamEngine:
 
 class BatchedFusedSamEngine(ProgressStreamMixin):
     """B request slots stepped together (reference
-    ``samd_tpu/fused_sam.py:446-887``), greedy.
+    ``samd_tpu/fused_sam.py:446-887``).
 
     Per segment (at most ``steps_per_call`` steps) every slot drafts from
     its own history and the shared corpus, and one ``[B, M]`` forward
     verifies all B slots, live or not; accept, EOS, budget and commit run
-    per slot on the device.  Each step reads one packed ``[5, B]`` int32
+    per slot on the device.  Each step reads one packed ``[6, B]`` int32
     control matrix (committed lengths, start tokens, budgets, live flags,
-    live steps) — the counterpart of the reference's ``while_loop`` and its
-    single transfer.  When requests wait in the queue, a segment ends as
-    soon as a slot frees, so it can be refilled.  Host work per segment:
-    admit and finish slots.  Per-request progress streaming through
-    ``progress_listeners`` (``streaming.ProgressStreamMixin``).
+    live steps, live steps drafted from the corpus) — the counterpart of
+    the reference's ``while_loop`` and its single transfer.  When requests
+    wait in the queue, a segment ends as soon as a slot frees, so it can be
+    refilled.  Host work per segment: admit and finish slots.  Per-request
+    progress streaming through ``progress_listeners``
+    (``streaming.ProgressStreamMixin``).
 
-    ``inline_prefill``: a request is admitted without a prefill forward;
-    its prompt streams through the decode steps as a forced-accept chain,
-    M tokens per step.  Sampling requests raise (ROADMAP queue 1 item 7).
+    Sampled requests: each slot keeps its request's generator and draws
+    its noise only in steps where it is live; when any slot samples, the
+    step computes the signature's accept rule over all ``[B, M, V]`` and
+    takes its result in the sampled slots only (``samp_flags``), so greedy
+    slots keep the argmax path exactly.  Slots sampling at once share one
+    signature; ``run`` raises ``ValueError`` otherwise.
+
+    ``inline_prefill``: a greedy request is admitted without a prefill
+    forward; its prompt streams through the decode steps as a forced-accept
+    chain, M tokens per step.  A sampled request is prefilled, to draw its
+    first token.
     """
 
     def __init__(self, model_cfg: ModelConfig, params: Params,
@@ -301,7 +553,8 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  inline_prefill: bool = False,
                  device: Union[str, torch.device] = "cuda"):
-        from .fused_base import _retrieval_draft_argform, load_corpus_buffer
+        from .fused_base import (_retrieval_draft_argform,
+                                 build_optional_index, load_corpus_buffer)
 
         check_supported(model_cfg)
         self.device = resolve_device(device)
@@ -320,6 +573,8 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         self._init_kv()
         self.corpus, self.corpus_len = load_corpus_buffer(
             corpus, self.cfg.corpus_capacity, self.device)
+        self.corpus_index = build_optional_index(corpus, self.cfg,
+                                                 self.device)
         M = self.cfg.block
         self._draft = _retrieval_draft_argform(
             S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
@@ -337,26 +592,33 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         self._slot_prompt = [0] * batch_size
         self._slot_max_new = [0] * batch_size
         self._slot_steps = [0] * batch_size
+        # a sampled request's generator, held by its slot
+        self._slot_gen: List[Optional[torch.Generator]] = [None] * batch_size
         self.queue = []
         self.results = {}
         self._next_id = 0
         self.steps_run = 0      # [B, M] decode forwards, over all runs
+        # live slot-steps, and those whose draft came from the corpus
+        self.stats_live_steps = 0
+        self.stats_corpus_steps = 0
 
     # -- subclass hooks (the paged variant swaps the KV backend) ---------
     def _init_kv(self):
         self.kv_k, self.kv_v = init_kv_cache(self.model_cfg, self.B, self.S,
                                              self.device)
 
-    def _prefill_slot(self, slot: int, ids) -> int:
+    def _prefill_slot(self, slot: int, ids
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Admit one request's prompt into ``slot``: a batch-1 prefill into
-        a fresh cache, written into the slot; returns the next token."""
+        a fresh cache, written into the slot; returns the greedy next token
+        and the last prompt row's logits."""
         P = _bucket(len(ids), self.prefill_buckets)
         fk, fv = init_kv_cache(self.model_cfg, 1, self.S, self.device)
-        nt = self._prefill_forward(ids, P, fk, fv, self.S)
+        first = self._prefill_forward(ids, P, fk, fv, self.S)
         update_slot(self.kv_k, fk, slot)
         update_slot(self.kv_v, fv, slot)
         self._seed_history(slot, ids)
-        return nt
+        return first
 
     def _alloc_limits(self) -> np.ndarray:
         """Per-slot KV capacity for the next segment (paged: the pages
@@ -387,21 +649,37 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         pool must have pages for its prefill bucket)."""
         return True
 
+    def _check_fits(self, ids, gen: GenerationConfig) -> None:
+        """Raise ValueError unless the prompt can ever be admitted: within
+        the largest prefill bucket, or for an inline greedy prompt, with a
+        block of room in the cache."""
+        if self.inline_prefill and gen.greedy:
+            if len(ids) + self.cfg.block > self.S:
+                raise ValueError(f"prompt length {len(ids)} leaves no block "
+                                 f"of room in a cache of {self.S}")
+            return
+        if not self.prefill_buckets or len(ids) > self.prefill_buckets[-1]:
+            raise ValueError(f"prompt length {len(ids)} exceeds the largest "
+                             f"prefill bucket {self.prefill_buckets[-1:]}")
+
     def _admit_inline(self, slot: int) -> None:
         """Inline-prefill admission bookkeeping (paged: free the previous
         occupant's pages; growth happens per segment)."""
 
     # -- device pieces ---------------------------------------------------
-    def _prefill_forward(self, ids, P: int, fk, fv, W: int) -> int:
+    def _prefill_forward(self, ids, P: int, fk, fv, W: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The bucket-padded prompt's forward at offset 0 into a batch-1
-        cache of W slots; returns the greedy next token."""
+        cache of W slots; returns the greedy next token (0-dim, on the
+        device) and the last prompt row's logits [V]."""
         dev = self.device
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
         logits, _ = forward(self.params, self.model_cfg, padded.to(dev),
                             torch.arange(P, device=dev)[None, :], fk, fv, 0,
                             prefill_mask(1, P, W, dev))
-        return int(torch.argmax(logits[0, len(ids) - 1]))
+        last = logits[0, len(ids) - 1]
+        return torch.argmax(last).to(torch.int32), last
 
     def _seed_history(self, slot: int, ids) -> None:
         """The slot's history row: the prompt, zeros after it."""
@@ -420,20 +698,26 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         return block_decode_mask(tm, hist_lens, self.S)
 
     def _step(self, hist_lens, starts, budgets, lives, slot_steps,
-              prompt_lens, alloc_limits, paged):
+              corpus_steps, prompt_lens, alloc_limits, paged, samp=None,
+              accept: Optional[AcceptFn] = None,
+              noise: Optional[ChainNoise] = None):
         """One draft → verify → accept → commit step of all B slots, on the
-        device (reference body, ``samd_tpu/fused_sam.py:649-732``).
-        Writes the KV and the history in place; returns the new
-        (hist_lens, starts, budgets, lives, slot_steps)."""
+        device (reference body, ``samd_tpu/fused_sam.py:649-732``).  With
+        ``accept``, the slots flagged in ``samp`` [B] take that chain rule's
+        result under this step's ``noise``.  Writes the KV and the history
+        in place; returns the new (hist_lens, starts, budgets, lives,
+        slot_steps, corpus_steps)."""
         fc, M, S = self.cfg, self.cfg.block, self.S
         chain_pos = self._chain_pos
         hist = self.histories
-        match, drafts, cont_avail = self._draft(
-            self.corpus, self.corpus_len, hist[:, :S], hist_lens, starts)
+        match, use_dyn, drafts, cont_avail = self._draft(
+            self.corpus, self.corpus_len, hist[:, :S], hist_lens, starts,
+            self.corpus_index)
         n = torch.clamp(1 + (match.float() * fc.alpha).to(torch.int32),
                         max=fc.n_predicts + 1)
         dlens = torch.where(match > 0, torch.minimum(n, 1 + cont_avail),
                             1).to(torch.int32)
+        from_corpus = (match > 0) & ~use_dyn
         pos = hist_lens[:, None] + chain_pos[None, :]             # [B, M]
         if self.inline_prefill:
             # a slot still inside its prompt drafts the NEXT M prompt
@@ -459,6 +743,10 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         alens = (torch.cumprod(hit.to(torch.int32), dim=1).sum(dim=1)
                  + 1).to(torch.int32)
         bonus = at(alens - 1)
+        if accept is not None:
+            alens_s, bonus_s = accept(logits, drafts, dlens, noise)
+            alens = torch.where(samp, alens_s, alens)
+            bonus = torch.where(samp, bonus_s, bonus)
         if self.inline_prefill:
             # prompt rows are accepted as forced; the boundary block's bonus
             # is the first generated token, mid-prompt the next start is the
@@ -479,29 +767,33 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         bonus = torch.where(any_eos, at(alens - 1), bonus)
         hist.scatter_(1, pos.long(), torch.clamp(drafts, min=0))
         hist_lens = hist_lens + alens
-        counted = lives.to(torch.int32)
+        counted = lives
         if self.inline_prefill:   # prompt tokens consume no budget
             budgets = budgets - torch.where(in_pf, 0, alens)
-            counted = torch.where(in_pf, 0, counted)
+            counted = counted & ~in_pf
         else:
             budgets = budgets - alens
-        slot_steps = slot_steps + counted
+        slot_steps = slot_steps + counted.to(torch.int32)
+        corpus_steps = corpus_steps + (counted & from_corpus).to(torch.int32)
         starts = torch.where(lives, bonus, starts)
         lives = lives & ~any_eos & (budgets > 0) \
             & (hist_lens + M <= alloc_limits)
-        return hist_lens, starts, budgets, lives, slot_steps
+        return hist_lens, starts, budgets, lives, slot_steps, corpus_steps
 
     def _segment(self, hist_lens, starts, budgets, actives, prompt_lens,
-                 refill: bool) -> np.ndarray:
+                 refill: bool, samp: np.ndarray,
+                 sig: Optional[tuple]) -> np.ndarray:
         """Up to ``steps_per_call`` steps; ends early when no slot is live
-        or, with ``refill``, when a slot frees.  Returns the last control
-        matrix [5, B] on the host."""
-        M, dev = self.cfg.block, self.device
+        or, with ``refill``, when a slot frees.  ``samp`` [B] flags the
+        slots that sample under ``sig``.  Returns the last control matrix
+        [6, B] on the host."""
+        M, dev, B = self.cfg.block, self.device, self.B
         limits = self._alloc_limits()
         init_lives = actives & (budgets > 0) & (hist_lens + M <= limits)
+        zeros = np.zeros_like(hist_lens)
         ctrl = np.stack([hist_lens, starts, budgets,
-                         init_lives.astype(np.int32),
-                         np.zeros_like(hist_lens)]).astype(np.int32)
+                         init_lives.astype(np.int32), zeros, zeros]
+                        ).astype(np.int32)
         if not init_lives.any():
             return ctrl
         paged = self._paged_aux()
@@ -511,12 +803,25 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
                 device=dev, dtype=dtype)
 
         state = (up(hist_lens), up(starts), up(budgets),
-                 up(init_lives, torch.bool), up(np.zeros_like(hist_lens)))
+                 up(init_lives, torch.bool), up(zeros), up(zeros))
         prompt_t, limits_t = up(prompt_lens), up(limits)
+        accept = samp_t = None
+        if sig is not None and samp.any():
+            accept = make_chain_accept_fn(sig)
+            samp_t = up(samp, torch.bool)
         lives, steps = init_lives, 0
         while lives.any() and steps < self.cfg.steps_per_call \
                 and not (refill and (init_lives & ~lives).any()):
-            state = self._step(*state, prompt_t, limits_t, paged)
+            noise = None
+            if accept is not None:
+                # only the live sampled slots draw: a slot's stream advances
+                # with its own steps alone
+                noise = draw_chain_noise(
+                    [self._slot_gen[i] if samp[i] and lives[i] else None
+                     for i in range(B)], sig, M, self.model_cfg.vocab_size,
+                    dev)
+            state = self._step(*state, prompt_t, limits_t, paged, samp_t,
+                               accept, noise)
             self.steps_run += 1
             # the step's one host read
             ctrl = torch.stack([t.to(torch.int32) for t in state]
@@ -529,23 +834,41 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
     def add_request(self, input_ids: Sequence[int],
                     gen_config: Optional[GenerationConfig] = None) -> int:
         gen = gen_config or GenerationConfig()
-        require_greedy(gen)
         ids = list(input_ids)
         if not ids:
             raise ValueError("add_request() requires a non-empty prompt")
+        # rejected here, before the queue: a request the engine cannot serve
+        # would otherwise fail (or stall) the whole batch in run()
+        check_request(ids, gen, self.model_cfg.vocab_size)
+        self._check_fits(ids, gen)
         rid = self._next_id
         self._next_id += 1
         self.queue.append((rid, ids, gen))
         return rid
 
     def run(self):
-        """Serve every queued request; returns {request id: Outputs}."""
+        """Serve every queued request; returns {request id: Outputs}.  A
+        failure releases every slot (and its pages) before it propagates."""
+        try:
+            return self._run()
+        except BaseException:
+            for i in range(self.B):
+                if self._slot_req[i] is not None:
+                    self._stream_done(self._slot_req[i])
+                    self._slot_req[i] = None
+                    self._slot_gen[i] = None
+                    self._release_slot(i)
+            raise
+
+    def _run(self):
         B = self.B
         hist_lens = np.zeros(B, np.int32)
         starts = np.zeros(B, np.int32)
         budgets = np.zeros(B, np.int32)
         actives = np.zeros(B, bool)
         prompt_lens = np.zeros(B, np.int32)
+        samp = np.zeros(B, bool)
+        slot_sigs: List[Optional[tuple]] = [None] * B
 
         while self.queue or actives.any():
             # admit
@@ -555,17 +878,25 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
                 if not self._can_admit(self.queue[0][1]):
                     break  # paged: no pages for a prompt yet; retry later
                 rid, ids, gen = self.queue.pop(0)
-                if self.inline_prefill:
+                self._slot_req[i] = rid
+                if self.inline_prefill and gen.greedy:
                     self._admit_inline(i)
                     self._seed_history(i, ids)
                     nt = ids[0]          # host-known; no fetch
                     hist_lens[i] = 0
                     prompt_lens[i] = len(ids)
                 else:
-                    nt = self._prefill_slot(i, ids)
+                    first, last = self._prefill_slot(i, ids)
                     hist_lens[i] = len(ids)
                     prompt_lens[i] = 0
-                self._slot_req[i] = rid
+                    if not gen.greedy:
+                        g = torch.Generator(device=self.device)
+                        g.manual_seed(gen.seed)
+                        first = draw_first_token(g, last, gen.temperature)
+                        self._slot_gen[i] = g
+                    nt = int(first)
+                slot_sigs[i] = None if gen.greedy else gen.sampling_signature
+                samp[i] = not gen.greedy
                 self._slot_prompt[i] = len(ids)
                 self._slot_max_new[i] = gen.max_new_tokens
                 self._slot_steps[i] = 0
@@ -574,14 +905,22 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
                 actives[i] = True
             if not actives.any():
                 break
+            sigs = {sg for sg in slot_sigs if sg is not None}
+            if len(sigs) > 1:
+                raise ValueError(
+                    "concurrent sampling requests must share one sampling "
+                    f"signature; got {sigs}")
             self._pre_segment(hist_lens, actives)
             ctrl = self._segment(hist_lens, starts, budgets, actives,
-                                 prompt_lens, bool(self.queue))
+                                 prompt_lens, bool(self.queue), samp,
+                                 next(iter(sigs)) if sigs else None)
             hist_lens = ctrl[0].copy()
             starts = ctrl[1].copy()
             budgets = ctrl[2].copy()
             lives = ctrl[3].astype(bool)
             steps_arr = ctrl[4]
+            self.stats_live_steps += int(steps_arr[actives].sum())
+            self.stats_corpus_steps += int(ctrl[5][actives].sum())
             self._post_segment(int(steps_arr[actives].sum())
                                if actives.any() else 0)
             self._emit_stream_progress(actives, hist_lens)
@@ -608,7 +947,10 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
                     self._slot_steps[i], [])
                 self._stream_done(self._slot_req[i])
                 actives[i] = False
+                samp[i] = False
+                slot_sigs[i] = None
                 self._slot_req[i] = None
+                self._slot_gen[i] = None
                 self._release_slot(i)
         out, self.results = self.results, {}
         return out
@@ -729,6 +1071,17 @@ class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
         P = _bucket(len(ids), self.prefill_buckets)
         return self.pool.pages_for(P) <= len(self.pool._free)
 
+    def _check_fits(self, ids, gen: GenerationConfig) -> None:
+        # admission takes the prompt's bucket of pages, inline or not; a
+        # bucket larger than the whole pool would wait forever
+        if not self.prefill_buckets or len(ids) > self.prefill_buckets[-1]:
+            raise ValueError(f"prompt length {len(ids)} exceeds the largest "
+                             f"prefill bucket {self.prefill_buckets[-1:]}")
+        need = self.pool.pages_for(_bucket(len(ids), self.prefill_buckets))
+        if need > self.pool.n_pages:
+            raise ValueError(f"prompt length {len(ids)} needs {need} pages; "
+                             f"the pool holds {self.pool.n_pages}")
+
     def live_kv_tokens(self) -> int:
         """Pool tokens allocated to requests right now."""
         return sum(len(r.pages) for r in self.page_reqs) * self._page_size
@@ -737,14 +1090,15 @@ class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
         self.page_reqs[slot].release()
 
     # -- prefill: dense batch-1 forward, scattered into pages ---------------
-    def _prefill_slot(self, slot: int, ids) -> int:
+    def _prefill_slot(self, slot: int, ids
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         P = _bucket(len(ids), self.prefill_buckets)
         req = self.page_reqs[slot]
         req.release()
         req.ensure(min(-(-P // self._page_size) * self._page_size, self.S))
         # a bf16 (cfg.dtype) cache of P slots, also over an int8 pool
         fk, fv = init_kv_cache(self.model_cfg, 1, P, self.device)
-        nt = self._prefill_forward(ids, P, fk, fv, P)
+        first = self._prefill_forward(ids, P, fk, fv, P)
         flat_pg, flat_sl = paged_flat_indices(
             req.table(self.device)[None],
             torch.zeros((1,), dtype=torch.int32, device=self.device), P,
@@ -753,4 +1107,4 @@ class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
             paged_write_block(self.kv_k[l], fk[l], flat_pg, flat_sl)
             paged_write_block(self.kv_v[l], fv[l], flat_pg, flat_sl)
         self._seed_history(slot, ids)
-        return nt
+        return first

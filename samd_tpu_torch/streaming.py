@@ -13,6 +13,7 @@ traceback and dropped, so a dead client does not kill the batch.
 from __future__ import annotations
 
 import logging
+from typing import Callable, Optional
 
 log = logging.getLogger(__name__)
 
@@ -30,8 +31,12 @@ class ProgressStreamMixin:
 
     ``_stream_done(rid)`` drops the per-request bookkeeping when it
     finishes (the listener itself is owned, and removed, by whoever
-    registered it).
+    registered it), and calls ``finish_listener(rid)`` when one is set:
+    the serving scheduler wakes the request's waiter with it instead of
+    polling for the result.
     """
+
+    finish_listener: Optional[Callable[[int], None]] = None
 
     @property
     def progress_listeners(self) -> dict:
@@ -77,3 +82,5 @@ class ProgressStreamMixin:
     def _stream_done(self, rid) -> None:
         if getattr(self, "_progress_listeners", None):
             self._stream_pos.pop(rid, None)
+        if self.finish_listener is not None:
+            self.finish_listener(rid)

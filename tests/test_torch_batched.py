@@ -3,7 +3,7 @@ the forward with per-slot ``[B]`` write offsets (plain and int8 caches),
 batched retrieval, and ``BatchedFusedSamEngine``'s token streams (plain and
 int8 weights, corpus, inline prefill, EOS and readmission) against JAX's
 batched engine, the port's single-stream engine and its own ``alpha=0``
-oracle; streaming chunks; sampling raises."""
+oracle; streaming chunks; a batch of two sampling signatures raises."""
 
 import dataclasses
 
@@ -321,10 +321,18 @@ def test_streaming_chunks_equal_outputs(tiny_model):
 
 
 def test_sampling_request_raises(tiny_model):
+    """Sampled requests are served, but two sampling signatures in one
+    batch raise ValueError naming the signature, and the failed run frees
+    its slots: the engine then serves again.  An empty prompt raises."""
     _, _, tcfg, tp = tiny_model
     eng = batched(tcfg, tp, batch_size=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    for temp in (0.8, 0.5):
         eng.add_request([5, 6, 7], GenerationConfig(
-            max_new_tokens=4, greedy=False, temperature=0.8))
+            max_new_tokens=4, greedy=False, temperature=temp))
+    with pytest.raises(ValueError, match="signature"):
+        eng.run()
+    assert eng._slot_req == [None, None]
+    eng.queue.clear()
+    assert len(serve(eng, [[5, 6, 7]], 4)[0].output_ids) == 7
     with pytest.raises(ValueError, match="non-empty"):
         eng.add_request([])

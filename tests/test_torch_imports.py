@@ -28,7 +28,8 @@ def imported_modules(path: Path):
 def test_port_files_found():
     assert len(PORT_FILES) > 10
     for rel in ("fused_sam.py", "ops/quant.py", "ops/int4_matmul.py",
-                "cache.py", "tools/profile_step.py"):
+                "cache.py", "tools/profile_step.py", "server.py",
+                "ops/ngram_index.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 
