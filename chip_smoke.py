@@ -37,6 +37,17 @@ Phases, in order; any failure exits non-zero:
         slot bitwise equal to the verify kernel on its gathered dense KV;
         poison past kv_limit, in pages outside the tables and in the
         scratch page changes nothing;
+     e. the host engines' tree masks at M = 60, the Token-Recycle topology
+        (rank_probability_tree(61)'s first 60 nodes) and a native corpus
+        SAM's frequency tree (at least 4 deep): the verify kernel at
+        llama_1b T = 60 (bf16 and f32 q), its int8 mode at llama_7b KH 32,
+        D 128, T = 60, and K4 over bf16 pages at llama_1b B = 4 with tree
+        windows: within the tolerance, two runs bitwise equal, poison past
+        kv_limit changing nothing, each K4 slot bitwise equal to the verify
+        kernel on its gathered KV; each timed beside its plain version,
+        SDPA with the boolean mask and the bound.  Phase 3c also holds the
+        int4 matmul at R = 60 (the host engines' block) at every llama_7b
+        shape, each 16-row block bitwise equal to the same rows at R = 16;
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -91,6 +102,32 @@ Phases, in order; any failure exits non-zero:
      give the top-2 gap by the near-tie rule; and the dense engine run again
      with f32 probabilities (a scratch copy of the plain attention) is
      compared with the paged engine.
+  9. llama_7b host path (after 8): phase 5's weights and int8 KV through
+     the host-automaton SamdEngine at max_predicts 60 over 1024 slots:
+     (a) sam_hybrid with the Token-Recycle tree drafter, three requests of
+     128 new tokens; (b) sam_only with a static corpus SAM built by the
+     native engine over random tokens and request a's oracle output, saved
+     and loaded back (every array equal); each request against
+     ArBaseline(block_size=60): bitwise equal, or, where a tree draft
+     verified the first differing token or an earlier one, a near-tie:
+     |logit gap| <= 0.08 between the two tokens in the oracle's own logits
+     for that token (its canonical-column computation, recorded as it
+     runs; the gap by a plain prefill over the shared prefix is printed
+     beside it); anything else fails; int4 launches 225 per forward, int8-KV verify
+     launches 32 per forward of T <= 128; (c) one sampled request per tree
+     accept mode (rejection at temperature 0.8 with top_k 50, typical,
+     nucleus with top_p 0.9), each twice with its seed, equal; point-mass
+     requests (top_k 1, temperature 1e-5) through both drafters equal to
+     the same engine's greedy run, and held to the oracle by the same rule;
+ 10. llama_1b host batching (after 7): BatchedSamdEngine (dense) and
+     PagedBatchedSamdEngine (bf16 pages of 128) at B = 4, M = 60, sam_only
+     and sam_hybrid over a static corpus of two requests' outputs, six
+     requests of 64 new tokens, each against the same engine driven by the
+     single-token drafter by the rule of phase 9; every page back; K4
+     launches 22 per step; InterleavedSamdEngine with 3 lanes bitwise equal
+     to 3 sequential SamdEngine runs; the server with --engine batched and
+     --sam FILE over 127.0.0.1 serving four greedy requests, each equal to
+     the same engine called directly.
 Then a JSON line of kernels, the nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -106,6 +143,7 @@ import sys
 import time
 import urllib.error
 import urllib.request
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -415,7 +453,7 @@ def check_int4(card: str) -> dict:
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
         xs = {}
-        for R in (16, 128, 192, 256):
+        for R in (16, 60, 128, 192, 256):
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -454,6 +492,13 @@ def check_int4(card: str) -> dict:
                               f"{outside.numel()} outputs", flush=True)
                     del q
             (err, tol_at), (err_o, tol_o) = errs.values()
+            if R == 60:       # the host engines' block: ragged rows
+                for a in (0, 16, 32, 44):
+                    small = int4_matmul(x[a:a + 16].contiguous(), packed,
+                                        scale, 0, out_dtype=out_dtype)
+                    fail_if(not torch.equal(small, got[a:a + 16]),
+                            f"int4_matmul {label}: rows {a}..{a + 15} differ "
+                            "between R = 16 and R = 60")
             if R == 16:       # row invariance, bitwise
                 for r in (0, 7, 15):
                     alone = int4_matmul(x[r:r + 1].contiguous(), packed,
@@ -598,6 +643,152 @@ def check_paged(card: str) -> dict:
         row["max_abs_err"] = max_err
         rows[name] = row
     return rows
+
+
+def tree_parents(card: str) -> dict:
+    """The host engines' two tree shapes at M = 60: the Token-Recycle
+    topology (the first 60 nodes of rank_probability_tree(61)) and a
+    static-SAM frequency tree (a native corpus SAM's best-first tree of 60
+    nodes, self-parent padded where the SAM offers fewer), which must be
+    at least 4 deep."""
+    from samd_tpu_torch.drafters import rank_probability_tree
+    from samd_tpu_torch.ops.treeops import pack_draft_host
+    from samd_tpu_torch.sam.native import build_native_corpus_sam
+    from samd_tpu_torch.sam.trees import node_depths
+
+    rng = np.random.default_rng(0)
+    sam = build_native_corpus_sam([rng.integers(0, 6, 4000).tolist()],
+                                  eos_token=0, topk=8)
+    sam.feed(rng.integers(0, 6, 2).tolist(), grow=False)
+    toks, par = sam.tree_draft(sam.cur_state, 1, 60, 8)
+    depth = int(node_depths(np.asarray(par)).max())
+    fail_if(depth < 4, f"the static-SAM frequency tree is {depth} deep")
+    trees = {"token_recycle": rank_probability_tree(61)[:60].tolist(),
+             "sam_frequency": pack_draft_host(toks, par, 60)[1].tolist()}
+    for name, par in trees.items():
+        real = [p for i, p in enumerate(par) if p != i]
+        print(f"tree {name}: {len(real)} real nodes of 60, depth "
+              f"{int(node_depths(np.asarray(real)).max())} [{card}]",
+              flush=True)
+    return trees
+
+
+def check_tree_masks(card: str) -> None:
+    """Phase 3e: the verify kernel (bf16 and f32 q at llama_1b T = 60), its
+    int8 mode (llama_7b KH 32, D 128, T = 60) and K4 (bf16 pages, llama_1b
+    B = 4) on the host engines' tree masks: within kernel_tolerance, two
+    runs bitwise equal, poison past kv_limit changing nothing, each K4
+    slot bitwise equal to the verify kernel on its gathered KV; timed
+    beside the plain version, SDPA with the boolean mask and the bound."""
+    import torch
+
+    from samd_tpu_torch.cache import (QuantizedKV, dequantize_kv,
+                                      quantize_kv_block)
+    from samd_tpu_torch.ops.flash_attention import (
+        flash_block_attention, flash_block_attention_ref, kernel_tolerance)
+    from samd_tpu_torch.ops.paged_attention import (gather_pages,
+                                                    paged_block_attention,
+                                                    paged_block_attention_ref,
+                                                    window_to_mask)
+    from samd_tpu_torch.tools.time_kernels import (attention_case,
+                                                   library_attention,
+                                                   library_paged, paged_case)
+
+    for t, (tree, parents) in enumerate(tree_parents(card).items()):
+        # the verify kernel, k/v of q's type and int8
+        for label, NH, KH, D, S, cl, int8 in (
+                ("llama_1b T=60 cache_len=700", 32, 4, 64, 2048, 700, False),
+                ("llama_7b T=60 cache_len=700 int8-KV", 32, 32, 128, 1024,
+                 700, True)):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                tag = f"{tree} tree {label} {dname}"
+                q, k, v, mask, lim = attention_case(
+                    60, NH, KH, D, S, cl, torch.float32 if int8 else dtype,
+                    seed=500 + t, parents=parents)
+                q = q.to(dtype)
+                if int8:
+                    (k, ks), (v, vs) = (quantize_kv_block(x) for x in (k, v))
+                    args = (q, k, v, mask, lim, ks, vs)
+                    kd = dequantize_kv(QuantizedKV(k, ks), dtype)
+                    vd = dequantize_kv(QuantizedKV(v, vs), dtype)
+                    poison = (127, 1e30)
+                else:
+                    args, kd, vd = (q, k, v, mask, lim), k, v
+                    poison = (1e30, None)
+                got = flash_block_attention(*args)
+                again = flash_block_attention(*args)
+                ref = flash_block_attention_ref(*args)
+                torch.cuda.synchronize()
+                err, tol_at = check_close(tag, got, ref,
+                                          kernel_tolerance(ref), again)
+                kv = cl + 60
+                bad = [x.clone() for x in args]
+                bad[1][:, :, kv:] = poison[0]
+                bad[2][:, :, kv:] = -poison[0]
+                if int8:
+                    bad[5][:, :, kv:] = poison[1]
+                    bad[6][:, :, kv:] = poison[1]
+                fail_if(not torch.equal(got, flash_block_attention(*bad)),
+                        f"{tag}: poison past kv_limit changed the result")
+                ms = cuda_ms(lambda i: flash_block_attention(*args))
+                plain_ms = cuda_ms(lambda i: flash_block_attention_ref(*args))
+                library_ms = cuda_ms(library_attention(q, kd, vd, mask, lim))
+                bound_ms, bound_by = attention_bound(
+                    60, NH, KH, D, kv, dname,
+                    kv_bytes=2 * kv * KH * (D + 4) if int8 else None)
+                print(f"kernel flash_block_attention {tag}: max_abs_err "
+                      f"{err:.3e} (tol at that element {tol_at:.3e}) "
+                      f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                      f"library_ms {library_ms:.4f} (SDPA, boolean mask"
+                      f"{', dequantized live KV' if int8 else ''}) bound_ms "
+                      f"{bound_ms:.5f} ({bound_by}); two runs and poison "
+                      f"bitwise equal [{card}]", flush=True)
+        # K4, bf16 pages, the same tree in every slot
+        B, T, NH, KH, D, page = 4, 60, 32, 4, 64, 128
+        committed = [300, None, 64, 900]
+        args, active, spare = paged_case(B, T, NH, KH, D, page, committed,
+                                         torch.bfloat16, False,
+                                         seed=600 + t, parents=parents)
+        tag = f"{tree} tree llama_1b B=4 T=60 bf16 pages"
+        got = paged_block_attention(*args)
+        again = paged_block_attention(*args)
+        poisoned = paged_block_attention(*poison_pages(args, active, spare,
+                                                       page))
+        ref = paged_block_attention_ref(*args)
+        torch.cuda.synchronize()
+        err, tol_at = check_close(f"paged_block_attention {tag}",
+                                  got[active], ref[active],
+                                  kernel_tolerance(ref[active]),
+                                  again[active])
+        fail_if(not torch.equal(got[active], poisoned[active]),
+                f"paged_block_attention {tag}: poison changed the result")
+        q, kp, vp, tables, win, lims, _, _ = args
+        for b in active:
+            tb = tables[b:b + 1]
+            kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+            mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                                  kd.shape[2])
+            one = flash_block_attention(q[b:b + 1].contiguous(), kd, vd,
+                                        mask, lims[b])
+            fail_if(not torch.equal(got[b], one[0]),
+                    f"paged_block_attention {tag}: slot {b} differs from "
+                    "the verify kernel on its gathered KV")
+        ms = cuda_ms(lambda i: paged_block_attention(*args))
+        plain_ms = cuda_ms(lambda i: paged_block_attention_ref(*args),
+                           iters=10)
+        library_ms = cuda_ms(library_paged(args, active, page))
+        live = sum(int(lims[b]) for b in active)
+        nbytes = (2 * live * KH * D * 2 + 2 * q.numel() * 2 + win.numel()
+                  + tables.numel() * 4 + B * 4)
+        bound_ms, bound_by = bound(nbytes, 4 * NH * T * D * live, "bfloat16")
+        print(f"kernel paged_block_attention {tag}: max_abs_err {err:.3e} "
+              f"(tol at that element {tol_at:.3e}) kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA "
+              f"per active slot on its gathered live KV) bound_ms "
+              f"{bound_ms:.5f} ({bound_by}; {live} live columns); every "
+              f"active slot bitwise equal to the verify kernel on its "
+              f"gathered KV, poison changes nothing [{card}]", flush=True)
 
 
 def reset_counts() -> None:
@@ -1577,6 +1768,484 @@ def classify_dense_paged(card, cfg, params, dense, paged) -> None:
               + f" [{card}]", flush=True)
 
 
+class DraftLog:
+    """A host drafter that records, for each draft it hands out, whether
+    it is a chain (parents[i] == i - 1 over its real nodes); everything
+    else is the wrapped drafter's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.chains = []
+
+    def reset(self):
+        self.chains = []
+        self.inner.reset()
+
+    def lookup(self, start_token):
+        d = self.inner.lookup(start_token)
+        n = d.num_nodes
+        self.chains.append(bool((d.packed[1, :n]
+                                 == np.arange(-1, n - 1)).all()))
+        return d
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def plain_next_logits(cfg, params, prefix):
+    """The logits after ``prefix`` from one plain-attention prefill over
+    it (canonical columns): the near-tie rule's judge."""
+    import torch
+
+    from samd_tpu_torch.cache import init_kv_cache
+    from samd_tpu_torch.models import forward, prefill_mask
+
+    pcfg = dataclasses.replace(cfg, attention_impl="xla")
+    P = len(prefix)
+    kv = init_kv_cache(pcfg, 1, P, "cuda")
+    toks = torch.tensor(prefix, dtype=torch.int32, device="cuda")[None]
+    logits, _ = forward(params, pcfg, toks,
+                        torch.arange(P, device="cuda")[None], *kv, 0,
+                        prefill_mask(1, P, P, "cuda"))
+    return logits[0, -1].float()
+
+
+class OracleRows:
+    """Records, while active, each decode step's logits row 0 (the one real
+    token of a single-token-drafter oracle's block) from the greedy
+    accept of the engine modules: the oracle's own canonical-column
+    logits for every token it emits.  ``steps`` holds one [V] (single
+    stream) or [B, V] (batched) tensor per step, on the card."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        import samd_tpu_torch.batching as batching
+        import samd_tpu_torch.engine as engine
+
+        self._saved = [(m, m.greedy_accept) for m in (engine, batching)]
+        for mod, orig in self._saved:
+            def rec(logits, tokens, paths, orig=orig):
+                self.steps.append(logits[..., 0, :].float().clone())
+                return orig(logits, tokens, paths)
+            mod.greedy_accept = rec
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._saved:
+            mod.greedy_accept = orig
+
+
+def batched_rows(engine, rows: OracleRows) -> dict:
+    """Wrap a batched oracle engine's step so that each request id maps to
+    its own rows of ``rows.steps`` (one per step it took, in order)."""
+    per_rid = {}
+    orig = engine._dispatch
+
+    def dispatch(cache_lens, drafts, stepping):
+        rids = [engine.slots[i].request_id for i in stepping]
+        out = orig(cache_lens, drafts, stepping)
+        for i, rid in zip(stepping, rids):
+            per_rid.setdefault(rid, []).append(rows.steps[-1][i])
+        return out
+    engine._dispatch = dispatch
+    return per_rid
+
+
+def oracle_verdict(label, cfg, params, prompt, out, ref, chains,
+                   ref_rows) -> str:
+    """'equal', or the near-tie verdict of the first token where ``out``
+    leaves the oracle's ``ref``.  A divergence counts only when a tree
+    draft verified that token or an earlier one (tree rows attend their
+    ancestors at other columns, so their bits may differ from the chain
+    oracle's: docs/EXACTNESS.md) and the oracle's own logits for that token
+    (``ref_rows``, its canonical-column computation, one [V] row per step)
+    put the engine's token within evaluation/neartie.py's 0.08 of its
+    own; anything else fails.  The gap by one plain prefill over the
+    shared prefix, phase 7's judge, is printed beside it: at llama_7b that
+    third computation itself moves logits by ~0.1."""
+    a, b = out.output_ids, ref.output_ids
+    j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        fail_if(len(a) != len(b), f"{label}: output lengths differ")
+        return "equal"
+    g, cum, cause = j - len(prompt), 0, -1
+    for s, n in enumerate(out.accept_length_per_step):
+        if g < cum + n:
+            # the step's first token is the previous step's bonus
+            cause = s if g > cum else s - 1
+            break
+        cum += n
+    fail_if(cause < 0 or all(chains[:cause + 1]),
+            f"{label}: tokens differ from the oracle at {j} after chain "
+            f"drafts only (step {cause})")
+    row = ref_rows[g - 1]              # the oracle's step that emitted b[j]
+    fail_if(int(row.argmax()) != b[j], f"{label}: the recorded oracle row "
+            "does not choose the oracle's token")
+    gap = float(row[a[j]] - row[b[j]])
+    lg = plain_next_logits(cfg, params, a[:j])
+    plain = float(lg[a[j]] - lg[b[j]])
+    fail_if(abs(gap) > 0.08, f"{label}: tokens differ from the oracle at "
+            f"{j} (engine {a[j]}, oracle {b[j]}) by a gap of {gap:.5f} in "
+            f"the oracle's own logits (plain prefill {plain:.5f}) > 0.08: "
+            "not a near-tie")
+    return (f"near-tie at token {j} (engine {a[j]}, oracle {b[j]}; logit "
+            f"gap {gap:.5f} in the oracle's own logits, within 0.08; "
+            f"{plain:.5f} by a plain prefill over the shared prefix; first "
+            f"tree draft at step {chains.index(False)}, the token's verify "
+            f"step {cause})")
+
+
+def branching_copy(ids, prompt_len, rng, every=8):
+    """``ids`` with every ``every``-th generated token replaced by a random
+    one: beside the original in a corpus, the SAM's frequency tree branches
+    at each such position."""
+    out = list(ids)
+    for i in range(prompt_len + every - 1, len(out), every):
+        out[i] = int(rng.integers(3, 1000))
+    return out
+
+
+def by_source(stats) -> str:
+    return ", ".join(f"{k} {stats.accept_by_source[k] / n:.3f} over {n} "
+                     f"steps" for k, n in sorted(stats.source_counts.items()))
+
+
+def main_path_7b_host(card: str, cfg, params) -> dict:
+    """Phase 9: llama_7b int4 + int8 KV through the host-automaton
+    SamdEngine at M = 60."""
+    import tempfile
+
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig, SamdConfig
+    from samd_tpu_torch.drafters import make_drafter
+    from samd_tpu_torch.engine import ArBaseline, SamdEngine, StepStats
+    from samd_tpu_torch.sam import SamCursor, load_sam, save_sam, to_arrays
+    from samd_tpu_torch.sam.native import build_native_corpus_sam
+
+    cfg = dataclasses.replace(cfg, kv_quant=True)
+    S, M, V = 1024, 60, cfg.vocab_size
+    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    kw = dict(max_cache_len=S, eos_token_id=-1)
+    rng = np.random.default_rng(9)
+    prompts = {"a_random": rng.integers(3, V, size=100).tolist(),
+               "b_repetitive": rng.integers(3, V, size=8).tolist() * 12,
+               "c_random_200": rng.integers(3, V, size=200).tolist()}
+    prompts["a_repeat"] = prompts["a_random"]
+    oracle = ArBaseline(cfg, params, block_size=M, **kw)
+    oracle.generate(prompts["b_repetitive"][:16],
+                    GenerationConfig(max_new_tokens=4))        # warm-up
+    refs, ref_rows = {}, {}
+    for n, p in prompts.items():
+        if n != "a_repeat":
+            with OracleRows() as rows:
+                refs[n] = oracle.generate(p, gen)
+            ref_rows[n] = rows.steps
+    refs["a_repeat"], ref_rows["a_repeat"] = refs["a_random"], \
+        ref_rows["a_random"]
+    hy_cfg = SamdConfig(draft_source="sam_hybrid", max_predicts=M)
+
+    def hybrid():
+        log = DraftLog(make_drafter(hy_cfg, V))
+        return SamdEngine(cfg, params, hy_cfg, log, **kw), log
+
+    # (b)'s corpus: random tokens, requests a's and c's oracle outputs and
+    # a copy of a's that differs at every 8th generated token (so the
+    # frequency trees branch), built by the native engine, saved and
+    # loaded back as the Python automaton
+    native = build_native_corpus_sam(
+        [rng.integers(3, V, size=20000).tolist(),
+         refs["a_random"].output_ids, refs["c_random_200"].output_ids,
+         branching_copy(refs["a_random"].output_ids, 100, rng)],
+        eos_token=0, topk=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.npz"
+        save_sam(native, path)
+        static = load_sam(path, topk=8)
+    want = native.to_arrays()
+    for k, v in to_arrays(static).items():
+        fail_if(not np.array_equal(v, want[k]),
+                f"llama_7b host: the reloaded SAM's {k} differs")
+    so_cfg = SamdConfig(draft_source="sam_only", max_predicts=M)
+
+    def sam_only():
+        log = DraftLog(make_drafter(so_cfg, V, static_sam=SamCursor(static)))
+        return SamdEngine(cfg, params, so_cfg, log, **kw), log
+
+    eng_a, log_a = hybrid()
+    eng_b, log_b = sam_only()
+    eng_a.generate(prompts["b_repetitive"][:16],
+                   GenerationConfig(max_new_tokens=8))          # warm-up
+    torch.cuda.synchronize()
+    # (a): a, c, then a again, whose start tokens the Token-Recycle cache
+    # has all seen (full 60-node trees); (b): a through branching
+    # frequency trees, c through its corpus copy
+    runs = [("a hybrid token_recycle", eng_a, log_a, n)
+            for n in ("a_random", "c_random_200", "a_repeat")] + [
+        ("b sam_only static", eng_b, log_b, n)
+        for n in ("a_random", "c_random_200")]
+    done = []
+    reset_counts()                              # the path starts here
+    for label, eng, log, name in runs:
+        eng.stats = StepStats()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts[name], gen)
+        torch.cuda.synchronize()
+        done.append((label, name, out, time.perf_counter() - t0,
+                     list(log.chains), eng.stats))
+    counts = read_counts()                      # the path ends here
+    equal = 0
+    for label, name, out, dt, chains, stats in done:
+        tag = f"llama_7b host {label} request {name}"
+        verdict = oracle_verdict(tag, cfg, params, prompts[name], out,
+                                 refs[name], chains, ref_rows[name])
+        equal += verdict == "equal"
+        new = len(out.output_ids) - len(prompts[name])
+        print(f"{tag}: prompt {len(prompts[name])} new {new} steps "
+              f"{out.decode_steps} ({chains.count(False)} tree drafts) "
+              f"ms_per_step {dt / out.decode_steps * 1e3:.3f} tok_per_s "
+              f"{new / dt:.2f} (prefill included) "
+              f"mean accept by source: {by_source(stats)}; against "
+              f"ArBaseline(block_size=60): {verdict} [{card}]", flush=True)
+    forwards = sum(1 + o.decode_steps for _, _, o, _, _, _ in done)
+    short = sum(o.decode_steps + (len(prompts[n]) <= 128)
+                for _, n, o, _, _, _ in done)
+    want = {"flash_block_attention": 0,
+            "flash_block_attention_int8kv": cfg.num_layers * short,
+            "int4_matmul": (7 * cfg.num_layers + 1) * forwards,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want or not counts["int4_matmul"],
+            f"llama_7b host: launch counts {counts}, expected {want}")
+    print(f"llama_7b host path: {equal} of {len(done)} requests bitwise "
+          f"equal to the oracle, the rest near-ties; int4_matmul launches "
+          f"{counts['int4_matmul']} = 225 x {forwards} forwards; int8-KV "
+          f"verify launches {counts['flash_block_attention_int8kv']} = 32 x "
+          f"{short} forwards of T <= 128 [{card}]", flush=True)
+
+    # (c) sampled: each tree accept mode twice with its seed; point-mass
+    # requests equal the same engine's greedy run
+    p = prompts["b_repetitive"]
+    short_gen = dict(max_new_tokens=64, max_cache_len=S)
+    for mode, knobs in (("rejection", dict(top_k=50)), ("typical", {}),
+                        ("nucleus", dict(top_p=0.9))):
+        g = GenerationConfig(greedy=False, temperature=0.8, seed=11,
+                             accept_mode=mode, **knobs, **short_gen)
+        t0 = time.perf_counter()
+        one, two = eng_b.generate(p, g), eng_b.generate(p, g)
+        dt = time.perf_counter() - t0
+        fail_if(one.output_ids != two.output_ids,
+                f"llama_7b host sampled {mode}: two runs with one seed "
+                "differ")
+        fail_if(not all(0 <= t < V for t in one.output_ids)
+                or len(one.output_ids) != len(p) + 64,
+                f"llama_7b host sampled {mode}: malformed output")
+        print(f"llama_7b host sampled {mode}: two runs with seed 11 equal; "
+              f"{one.decode_steps} steps, mean accept "
+              f"{one.decode_tokens / one.decode_steps:.3f}, "
+              f"{2 * 64 / dt:.2f} tok/s [{card}]", flush=True)
+    point = GenerationConfig(greedy=False, temperature=1e-5, top_k=1, seed=5,
+                             **short_gen)
+    for label, make in (("hybrid token_recycle", hybrid),
+                        ("sam_only static", sam_only)):
+        name = "a_random"
+        greedy_out = make()[0].generate(prompts[name], GenerationConfig(
+            **short_gen))
+        eng, log = make()
+        forced = eng.generate(prompts[name], point)
+        fail_if(forced.output_ids != greedy_out.output_ids,
+                f"llama_7b host point-mass {label}: differs from the same "
+                "engine's greedy run")
+        ref = refs[name].output_ids[:len(prompts[name]) + 64]
+        verdict = oracle_verdict(
+            f"llama_7b host point-mass {label}", cfg, params, prompts[name],
+            forced, SimpleNamespace(output_ids=ref), list(log.chains),
+            ref_rows[name])
+        print(f"llama_7b host point-mass {label} (top_k 1, temperature "
+              f"1e-5): equal to the same engine's greedy run; against the "
+              f"oracle: {verdict} [{card}]", flush=True)
+    return counts
+
+
+def main_path_1b_host(card: str) -> dict:
+    """Phase 10: llama_1b bf16 through the batched host engines (dense and
+    paged, B = 4, M = 60), request interleaving, and the server's
+    ``--engine batched --sam``."""
+    import tempfile
+
+    import torch
+
+    from samd_tpu_torch.batching import (BatchedSamdEngine,
+                                         PagedBatchedSamdEngine)
+    from samd_tpu_torch.config import GenerationConfig, SamdConfig
+    from samd_tpu_torch.drafters import AdaptiveSelector, make_drafter
+    from samd_tpu_torch.engine import SamdEngine, _SingleTokenDrafter
+    from samd_tpu_torch.interleave import InterleavedSamdEngine
+    from samd_tpu_torch.models import init_params, llama_1b
+    from samd_tpu_torch.sam import SamCursor, save_sam
+    from samd_tpu_torch.sam.native import build_native_corpus_sam
+    from samd_tpu_torch.server import build_server_engine, serve
+
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    S, M, V, L = 1024, 60, cfg.vocab_size, cfg.num_layers
+    kw = dict(batch_size=4, max_cache_len=S, eos_token_id=-1,
+              prefill_buckets=(128, 256))
+    rng = np.random.default_rng(13)
+    fresh = [(rng.integers(3, V, size=int(n)).tolist(), 64)
+             for n in rng.integers(40, 101, size=4)]
+    requests = fresh + fresh[:2]
+    makers = {
+        "dense": lambda f: BatchedSamdEngine(cfg, params, SamdConfig(
+            max_predicts=M), f, **kw),
+        "paged": lambda f: PagedBatchedSamdEngine(cfg, params, SamdConfig(
+            max_predicts=M), f, n_pages=16, page_size=128, **kw)}
+    counted = {}
+    static = None
+    for kind, make in makers.items():
+        with OracleRows() as rows:
+            ar = make(lambda: _SingleTokenDrafter(M))
+            per_rid = batched_rows(ar, rows)
+            oracle, _, _ = serve_batched(ar, requests, V)
+        del ar
+        oracle_rows = [per_rid[i] for i in range(len(requests))]
+        if static is None:
+            # the first two requests' outputs and copies of them that differ
+            # at every 8th generated token: frequency trees that branch
+            static = build_native_corpus_sam(
+                [o.output_ids for o in oracle[:2]]
+                + [branching_copy(o.output_ids, len(p), rng)
+                   for (p, _), o in zip(requests, oracle[:2])],
+                eos_token=0, topk=8)
+        for source in ("sam_only", "sam_hybrid"):
+            scfg = SamdConfig(draft_source=source, max_predicts=M)
+            # one Token-Recycle cache shared by every request (its reset is
+            # a no-op): the repeated requests find their tokens harvested
+            shared = make_drafter(scfg, V).tree_drafter
+            logs = []
+
+            def factory():
+                logs.append(DraftLog(AdaptiveSelector(
+                    scfg, static_sam=SamCursor(static),
+                    tree_drafter=shared)))
+                return logs[-1]
+            eng = make(factory)
+            logs.clear()                    # the engine's probe
+            torch.cuda.synchronize()
+            reset_counts()                  # the path starts here
+            outs, wall, steps = serve_batched(eng, requests, V)
+            counts = read_counts()          # the path ends here
+            label = f"llama_1b host {kind} B=4 {source}"
+            verdicts = [oracle_verdict(f"{label} request {i}", cfg, params,
+                                       p, o, r, lg.chains, rr)
+                        for i, ((p, _), o, r, lg, rr) in enumerate(
+                            zip(requests, outs, oracle, logs, oracle_rows))]
+            new = sum(o.decode_tokens for o in outs)
+            trees = sum(lg.chains.count(False) for lg in logs)
+            print(f"{label}: {len(outs)} requests, {new} new tokens, "
+                  f"{trees} tree drafts, "
+                  f"{steps} steps of [4, 60], {wall / steps * 1e3:.3f} "
+                  f"ms/step, {new / wall:.2f} tok/s (prefills included), "
+                  f"mean accept by source: {by_source(eng.stats)}; against "
+                  f"the single-token-drafter oracle: "
+                  f"{verdicts.count('equal')} equal, "
+                  f"{len(verdicts) - verdicts.count('equal')} near-ties "
+                  f"[{card}]", flush=True)
+            for i, v in enumerate(verdicts):
+                if v != "equal":
+                    print(f"{label} request {i}: {v} [{card}]", flush=True)
+            want = {"flash_block_attention": L * len(requests),
+                    "flash_block_attention_int8kv": 0, "int4_matmul": 0,
+                    "paged_block_attention": L * steps if kind == "paged"
+                    else 0, "paged_block_attention_int8kv": 0}
+            fail_if(counts != want or not steps,
+                    f"{label}: launch counts {counts}, expected {want}")
+            if kind == "paged":
+                fail_if(len(eng.pool._free) != 16,
+                        f"{label}: pages not returned")
+                counted[source] = counts["paged_block_attention"]
+            del eng
+            gc.collect()
+    print(f"llama_1b host paged: K4 bf16 launches {counted} = 22 per step "
+          f"[{card}]", flush=True)
+
+    # interleaving: three lanes against three sequential runs
+    so_cfg = SamdConfig(draft_source="sam_only", max_predicts=M)
+
+    def so_drafter():
+        return make_drafter(so_cfg, V, static_sam=SamCursor(static))
+    gen = GenerationConfig(max_new_tokens=64, max_cache_len=S)
+    three = [p for p, _ in requests[:3]]
+    single = SamdEngine(cfg, params, so_cfg, so_drafter(), max_cache_len=S,
+                        eos_token_id=-1)
+    t0 = time.perf_counter()
+    seq = [single.generate(p, gen) for p in three]
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    inter = InterleavedSamdEngine(cfg, params, so_cfg, so_drafter, lanes=3,
+                                  max_cache_len=S, eos_token_id=-1)
+    torch.cuda.synchronize()
+    reset_counts()                              # the path starts here
+    t0 = time.perf_counter()
+    rids = [inter.add_request(p, gen) for p in three]
+    res = inter.run()
+    torch.cuda.synchronize()
+    t_inter = time.perf_counter() - t0
+    counts = read_counts()                      # the path ends here
+    fail_if([res[r] for r in rids] != seq,
+            "llama_1b interleaved: outputs differ from sequential runs")
+    forwards = sum(1 + o.decode_steps for o in seq)
+    fail_if(counts["flash_block_attention"] != L * forwards,
+            f"llama_1b interleaved: launch counts {counts}, expected "
+            f"{L} x {forwards} verify launches")
+    print(f"llama_1b interleaved, 3 lanes: bitwise equal to 3 sequential "
+          f"SamdEngine runs; {t_inter:.3f} s against {t_seq:.3f} s "
+          f"sequential; verify launches {counts['flash_block_attention']} "
+          f"= 22 x {forwards} forwards [{card}]", flush=True)
+    del inter, single
+    gc.collect()
+
+    # the server: --engine batched --sam FILE over 127.0.0.1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.npz"
+        save_sam(static, path)
+        args = SimpleNamespace(model=None, random_model=True, tiny=False,
+                               engine="batched", batch_size=4, quantize=None,
+                               max_cache_len=S, sam=path, cpu=False,
+                               inline_prefill=False)
+        eng = build_server_engine(args)
+    fail_if(type(eng) is not BatchedSamdEngine,
+            f"server: --engine batched built {type(eng).__name__}")
+    four = [p for p, _ in requests[:4]]
+    direct, _, _ = serve_batched(eng, [(p, 32) for p in four], V)
+    server, sched = serve(eng, port=0, block=False)
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        reset_counts()                          # the path starts here
+        replies = http_traffic(url, [{"input_ids": p, "max_new_tokens": 32}
+                                     for p in four], "batched --sam")
+        counts = read_counts()                  # the path ends here
+    finally:
+        server.shutdown()
+        sched.close()
+    fail_if([r["output_ids"] for r in replies]
+            != [o.output_ids for o in direct],
+            "server --engine batched --sam: replies differ from the engine "
+            "called directly")
+    fail_if(counts["flash_block_attention"] != L * len(four),
+            f"server --engine batched: launch counts {counts}")
+    print(f"server --engine batched --sam: 4 greedy replies over HTTP equal "
+          f"to the engine called directly (static drafts "
+          f"{eng.stats.source_counts.get('sam_static', 0)} of "
+          f"{sum(eng.stats.source_counts.values())} slot-steps); verify "
+          f"launches {counts['flash_block_attention']} = 22 x 4 prefills "
+          f"[{card}]", flush=True)
+    return counted
+
+
 def main() -> int:
     import torch
 
@@ -1624,8 +2293,9 @@ def main() -> int:
     rows = {"flash_block_attention": check_kernels(card),
             "flash_block_attention_int8kv": check_int8_attention(card),
             "int4_matmul": check_int4(card), **check_paged(card)}
+    check_tree_masks(card)
 
-    # phases 4 to 7: the paths, each with its counts read on its own
+    # phases 4 to 10: the paths, each with its counts read on its own
     launches = {"flash_block_attention": main_path_1b(card)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -1640,10 +2310,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     main_path_server(card, cfg7, params7, requests7, oracle7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_7b_host(card, cfg7, params7)
     del params7
     gc.collect()
     torch.cuda.empty_cache()
     launches["paged_block_attention"] = main_path_1b_batched(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_1b_host(card)
 
     meta = {
         "flash_block_attention": (

@@ -7,9 +7,9 @@ port keeps the "sd" layout for int8 KV too (the reference's int8 kernel
 needed "ds").  Writes and the acceptance compaction update the cache in
 place — the counterpart of the reference's donated buffers.  The committed
 length lives in the engine loop, not in the tensors.  ``update_slot``
-admits a request into one slot of a batched cache.  The per-slot
-compaction ``compact_accepted_batched`` serves only the tree and hybrid
-engines and comes with them (ROADMAP queue 1 items 12-13).
+admits a request into one slot of a batched cache, and
+``compact_accepted_batched`` compacts each slot's accepted tree path (the
+batched host engines, ``batching.BatchedSamdEngine``).
 """
 
 from __future__ import annotations
@@ -141,4 +141,40 @@ def compact_accepted(kv: KV, offset: Union[int, torch.Tensor],
     A = indices.shape[0]
     sel = kv.index_select(seq_axis, offset + indices.to(torch.int64))
     kv.index_copy_(seq_axis, offset + torch.arange(A, device=dev), sel)
+    return kv
+
+
+def compact_accepted_batched(kv: KV, offsets: torch.Tensor,
+                             indices: torch.Tensor, block_size: int, *,
+                             seq_axis: int = 3) -> KV:
+    """Per-slot ``compact_accepted`` over a batched cache IN PLACE (the
+    reference's vmapped form, ``samd_tpu/cache.py:111``); returns ``kv``.
+
+    kv:      [L, B, KH, S, D] (seq_axis=3, counted with the batch axis), or
+             ``QuantizedKV`` (its scales compacted along their last axis)
+    offsets: [B] — each slot's block start
+    indices: [B, A] — block-relative accepted positions per slot
+
+    Slot b's block is read from ``min(offsets[b], S - block_size)`` and its
+    A selected rows written at ``min(offsets[b], S - A)``: the reference's
+    clamped slices, a no-op inside the engines' ``offset + M <= S``."""
+    if isinstance(kv, QuantizedKV):
+        compact_accepted_batched(kv.q, offsets, indices, block_size,
+                                 seq_axis=seq_axis)
+        compact_accepted_batched(kv.scale, offsets, indices, block_size,
+                                 seq_axis=kv.scale.dim() - 1)
+        return kv
+    if seq_axis != 3:
+        raise NotImplementedError("compact_accepted_batched needs the "
+                                  "\"sd\" layout (seq_axis 3)")
+    dev = kv.device
+    B, A = indices.shape
+    S = kv.shape[3]
+    off = offsets.to(device=dev, dtype=torch.int64)
+    src = torch.clamp(off, max=S - block_size)[:, None] \
+        + indices.to(device=dev, dtype=torch.int64)              # [B, A]
+    dst = torch.clamp(off, max=S - A)[:, None] \
+        + torch.arange(A, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    kv[:, rows, :, dst] = kv[:, rows, :, src]
     return kv

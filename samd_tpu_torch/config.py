@@ -1,8 +1,8 @@
 """Configuration dataclasses (counterpart of ``samd_tpu/config.py``).
 
-``GenerationConfig`` is a copy.  ``SamdConfig`` keeps the fields the greedy
-``SamdEngine`` reads; the draft-source, tree-drafter and EAGLE knobs come
-with the host drafters (ROADMAP queue 1 item 12).
+``GenerationConfig`` is a copy.  ``SamdConfig`` holds the policy knobs the
+host engines and their drafters read (``samd_tpu/config.py:17-63``); the
+EAGLE knobs come with the EAGLE drafters (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -13,12 +13,45 @@ from typing import Literal, Optional
 
 @dataclass
 class SamdConfig:
-    """Speculative-decoding policy knobs read by ``engine.SamdEngine``."""
+    """Speculative-decoding policy knobs read by ``engine.SamdEngine``, the
+    batched engines and ``drafters.make_drafter``.
 
+    draft_source:
+      * "sam_hybrid" – SAM sequence drafts when the suffix match is long,
+        otherwise a model-based tree drafter (Token Recycle);
+      * "sam_only"  – SAM drafts always: dynamic-SAM sequence draft vs
+        static-SAM frequency tree by match-length comparison.
+    """
+
+    draft_source: Literal["sam_hybrid", "sam_only"] = "sam_only"
+
+    # --- shared ---
+    len_bias: int = 5            # distrust margin subtracted from static match
     max_predicts: int = 60       # verify-block size M
+
+    # --- sam_hybrid knobs ---
+    n_predicts: int = 40         # sequence-draft length for hybrid mode
+    len_threshold: int = 5       # min match length to prefer SAM over the tree
+    # "eagle"/"eagle2" raise in make_drafter (ROADMAP queue 1 item 13)
+    tree_method: Literal["token_recycle", "eagle", "eagle2"] = "token_recycle"
+    tree_adjacency: Optional[list] = None   # static tree topology (BFS adjacency)
+
+    # --- sam_only knobs ---
+    alpha: float = 4.0           # adaptive draft length = 1 + match_len * alpha
+    tree_topk: int = 8           # K: frequency-tree branching / per-depth cap
+
+    # --- verify shapes ---
+    max_tree_paths: Optional[int] = None    # R; defaults to max_predicts
     max_tree_depth: Optional[int] = None    # D; defaults to max_predicts
 
+    # --- host-engine knobs ---
+    # the C++ SAM engine (built with g++ at first use; a failed build
+    # raises); False asks for the Python automaton, which drafts the same
+    use_native_sam: bool = True
+
     def __post_init__(self):
+        if self.max_tree_paths is None:
+            self.max_tree_paths = self.max_predicts
         if self.max_tree_depth is None:
             self.max_tree_depth = self.max_predicts
 
@@ -36,8 +69,7 @@ class GenerationConfig:
     top_k: int = 0
     seed: int = 0
     # Acceptance rule for sampling mode: "rejection", "typical", "nucleus"
-    # (the fused engines run all three; the host SamdEngine raises on
-    # sampling, ROADMAP queue 1 item 12)
+    # (chain rules in the fused engines, tree rules in the host engines)
     accept_mode: Literal["rejection", "typical", "nucleus"] = "rejection"
     posterior_threshold: float = 0.3
     posterior_alpha: float = 0.09
@@ -54,12 +86,3 @@ class GenerationConfig:
         return (self.temperature, self.top_p, self.top_k, self.accept_mode,
                 self.posterior_threshold, self.posterior_alpha)
 
-
-def require_greedy(gen: GenerationConfig) -> None:
-    """Only the host ``engine.SamdEngine`` (and its ``ArBaseline``) still
-    decodes greedily: its tree sampling paths are ROADMAP queue 1 item 12.
-    The fused engines sample."""
-    if not gen.greedy:
-        raise NotImplementedError(
-            "SamdEngine's sampling paths are not ported yet (ROADMAP queue "
-            "1 item 12); the fused engines sample")

@@ -1,45 +1,82 @@
-"""SamdEngine — the greedy speculative-decoding loop (counterpart of
+"""SamdEngine — the host-automaton speculative-decoding loop (counterpart of
 ``samd_tpu/engine.py:49-330, 401-453``).
 
-One decode step runs the verify forward over an M-wide draft block,
-greedy acceptance and KV compaction on the device, and brings back one
-packed ``[2 + D]`` int32 vector (accept length, bonus token, accepted path).
-The KV cache is updated in place.
+One decode step runs the verify forward over an M-wide draft block (a
+chain or a tree from the host drafter), acceptance and KV compaction on
+the device, and brings back one packed ``[2 + D]`` int32 vector (accept
+length, bonus token, accepted path), plus the ``[M, K]`` top-K harvest
+when the drafter consumes it (Token Recycle).  The KV cache is updated in
+place.
+
+Greedy requests accept the longest path that matches the argmax.  Sampled
+requests (``GenerationConfig(greedy=False)``) accept by the tree rule of
+their ``accept_mode`` (``verify.make_accept_fn``): each owns one
+``torch.Generator`` on the engine's device, seeded with
+``GenerationConfig.seed``, which draws the first token after the prefill
+and then one fixed-size block of noise per step (``verify.TreeNoise``).
 
 ``ArBaseline(block_size=M)`` runs vanilla AR decoding through the same
 M-wide step (one real token + padding).  Row position inside a block does
 not change a row's arithmetic, so its greedy output is bitwise comparable
 with a speculative engine's: it is the equality oracle.
 
-Not ported yet: sampling (its tree accept rules, ROADMAP queue 1 item 12;
-the fused engines sample), the tree drafters' harvest and hidden-state
-feedback (items 12-13), meshes (item 16), the profiler and
-``stream_generate`` (item 15).
+The loop is a generator (``SamdEngine._steps``) that yields each step's
+result while it travels to the host (``HostCopy``): ``generate`` waits for
+it at once, ``interleave.InterleavedSamdEngine`` serves other requests
+meanwhile, and both run the same code.
+
+Not ported yet: the hidden-state drafters (EAGLE, ROADMAP queue 1 item
+13), meshes (item 16), the profiler and ``stream_generate`` (item 15).
 """
 
 from __future__ import annotations
 
 from collections import namedtuple
-from typing import List, Optional, Sequence, Union
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .cache import compact_accepted, init_kv_cache
-from .config import GenerationConfig, SamdConfig, require_greedy
+from .config import GenerationConfig, SamdConfig
 from .device import resolve_device
 from .drafters.base import Draft
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.quant import tensors
 from .ops.treeops import pack_draft_host, unpack_draft
-from .verify import greedy_accept
+from .verify import (draw_first_token, draw_tree_noise, greedy_accept,
+                     make_accept_fn)
 
 Outputs = namedtuple(
     "Outputs",
     ["output_ids", "decode_tokens", "decode_steps", "accept_length_per_step"])
 
 PREFILL_BUCKETS = (128, 256, 512, 1024, 2048)
+HARVEST_TOPK = 8
+
+
+@dataclass
+class StepStats:
+    """Draft-source / accept-length diagnostics."""
+    source_counts: Dict[str, int] = field(default_factory=dict)
+    accept_by_source: Dict[str, int] = field(default_factory=dict)
+
+    def record(self, source: str, accept_len: int) -> None:
+        self.source_counts[source] = self.source_counts.get(source, 0) + 1
+        self.accept_by_source[source] = (
+            self.accept_by_source.get(source, 0) + accept_len)
+
+    def mean_accept(self) -> float:
+        steps = sum(self.source_counts.values())
+        return sum(self.accept_by_source.values()) / max(steps, 1)
+
+    def merge(self, other: "StepStats") -> None:
+        for k, v in other.source_counts.items():
+            self.source_counts[k] = self.source_counts.get(k, 0) + v
+        for k, v in other.accept_by_source.items():
+            self.accept_by_source[k] = self.accept_by_source.get(k, 0) + v
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -58,8 +95,62 @@ def check_params_device(params: Params, device: torch.device) -> None:
                              f"engine runs on {device}")
 
 
+def check_request(ids: Sequence[int], gen: GenerationConfig,
+                  vocab_size: int) -> None:
+    """Raise ValueError for a request no engine can serve: an empty prompt,
+    a token id outside [0, vocab_size) (on CUDA the embedding's gather
+    would assert and poison the context for every later request), or a
+    sampled request whose top_k exceeds the vocabulary."""
+    if not ids:
+        raise ValueError("the prompt must be non-empty")
+    bad = [t for t in ids if not 0 <= t < vocab_size]
+    if bad:
+        raise ValueError(f"token id {bad[0]} outside [0, {vocab_size})")
+    if not gen.greedy and gen.top_k > vocab_size:
+        raise ValueError(f"top_k {gen.top_k} exceeds the vocabulary of "
+                         f"{vocab_size}")
+
+
+def harvest_topk(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` most likely token ids of each row of ``[..., V]`` logits,
+    int32 ``[..., k]``, ties toward the lower id as ``lax.top_k`` breaks
+    them (``torch.topk`` promises no order among ties, so a stable
+    descending sort picks them)."""
+    order = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    return order[..., :k].to(torch.int32)
+
+
+class HostCopy:
+    """Device tensors on their way to the host.  On CUDA each goes into
+    pinned memory with a ``non_blocking`` copy and one event marks the
+    end; ``wait`` blocks on the event alone.  CPU tensors are copied at
+    once."""
+
+    def __init__(self, tensors: Sequence[Optional[torch.Tensor]]):
+        self.event = None
+        self.host: List[Optional[torch.Tensor]] = []
+        for t in tensors:
+            if t is None:
+                self.host.append(None)
+            elif t.device.type == "cuda":
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.host.append(h)
+            else:
+                self.host.append(t.clone())
+        if any(t is not None and t.device.type == "cuda" for t in tensors):
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self) -> List[Optional[np.ndarray]]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [None if h is None else h.numpy() for h in self.host]
+
+
 class SamdEngine:
-    """Greedy verify loop over a host drafter (``lookup``/``observe_*``)."""
+    """Verify loop over a host drafter (``lookup``/``observe_*``): greedy,
+    or sampled by the request's tree accept rule."""
 
     def __init__(self, model_cfg: ModelConfig, params: Params,
                  samd_cfg: SamdConfig, drafter, *,
@@ -67,13 +158,12 @@ class SamdEngine:
                  eos_token_id: int = 2,
                  stop_token_id: Optional[int] = None,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
+                 harvest_topk: int = HARVEST_TOPK,
                  device: Union[str, torch.device] = "cuda"):
         check_supported(model_cfg)
-        if getattr(drafter, "wants_harvest", False) \
-                or getattr(drafter, "wants_hidden", False):
+        if getattr(drafter, "wants_hidden", False):
             raise NotImplementedError(
-                "harvest/hidden-state drafters are ROADMAP queue 1 items "
-                "12-13")
+                "hidden-state drafters (EAGLE) are ROADMAP queue 1 item 13")
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.model_cfg = model_cfg
@@ -85,15 +175,22 @@ class SamdEngine:
         self.stop_token_id = stop_token_id
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= max_cache_len)
+        self.harvest_topk = harvest_topk
+        # the top-K harvest is computed (a sort over V) only when the
+        # drafter consumes it
+        self.wants_harvest = getattr(drafter, "wants_harvest", False)
+        self.stats = StepStats()
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
 
     # ------------------------------------------------------------------
     # Device steps
     # ------------------------------------------------------------------
-    def _prefill(self, input_ids: List[int]) -> torch.Tensor:
+    def _prefill(self, input_ids: List[int]):
         """Forward the bucket-padded prompt at offset 0; returns the greedy
-        next token (0-dim int32 on the device)."""
+        next token (0-dim int32 on the device), the last prompt row's
+        logits [V] and, for a harvesting drafter, the prompt rows' top-K
+        [len, K] (else None)."""
         P = _bucket(len(input_ids), self.prefill_buckets)
         dev, S = self.device, self.max_cache_len
         padded = torch.zeros((1, P), dtype=torch.int32)
@@ -103,7 +200,10 @@ class SamdEngine:
             self.params, self.model_cfg, padded.to(dev),
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, S, dev))
-        return torch.argmax(logits[0, len(input_ids) - 1]).to(torch.int32)
+        last = logits[0, len(input_ids) - 1]
+        topk = (harvest_topk(logits[0, :len(input_ids)], self.harvest_topk)
+                if self.wants_harvest else None)
+        return torch.argmax(last).to(torch.int32), last, topk
 
     def _verify_core(self, cache_len: torch.Tensor, draft: np.ndarray):
         """Draft buffers, mask and the verify forward.  The draft comes from
@@ -118,16 +218,26 @@ class SamdEngine:
             self.kv_k, self.kv_v, cache_len, mask)
         return logits, hidden, tokens, paths
 
-    def _decode_step(self, cache_len: torch.Tensor,
-                     draft: np.ndarray) -> torch.Tensor:
+    def _decode_step(self, cache_len: torch.Tensor, draft: np.ndarray,
+                     accept=None, noise=None):
+        """One verify step; greedy without ``accept``, else that tree rule
+        under this step's ``noise``.  Returns the packed ``[2 + D]`` result
+        and the block's top-K harvest (None unless the drafter wants it),
+        both on the device."""
         M = self.samd_cfg.max_predicts
         logits, _, tokens, paths = self._verify_core(cache_len, draft)
-        res = greedy_accept(logits[0], tokens, paths)
+        if accept is None:
+            res = greedy_accept(logits[0], tokens, paths)
+        else:
+            res = accept(logits[0], tokens, paths, noise)
         compact_accepted(self.kv_k, cache_len, res.path_nodes, M)
         compact_accepted(self.kv_v, cache_len, res.path_nodes, M)
         # one-transfer result: [accept_len, next_token, path tokens...]
-        return torch.cat([res.accept_len[None], res.next_token[None],
+        pack = torch.cat([res.accept_len[None], res.next_token[None],
                           res.accepted_tokens]).to(torch.int32)
+        topk = (harvest_topk(logits[0], self.harvest_topk)
+                if self.wants_harvest else None)
+        return pack, topk
 
     # ------------------------------------------------------------------
     # Generation loop
@@ -138,38 +248,60 @@ class SamdEngine:
                 return accepted[:accepted.index(stop) + 1], True
         return accepted, False
 
-    def generate(self, input_ids: Sequence[int],
-                 gen_config: Optional[GenerationConfig] = None) -> Outputs:
-        gen = gen_config or GenerationConfig()
-        require_greedy(gen)
+    def _steps(self, input_ids: Sequence[int],
+               gen: Optional[GenerationConfig] = None):
+        """The loop of ``generate`` as a generator: each step yields its
+        ``HostCopy`` once dispatched and reads it when resumed; returns the
+        Outputs (``StopIteration.value``)."""
+        gen = gen or GenerationConfig()
         input_ids = list(input_ids)
-        if not input_ids:
-            raise ValueError("generate() requires a non-empty prompt")
-        M = self.samd_cfg.max_predicts
+        check_request(input_ids, gen, self.model_cfg.vocab_size)
+        M, dev = self.samd_cfg.max_predicts, self.device
+        D = self.samd_cfg.max_tree_depth
         S = min(self.max_cache_len, gen.max_cache_len)
 
         self.drafter.reset()
-        start_token = int(self._prefill(input_ids))
-        self.drafter.observe_prompt(input_ids, None)
+        first, last, topk = self._prefill(input_ids)
+        accept = rng = sig = None
+        if not gen.greedy:
+            sig = gen.sampling_signature
+            accept = make_accept_fn(sig)
+            rng = torch.Generator(device=dev)
+            rng.manual_seed(gen.seed)
+            first = draw_first_token(rng, last, gen.temperature)
+        first, topk = HostCopy([first, topk]).wait()
+        self.drafter.observe_prompt(input_ids, topk)
 
         cache_len = len(input_ids)
         output = list(input_ids)
         decode_tokens = 0
         decode_steps = 0
         accept_lens: List[int] = []
+        start_token = int(first)
         for _ in range(gen.max_steps):
             if cache_len + M > S:
                 break
             draft = self.drafter.lookup(start_token)
-            offset = torch.tensor(cache_len, dtype=torch.int32,
-                                  device=self.device)
-            pack = self._decode_step(offset, draft.packed).cpu().numpy()
+            offset = torch.tensor(cache_len, dtype=torch.int32, device=dev)
+            noise = None
+            if rng is not None:
+                noise = draw_tree_noise([rng], sig, M, M, D,
+                                        self.model_cfg.vocab_size, dev)
+                noise = type(noise)(*(t[0] for t in noise))
+            pending = HostCopy(self._decode_step(offset, draft.packed,
+                                                 accept, noise))
+            yield pending
+            pack, topk = pending.wait()
             accept_len = int(pack[0])
             next_start = int(pack[1])
             accepted = pack[2:2 + accept_len].tolist()
 
             accepted, eos_hit = self._truncate_at_stop(accepted)
             self.drafter.observe_accepted(accepted)
+            if self.wants_harvest:
+                self.drafter.observe_verify(draft.packed[0], topk,
+                                            draft.num_nodes)
+            self.stats.record(draft.source, len(accepted))
 
             output.extend(accepted)
             cache_len += accept_len  # cache holds the full accepted path
@@ -182,6 +314,15 @@ class SamdEngine:
 
         output = output[:len(input_ids) + gen.max_new_tokens]
         return Outputs(output, decode_tokens, decode_steps, accept_lens)
+
+    def generate(self, input_ids: Sequence[int],
+                 gen_config: Optional[GenerationConfig] = None) -> Outputs:
+        steps = self._steps(input_ids, gen_config)
+        while True:
+            try:
+                next(steps)
+            except StopIteration as fin:
+                return fin.value
 
 
 # ----------------------------------------------------------------------
@@ -206,6 +347,9 @@ class _SingleTokenDrafter:
     def observe_accepted(self, tokens):
         pass
 
+    def observe_verify(self, block_tokens, block_topk, num_nodes):
+        pass
+
     def lookup(self, start_token: int) -> Draft:
         packed = pack_draft_host([start_token], [-1], self.block_size)
         return Draft(packed=packed, num_nodes=1, source="ar")
@@ -224,7 +368,9 @@ class ArBaseline:
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  block_size: int = 1,
                  device: Union[str, torch.device] = "cuda"):
-        samd_cfg = SamdConfig(max_predicts=block_size,
+        samd_cfg = SamdConfig(draft_source="sam_only",
+                              max_predicts=block_size,
+                              max_tree_paths=block_size,
                               max_tree_depth=block_size)
         self.cfg = model_cfg
         self._engine = SamdEngine(

@@ -51,14 +51,16 @@ import torch
 from .cache import init_kv_cache, update_slot
 from .config import GenerationConfig
 from .device import resolve_device
-from .engine import PREFILL_BUCKETS, Outputs, _bucket, check_params_device
+from .engine import (PREFILL_BUCKETS, Outputs, _bucket, check_params_device,
+                     check_request)
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.paged_attention import boundary_mask_window
 from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
                        paged_flat_indices, paged_write_block)
 from .streaming import ProgressStreamMixin
-from .verify import _process_logits, take
+from .verify import (_process_logits, draw_first_token, draw_uniforms,
+                     gumbel_from_uniform, take)
 
 
 @dataclass(frozen=True)
@@ -178,45 +180,15 @@ def chain_noise_rows(sig: tuple, M: int) -> int:
     return M + 1 if sig[3] == "nucleus" else 1
 
 
-def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
-    """Gumbel(0, 1) noise from uniforms in [0, 1) (clamped to f32's
-    smallest normal, as ``jax.random.gumbel`` draws them)."""
-    return -torch.log(-torch.log(torch.clamp(
-        u, min=torch.finfo(torch.float32).tiny)))
-
-
 def draw_chain_noise(generators: Sequence[Optional[torch.Generator]],
                      sig: tuple, M: int, V: int,
                      device: Union[str, torch.device]) -> ChainNoise:
-    """One step's noise for B slots: ``[B, M]`` uniforms and ``[B, G, V]``
-    Gumbel noise.  Each slot with a generator draws ``M + G * V`` uniforms
-    from it; a slot without one (greedy, or not live this step) draws
-    nothing, so its stream does not advance, and gets zeros."""
+    """One step's noise for B slots (``verify.draw_uniforms``, ``M + G *
+    V`` per slot): ``[B, M]`` uniforms and ``[B, G, V]`` Gumbel noise."""
     G = chain_noise_rows(sig, M)
-    n = M + G * V
-    zeros = None
-    rows = []
-    for g in generators:
-        if g is None:
-            if zeros is None:
-                zeros = torch.zeros((n,), device=device)
-            rows.append(zeros)
-        else:
-            rows.append(torch.rand((n,), generator=g, device=device))
-    u = torch.stack(rows)
+    u = draw_uniforms(generators, M + G * V, device)
     return ChainNoise(u[:, :M],
                       gumbel_from_uniform(u[:, M:]).reshape(-1, G, V))
-
-
-def draw_first_token(generator: torch.Generator, last_logits: torch.Tensor,
-                     temperature: float) -> torch.Tensor:
-    """The first token after the prefill of a sampled request: a draw from
-    ``softmax(last_logits / temperature)`` ([V] f32) with V uniforms from
-    ``generator``.  No top-p or top-k here, as in the reference."""
-    u = torch.rand(last_logits.shape, generator=generator,
-                   device=last_logits.device)
-    return torch.argmax(last_logits / temperature
-                        + gumbel_from_uniform(u)).to(torch.int32)
 
 
 def _flat_chain(logits, draft_tokens, draft_len, noise):
@@ -334,22 +306,6 @@ def make_chain_accept_fn(sig: tuple) -> AcceptFn:
         return chain_sampling_accept(warped, draft_tokens, draft_len, noise)
 
     return rejection
-
-
-def check_request(ids: Sequence[int], gen: GenerationConfig,
-                  vocab_size: int) -> None:
-    """Raise ValueError for a request no engine can serve: an empty prompt,
-    a token id outside [0, vocab_size) (on CUDA the embedding's gather
-    would assert and poison the context for every later request), or a
-    sampled request whose top_k exceeds the vocabulary."""
-    if not ids:
-        raise ValueError("the prompt must be non-empty")
-    bad = [t for t in ids if not 0 <= t < vocab_size]
-    if bad:
-        raise ValueError(f"token id {bad[0]} outside [0, {vocab_size})")
-    if not gen.greedy and gen.top_k > vocab_size:
-        raise ValueError(f"top_k {gen.top_k} exceeds the vocabulary of "
-                         f"{vocab_size}")
 
 
 class FusedSamEngine:

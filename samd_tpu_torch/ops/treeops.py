@@ -21,55 +21,65 @@ import torch
 
 
 def tree_mask_from_parents(parents: torch.Tensor) -> torch.Tensor:
-    """[M] int -> [M, M] bool ancestor-closure mask (self included)."""
-    M = parents.shape[0]
-    eye = torch.eye(M, dtype=torch.bool, device=parents.device)
-    mask = torch.zeros((M, M), dtype=torch.bool, device=parents.device)
-    zeros = torch.zeros((M,), dtype=torch.bool, device=parents.device)
+    """[..., M] int -> [..., M, M] bool ancestor-closure mask (self
+    included)."""
+    M = parents.shape[-1]
+    lead = parents.shape[:-1]
+    dev = parents.device
+    eye = torch.eye(M, dtype=torch.bool, device=dev)
+    mask = torch.zeros(lead + (M, M), dtype=torch.bool, device=dev)
     for i in range(M):
-        p = parents[i]
-        parent_row = torch.where(p >= 0, mask[torch.clamp(p, min=0)], zeros)
-        mask[i] = parent_row | eye[i]
+        p = parents[..., i]
+        idx = torch.clamp(p, min=0).long()[..., None, None].expand(
+            lead + (1, M))
+        parent_row = torch.gather(mask, -2, idx)[..., 0, :]
+        mask[..., i, :] = (parent_row & (p >= 0)[..., None]) | eye[i]
     return mask
 
 
 def depths_from_parents(parents: torch.Tensor) -> torch.Tensor:
-    """[M] int -> [M] int32 node depths (root = 0).  Self-parent padding
-    nodes read their own (unwritten = 0) slot and get depth 1, as in the
-    reference."""
-    M = parents.shape[0]
-    depth = torch.zeros((M,), dtype=torch.int32, device=parents.device)
+    """[..., M] int -> [..., M] int32 node depths (root = 0).  Self-parent
+    padding nodes read their own (unwritten = 0) slot and get depth 1, as
+    in the reference."""
+    M = parents.shape[-1]
+    depth = torch.zeros(parents.shape, dtype=torch.int32,
+                        device=parents.device)
     for i in range(M):
-        p = parents[i]
-        depth[i] = torch.where(p >= 0, depth[torch.clamp(p, min=0)] + 1, 0)
+        p = parents[..., i]
+        d = torch.gather(depth, -1, torch.clamp(p, min=0).long()[..., None])
+        depth[..., i] = torch.where(p >= 0, d[..., 0] + 1, 0)
     return depth
 
 
 def paths_from_parents(parents: torch.Tensor, depths: torch.Tensor,
                        max_depth: int) -> torch.Tensor:
-    """[M] int -> [M, max_depth] int32: row i = node ids on the root→i path
-    (padded with -1).  Requires depth(i) < max_depth for real nodes."""
-    M = parents.shape[0]
+    """[..., M] int -> [..., M, max_depth] int32: row i = node ids on the
+    root→i path (padded with -1).  Requires depth(i) < max_depth for real
+    nodes."""
+    M = parents.shape[-1]
     parents = parents.long()
-    anc = torch.arange(M, device=parents.device)
+    anc = torch.arange(M, device=parents.device).expand(parents.shape)
     rows = []
-    for _ in range(max_depth):        # rows[k][i] = k-th ancestor of i
+    for _ in range(max_depth):        # rows[k][..., i] = k-th ancestor of i
         rows.append(anc)
-        anc = torch.where(anc >= 0, parents[torch.clamp(anc, min=0)], -1)
-    ancestors = torch.stack(rows)                                 # [D, M]
-    j = torch.arange(max_depth, device=parents.device)[None, :]   # [1, D]
-    dist = depths[:, None].long() - j                             # [M, D]
+        anc = torch.where(anc >= 0, torch.gather(
+            parents, -1, torch.clamp(anc, min=0)), -1)
+    ancestors = torch.stack(rows, dim=-1)                       # [..., M, D]
+    j = torch.arange(max_depth, device=parents.device)          # [D]
+    dist = depths[..., None].long() - j                         # [..., M, D]
     k = torch.clamp(dist, 0, max_depth - 1)
-    picked = torch.gather(ancestors.T, 1, k)                      # [M, D]
+    picked = torch.gather(ancestors, -1, k)                     # [..., M, D]
     return torch.where(dist >= 0, picked, -1).to(torch.int32)
 
 
 def unpack_draft(draft: torch.Tensor, max_depth: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """draft: [2, M] int (row 0 tokens, row 1 parents) →
-    (tokens [M], tree_mask [M, M], position_ids/depths [M], paths [M, D])."""
-    tokens, parents = draft[0], draft[1]
+    """draft: [..., 2, M] int (row 0 tokens, row 1 parents) →
+    (tokens [..., M], tree_mask [..., M, M], position_ids/depths [..., M],
+    paths [..., M, D]).  A leading slot axis unpacks a batch's drafts in
+    one pass."""
+    tokens, parents = draft[..., 0, :], draft[..., 1, :]
     mask = tree_mask_from_parents(parents)
     depths = depths_from_parents(parents)
     paths = paths_from_parents(parents, depths, max_depth)

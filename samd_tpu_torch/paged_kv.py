@@ -10,9 +10,12 @@ An int8 pool carries one f32 scale per (page, KV head, row),
 ``[L, n_pages + 1, KH, page]``; the reference's singleton scale axis
 served its TPU DMA only.  Writes update the pool in place.
 
-The reference's v1 gather path (``gather_request``, ``scatter_block``,
-``paged_forward``, used by ``batching.py``) and ``paged_compact_block``
-(tree drafts) come with ROADMAP queue 1 items 12 and 13.
+The reference's ``paged_forward`` and ``scatter_block_t`` (used by its
+``batching.py``) are this module's ``paged_write_block`` and the paged mode
+of ``models.llama.forward``, which ``batching.PagedBatchedSamdEngine``
+runs; its v1 gather path (``gather_request``, ``scatter_block``) has no
+caller, and ``paged_compact_block`` (the fused tree engines) comes with
+ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Serving front end: a thread-safe scheduler and an HTTP API over the
 port's batched engines (counterpart of ``samd_tpu/server.py``).
 
-The batched engines already do continuous batching: ``run()`` admits from
+The batched engines (the fused ones and ``batching.BatchedSamdEngine``,
+``--engine batched``) already do continuous batching: ``run()`` admits from
 ``engine.queue`` between segments and retires finished slots as it goes.
 So serving needs (a) a thread-safe way to submit and (b) one driver thread
 that owns the engine.  The driver thread does every piece of torch device
@@ -33,7 +34,8 @@ over HTTP, with the error), never dropped.
     python -m samd_tpu_torch.server --random-model --tiny --cpu
 
 serves a tiny random model on the CPU; without ``--cpu`` the engine runs on
-the CUDA card and raises if there is none.
+the CUDA card and raises if there is none.  ``--engine batched`` serves the
+host-automaton engine, and ``--sam corpus.npz`` adds a static corpus SAM.
 """
 
 from __future__ import annotations
@@ -425,15 +427,20 @@ def serve(engine, *, host: str = "127.0.0.1", port: int = 8089,
 
 # engines of the reference's server that the port does not have yet, with
 # the ROADMAP queue 1 item that ports each
-_NOT_PORTED = {"batched": 12, "fused_hybrid_batched": 13,
-               "paged_fused_hybrid": 13, "eagle2_hybrid_batched": 13}
+_NOT_PORTED = {"fused_hybrid_batched": 13, "paged_fused_hybrid": 13,
+               "eagle2_hybrid_batched": 13}
 
 
 def build_server_engine(args):
     """A batched serving engine from the command line's arguments:
     ``--random-model`` (llama_1b, or with ``--tiny`` a tiny config of 256
     tokens, random weights from a seeded ``torch.Generator``), optional
-    int8/fp8/int4 weights, on the card or with ``--cpu`` on the CPU."""
+    int8/fp8/int4 weights, on the card or with ``--cpu`` on the CPU.
+    ``--engine batched`` serves ``batching.BatchedSamdEngine`` with the
+    ``sam_only`` host drafters; ``--sam FILE`` loads a static corpus SAM
+    (``sam.load_sam(FILE, topk=8)``), which the host drafters share through
+    one ``sam.SamCursor`` per request and whose text is the fused engines'
+    corpus."""
     import torch
 
     from .fused_sam import (BatchedFusedSamEngine, FusedSamConfig,
@@ -445,14 +452,15 @@ def build_server_engine(args):
         raise NotImplementedError(
             f"--engine {args.engine} is not ported yet (ROADMAP queue 1 "
             f"item {_NOT_PORTED[args.engine]})")
-    if getattr(args, "sam", None):
-        raise NotImplementedError(
-            "--sam (a static corpus automaton) is not ported yet (ROADMAP "
-            "queue 1 item 12)")
     if not args.random_model:
         raise NotImplementedError(
             "--model (checkpoint loading) is not ported yet (ROADMAP queue "
             "1 item 15); use --random-model")
+    static_sam = None
+    if getattr(args, "sam", None):
+        from .sam import load_sam
+
+        static_sam = load_sam(args.sam, topk=8)
     device = "cpu" if getattr(args, "cpu", False) else "cuda"
     cfg = tiny_config(vocab_size=256) if args.tiny else llama_1b()
     gen = torch.Generator(device=device)
@@ -463,14 +471,30 @@ def build_server_engine(args):
                   "int4": INT4}[args.quantize]
         params = quantize_llama_params(params, dtype=qdtype)
     eos = -1                          # random weights: no end token
-    # the batch-tuned block M = 16; steps_per_call sets admission latency
-    fs_cfg = FusedSamConfig(steps_per_call=16, n_predicts=15)
     kw = dict(batch_size=args.batch_size, max_cache_len=args.max_cache_len,
               eos_token_id=eos, device=device)
+    if args.engine == "batched":
+        from .batching import BatchedSamdEngine
+        from .config import SamdConfig
+        from .drafters import make_drafter
+        from .sam import SamCursor
+
+        scfg = SamdConfig(draft_source="sam_only")
+
+        def drafter():
+            return make_drafter(
+                scfg, cfg.vocab_size,
+                static_sam=None if static_sam is None
+                else SamCursor(static_sam))
+        return BatchedSamdEngine(cfg, params, scfg, drafter, **kw)
+    corpus = static_sam.text if static_sam is not None else None
+    # the batch-tuned block M = 16; steps_per_call sets admission latency
+    fs_cfg = FusedSamConfig(steps_per_call=16, n_predicts=15)
     if args.engine == "paged_fused_sam":
-        return PagedBatchedFusedSamEngine(cfg, params, fs_cfg, **kw)
+        return PagedBatchedFusedSamEngine(cfg, params, fs_cfg, corpus=corpus,
+                                          **kw)
     return BatchedFusedSamEngine(
-        cfg, params, fs_cfg,
+        cfg, params, fs_cfg, corpus=corpus,
         inline_prefill=getattr(args, "inline_prefill", False), **kw)
 
 
@@ -485,11 +509,12 @@ def main(argv=None):
                    help="with --random-model: a tiny config (smoke tests)")
     p.add_argument("--engine", default="fused_sam_batched",
                    choices=["fused_sam_batched", "paged_fused_sam",
-                            *_NOT_PORTED])
+                            "batched", *_NOT_PORTED])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--quantize", choices=["int8", "fp8", "int4"])
     p.add_argument("--max-cache-len", type=int, default=1024)
-    p.add_argument("--sam", help="static corpus SAM .npz (not ported yet)")
+    p.add_argument("--sam", help="static corpus SAM .npz (sam.save_sam's "
+                   "format, either package's)")
     p.add_argument("--inline-prefill", action="store_true",
                    help="greedy prompts stream through the decode steps "
                         "as forced-accept chains (fused_sam_batched)")

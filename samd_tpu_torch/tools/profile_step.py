@@ -1,4 +1,4 @@
-"""Where a fused-SAM decode step's time goes on one GPU.
+"""Where a decode step's time goes on one GPU.
 
     python3 -m samd_tpu_torch.tools.profile_step [--model llama_1b]
         [--new-tokens 128]
@@ -17,6 +17,13 @@ serving, ``PagedBatchedFusedSamEngine`` at B = 12, M = 16, 16 steps per
 segment, 52 int8 pages of 128 over 1024 slots, twelve random prompts of
 40-128 tokens with 128 new tokens each; the first segment (16 steps, after
 the twelve prefills) is the warm-up, the second is profiled.
+``--model llama_7b_int4_tree``: the same single-stream llama_7b (int4
+weights, int8 KV, 1024 slots) through the host-automaton
+``engine.SamdEngine`` with ``SamdConfig(draft_source="sam_hybrid",
+max_predicts=60)`` and the Token-Recycle tree drafter: one warm-up
+request, then the same repetitive 96-token prompt under the profiler
+(chain drafts from the request's SAM, trees of 60 nodes where it finds no
+match).
 
 Prints one JSON line: per decode step the wall time, the device-busy time
 (union of the kernels' intervals), the device's idle share and the kernel
@@ -71,6 +78,8 @@ def build(model: str):
                 init_params(cfg, gen_w, scale=0.02, device="cuda"),
                 FusedSamConfig(), 2048)
     paged = model == "llama_7b_int4_paged"
+    if model == "llama_7b_int4_tree":
+        model = "llama_7b_int4"
     cfg = llama_7b() if paged else dataclasses.replace(llama_7b(),
                                                        kv_quant=True)
     base = init_quantized_llama_params(cfg, gen_w, scale=0.02,
@@ -166,7 +175,8 @@ def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("llama_1b", "llama_7b_int4",
-                                        "llama_7b_int4_paged"),
+                                        "llama_7b_int4_paged",
+                                        "llama_7b_int4_tree"),
                     default="llama_1b")
     ap.add_argument("--new-tokens", type=int, default=128)
     ap.add_argument("--top", type=int, default=12)
@@ -194,13 +204,28 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "model": label,
                           **profile_paged(cfg, params, fc, S, args.top)}))
         return 0
-    eng = FusedSamEngine(cfg, params, fc, max_cache_len=S, eos_token_id=-1)
+    if args.model == "llama_7b_int4_tree":
+        from samd_tpu_torch.config import SamdConfig
+        from samd_tpu_torch.drafters import make_drafter
+        from samd_tpu_torch.engine import SamdEngine
+
+        label = ("llama_7b int4 kernel, int8 KV, flash, SamdEngine "
+                 "sam_hybrid + Token Recycle, M = 60")
+        scfg = SamdConfig(draft_source="sam_hybrid", max_predicts=60)
+        eng = SamdEngine(cfg, params, scfg,
+                         make_drafter(scfg, cfg.vocab_size), max_cache_len=S,
+                         eos_token_id=-1)
+    else:
+        eng = FusedSamEngine(cfg, params, fc, max_cache_len=S,
+                             eos_token_id=-1)
     rng = np.random.default_rng(0)
     prompt = rng.integers(3, cfg.vocab_size, size=8).tolist() * 12
     eng.generate(prompt, GenerationConfig(max_new_tokens=16))   # warm-up
     torch.cuda.synchronize()
 
     gen = GenerationConfig(max_new_tokens=args.new_tokens, max_cache_len=S)
+    stats0 = dict(getattr(eng, "stats", None).source_counts) \
+        if hasattr(eng, "stats") else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -212,6 +237,9 @@ def main(argv=None) -> int:
         "new_tokens": out.decode_tokens, "decode_steps": out.decode_steps,
         "note": "per-step figures divide the whole request (prefill "
                 "included) by its decode steps",
+        **({} if stats0 is None else {"draft_steps_by_source": {
+            k: v - stats0.get(k, 0)
+            for k, v in eng.stats.source_counts.items()}}),
         **summarize(prof, wall_us, out.decode_steps, args.top)}))
     return 0
 

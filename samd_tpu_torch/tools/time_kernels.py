@@ -105,10 +105,12 @@ PAGED = (
 )
 
 
-def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False):
+def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False,
+                   parents=None):
     """q, k, v, mask, kv_limit of the verify attention on the card: normal
-    values from ``seed``, a random tree block (or the prefill mask) at
-    ``cache_len``."""
+    values from ``seed``, a tree block at ``cache_len`` (random, or the
+    tree of ``parents``, self-parent padding allowed), or the prefill
+    mask."""
     import numpy as np
     import torch
 
@@ -125,8 +127,9 @@ def attention_case(T, NH, KH, D, S, cache_len, dtype, seed, prefill=False):
     if prefill:
         mask = prefill_mask(1, T, S, "cuda").contiguous()
     else:
-        rng = np.random.default_rng(seed)
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        if parents is None:
+            rng = np.random.default_rng(seed)
+            parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
         tree = tree_mask_from_parents(torch.tensor(parents)).cuda()
         mask = block_decode_mask(tree, cache_len, S).contiguous()
     kv_limit = torch.tensor(cache_len + T, dtype=torch.int32, device="cuda")
@@ -151,10 +154,12 @@ def library_attention(q, k, v, mask, kv_limit):
     return lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
 
 
-def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed):
+def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed,
+               parents=None):
     """A page pool on the card with shuffled tables: slot b holds
     ``committed[b]`` tokens plus its block of T (None: an inactive slot,
-    table all -1, kv_limit T), a random tree block mask per slot.  Returns
+    table all -1, kv_limit T), a random tree block mask per slot (or the
+    tree of ``parents`` in every slot).  Returns
     (the arguments of paged_block_attention, the active slots, the pages in
     no table plus the scratch page)."""
     import numpy as np
@@ -193,8 +198,9 @@ def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed):
             at += npg
     wins = []
     for b in range(B):
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
-        tree = tree_mask_from_parents(torch.tensor(parents)).cuda()
+        par = parents if parents is not None else \
+            [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        tree = tree_mask_from_parents(torch.tensor(par)).cuda()
         wins.append(boundary_mask_window(tree, committed[b] or 0, page))
     args = (normal(B, T, NH, D).to(dtype), kp, vp,
             torch.from_numpy(tables).cuda(), torch.stack(wins).contiguous(),

@@ -29,7 +29,9 @@ def test_port_files_found():
     assert len(PORT_FILES) > 10
     for rel in ("fused_sam.py", "ops/quant.py", "ops/int4_matmul.py",
                 "cache.py", "tools/profile_step.py", "server.py",
-                "ops/ngram_index.py"):
+                "ops/ngram_index.py", "batching.py", "interleave.py",
+                "sam/automaton.py", "sam/native.py",
+                "drafters/sam_drafter.py", "drafters/token_recycle.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 

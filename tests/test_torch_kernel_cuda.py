@@ -36,7 +36,7 @@ def cuda_device():
 
 
 def make_case(T, NH, KH, D, S, cache_len, dtype, device, seed=0,
-              prefill=False):
+              prefill=False, parents=None):
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -47,7 +47,8 @@ def make_case(T, NH, KH, D, S, cache_len, dtype, device, seed=0,
     if prefill:
         mask = prefill_mask(1, T, S, device).contiguous()
     else:
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        if parents is None:
+            parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
         tree = tree_mask_from_parents(torch.tensor(parents)).to(device)
         mask = block_decode_mask(tree, cache_len, S).contiguous()
     lim = torch.tensor(cache_len + T, dtype=torch.int32, device=device)
@@ -181,7 +182,7 @@ K3_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R", [1, 13, 16, 128, 192, 200, 256])
+@pytest.mark.parametrize("R", [1, 13, 16, 60, 128, 192, 200, 256])
 @pytest.mark.parametrize("IN,OUT", K3_SHAPES)
 def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R, xdt):
     """Within ``ops.int4_matmul.kernel_tolerance`` of the plain version in
@@ -237,10 +238,11 @@ def test_int4_kernel_row_invariant_across_r(cuda_device, IN, OUT):
 
 
 def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, device,
-               seed=0):
+               seed=0, parents=None):
     """A page pool with shuffled tables: slot b holds ``committed[b]``
     tokens plus its block of T (None: an inactive slot, table all -1,
-    kv_limit T); a random tree block mask per slot.  Returns (args of
+    kv_limit T); a random tree block mask per slot, or the tree of
+    ``parents`` in every slot.  Returns (args of
     paged_block_attention, the active slots, the pages in no table)."""
     rng = np.random.default_rng(seed)
     P = -(-1024 // page) + -(-T // page) + 1      # table width, with pad
@@ -270,8 +272,9 @@ def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, device,
         at += npg
     wins = []
     for b in range(B):
-        parents = [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
-        tree = tree_mask_from_parents(torch.tensor(parents)).to(device)
+        par = parents if parents is not None else \
+            [-1] + [int(rng.integers(0, i)) for i in range(1, T)]
+        tree = tree_mask_from_parents(torch.tensor(par)).to(device)
         wins.append(boundary_mask_window(tree, committed[b] or 0, page))
     q = normal(B, T, NH, D).to(dtype)
     args = (q, kp, vp, torch.from_numpy(tables).to(device),
@@ -351,3 +354,113 @@ def test_paged_kernel_matches_plain_and_verify_kernel(cuda_device, dtype,
         dense = flash_block_attention(q[b:b + 1].contiguous(), kd, vd, mask,
                                       lims[b], *sc)
         assert torch.equal(got[b], dense[0]), f"slot {b}"
+
+
+# ----------------------------------------------------------------------
+# the host engines' tree masks (M = 60) and their K3 block of 60 rows
+# ----------------------------------------------------------------------
+
+def tree_parents(name):
+    """The Token-Recycle topology (the first 60 nodes of
+    rank_probability_tree(61)), or a corpus SAM's frequency tree of 60
+    nodes (8 deep), self-parent padded as the engines pack it."""
+    from samd_tpu_torch.drafters import rank_probability_tree
+    from samd_tpu_torch.ops.treeops import pack_draft_host
+    from samd_tpu_torch.sam import build_corpus_sam
+
+    if name == "token_recycle":
+        return rank_probability_tree(61)[:60].tolist()
+    rng = np.random.default_rng(0)
+    sam = build_corpus_sam([rng.integers(0, 6, 4000).tolist()], eos_token=0,
+                           topk=8)
+    sam.feed(rng.integers(0, 6, 2).tolist(), grow=False)
+    toks, par = sam.tree_draft(sam.cur_state, 1, 60, 8)
+    return pack_draft_host(toks, par, 60)[1].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tree", ["token_recycle", "sam_frequency"])
+def test_tree_mask_kernel_matches_plain(cuda_device, tree, int8, dtype):
+    """The verify kernel on the host engines' tree masks: llama_1b T = 60
+    (k/v of q's type), llama_7b KH 32, D 128, T = 60 in int8-KV mode:
+    within ``kernel_tolerance``, two runs bitwise equal, poison past
+    kv_limit changes nothing."""
+    T, NH, KH, D, S, cl = ((60, 32, 32, 128, 1024, 700) if int8
+                           else (60, 32, 4, 64, 2048, 700))
+    q, k, v, mask, lim = make_case(T, NH, KH, D, S, cl,
+                                   torch.float32 if int8 else dtype,
+                                   cuda_device, seed=5,
+                                   parents=tree_parents(tree))
+    q = q.to(dtype)
+    if int8:
+        (k, ks), (v, vs) = (quantize_kv_block(t) for t in (k, v))
+        args = [q, k, v, mask, lim, ks, vs]
+    else:
+        args = [q, k, v, mask, lim]
+    got = flash_block_attention(*args)
+    again = flash_block_attention(*args)
+    ref = flash_block_attention_ref(*args)
+    args[1][:, :, cl + T:] = 127 if int8 else 1e30
+    args[2][:, :, cl + T:] = -127 if int8 else -1e30
+    if int8:
+        args[5][:, :, cl + T:] = 1e30
+        args[6][:, :, cl + T:] = 1e30
+    poisoned = flash_block_attention(*args)
+    torch.cuda.synchronize()
+    excess = ((got.float() - ref.float()).abs() - kernel_tolerance(ref))
+    assert excess.max().item() <= 0, excess.max().item()
+    assert torch.equal(got, again)
+    assert torch.equal(got, poisoned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", ["token_recycle", "sam_frequency"])
+def test_tree_mask_paged_kernel(cuda_device, tree):
+    """K4 over bf16 pages at llama_1b B = 4 with the tree's boundary
+    windows: within ``kernel_tolerance``, two runs bitwise equal, each
+    active slot bitwise equal to the verify kernel on its gathered KV,
+    poison changes nothing."""
+    T, page = 60, 128
+    args, active, spare = paged_case(4, T, 32, 4, 64, page,
+                                     [300, None, 64, 900], torch.bfloat16,
+                                     False, cuda_device, seed=7,
+                                     parents=tree_parents(tree))
+    got = paged_block_attention(*args)
+    again = paged_block_attention(*args)
+    poisoned = paged_block_attention(*poison_pages(args, active, spare,
+                                                   page))
+    torch.cuda.synchronize()
+    ref = paged_block_attention_ref(*args)[active]
+    excess = (got[active].float() - ref.float()).abs() - kernel_tolerance(ref)
+    assert excess.max().item() <= 0, excess.max().item()
+    assert torch.equal(got, again)
+    assert torch.equal(got[active], poisoned[active])
+    q, kp, vp, tables, win, lims, _, _ = args
+    for b in active:
+        tb = tables[b:b + 1]
+        kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+        mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                              kd.shape[2])
+        dense = flash_block_attention(q[b:b + 1].contiguous(), kd, vd, mask,
+                                      lims[b])
+        assert torch.equal(got[b], dense[0]), f"slot {b}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("IN,OUT", K3_SHAPES)
+def test_int4_kernel_r60_rows_equal_r16(cuda_device, IN, OUT):
+    """The host engines' 60-row block: each 16-row block of an R = 60 call
+    (the last one ragged inside its 64-row tile) is the same bits as those
+    rows at R = 16."""
+    x, packed, scale = int4_case(2, IN, OUT, 60, cuda_device, seed=4)
+    layer = 1
+    if OUT == 32000:
+        packed, scale, layer = packed[1], scale[1], None
+    for out_dtype in (torch.bfloat16, torch.float32):
+        big = k3.int4_matmul(x, packed, scale, layer, out_dtype=out_dtype)
+        for a in (0, 16, 32, 44):
+            small = k3.int4_matmul(x[a:a + 16].contiguous(), packed, scale,
+                                   layer, out_dtype=out_dtype)
+            assert torch.equal(small, big[a:a + 16]), (out_dtype, a)

@@ -5,8 +5,11 @@ submission joins the running batch; ``/generate``, ``/health``, SSE
 streaming and the 400 replies over real HTTP on port 0 (malformed bodies
 never reach the engine, and the next request is served); sampled requests
 are deterministic per seed, point-mass ones equal the greedy output, and a
-conflicting signature is rejected; a failed batch reaches every waiter; ``build_server_engine`` builds the two
-ported engines and names the ROADMAP item of the others."""
+conflicting signature is rejected; a failed batch reaches every waiter;
+``build_server_engine`` builds the ported engines (the host-automaton
+``--engine batched`` and a static corpus SAM from ``--sam`` among them,
+served over HTTP equal to the engine called directly) and names the
+ROADMAP item of the others."""
 
 import argparse
 import json
@@ -426,12 +429,81 @@ def test_build_server_engine_ported(name, quant):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="batched"), "item 12"),
     (dict(engine="fused_hybrid_batched"), "item 13"),
     (dict(engine="paged_fused_hybrid"), "item 13"),
     (dict(engine="eagle2_hybrid_batched"), "item 13"),
-    (dict(sam="corpus.npz"), "item 12"),
     (dict(random_model=False, model="ckpt"), "item 15")])
 def test_build_server_engine_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         build_server_engine(args_for(**kw))
+
+
+SAM_PROMPTS = [[5, 6, 7, 8, 9], list(range(20, 34)), [9, 10, 11],
+               list(range(100, 120))]
+
+
+@pytest.fixture(scope="module")
+def sam_file(tmp_path_factory):
+    """The host-automaton server engine's greedy outputs for SAM_PROMPTS
+    without a corpus, and a static corpus SAM of those outputs saved in
+    the shared format."""
+    from samd_tpu_torch.sam import build_corpus_sam, save_sam
+
+    eng = build_server_engine(args_for(engine="batched"))
+    gen = GenerationConfig(max_new_tokens=12, max_cache_len=256)
+    rids = [eng.add_request(p, gen) for p in SAM_PROMPTS]
+    res = eng.run()
+    outs = [res[r].output_ids for r in rids]
+    path = tmp_path_factory.mktemp("sam") / "corpus.npz"
+    save_sam(build_corpus_sam(outs, eos_token=0, topk=8), path)
+    return path, outs
+
+
+def test_batched_host_engine_with_sam_over_http(sam_file):
+    """``--engine batched --sam FILE``: the host-automaton engine with the
+    static SAM behind one cursor per request drafts from the corpus and
+    still gives the greedy outputs; four greedy requests over HTTP each
+    equal the same engine called directly."""
+    from samd_tpu_torch.batching import BatchedSamdEngine
+
+    path, greedy = sam_file
+    args = args_for(engine="batched", sam=str(path))
+    direct = build_server_engine(args)
+    assert type(direct) is BatchedSamdEngine
+    assert direct.device.type == "cpu"
+    gen = GenerationConfig(max_new_tokens=12, max_cache_len=256)
+    rids = [direct.add_request(p, gen) for p in SAM_PROMPTS]
+    res = direct.run()
+    want = [res[r].output_ids for r in rids]
+    assert want == greedy
+    assert direct.stats.source_counts.get("sam_static", 0) > 0
+    server, sched = serve(build_server_engine(args), port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        outs = [None] * len(SAM_PROMPTS)
+
+        def client(i):
+            outs[i] = post(url, {"input_ids": SAM_PROMPTS[i],
+                                 "max_new_tokens": 12})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(SAM_PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert [o["output_ids"] for o in outs] == want
+    finally:
+        server.shutdown()
+        sched.close()
+
+
+def test_sam_file_is_the_fused_corpus(sam_file):
+    from samd_tpu_torch.sam import load_sam
+
+    path, _ = sam_file
+    text = load_sam(path).text
+    eng = build_server_engine(args_for(engine="fused_sam_batched",
+                                       sam=str(path)))
+    assert int(eng.corpus_len) == len(text)
+    assert eng.corpus[:len(text)].tolist() == text
