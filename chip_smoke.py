@@ -104,26 +104,34 @@ Phases, in order; any failure exits non-zero:
      compared with the paged engine.
   9. llama_7b host path (after 8): phase 5's weights and int8 KV through
      the host-automaton SamdEngine at max_predicts 60 over 1024 slots:
-     (a) sam_hybrid with the Token-Recycle tree drafter, three requests of
-     128 new tokens; (b) sam_only with a static corpus SAM built by the
-     native engine over random tokens and request a's oracle output, saved
-     and loaded back (every array equal); each request against
-     ArBaseline(block_size=60): bitwise equal, or, where a tree draft
-     verified the first differing token or an earlier one, a near-tie:
-     |logit gap| <= 0.08 between the two tokens in the oracle's own logits
-     for that token (its canonical-column computation, recorded as it
-     runs; the gap by a plain prefill over the shared prefix is printed
-     beside it); anything else fails; int4 launches 225 per forward, int8-KV verify
-     launches 32 per forward of T <= 128; (c) one sampled request per tree
+     (a) sam_hybrid with the Token-Recycle tree drafter, its cache warm
+     (every token holds a harvest, so every draft is a 60-node tree; request
+     a's oracle path harvested), three requests of 128 new tokens; (b)
+     sam_only with a static corpus SAM built by the native engine over
+     random tokens and request a's oracle output, saved and loaded back
+     (every array equal); each request against ArBaseline(block_size=60) by
+     the near-tie judge (``judge``): the engine's own logits for every token
+     it emits are bitwise equal to the oracle's after chain drafts only and,
+     once a tree draft was verified, drift from them (range over the
+     oracle's top 16 tokens) no more than a plain prefill does at 64
+     positions of the oracle's path; where the tokens first differ, a tree
+     draft came first and the two tokens are within 0.08 in the oracle's
+     own logits, a gap that neither the plain prefill nor the engine moves
+     beyond that bound; anything else fails; node counts per step printed;
+     int4 launches 225 per forward, int8-KV verify launches 32 per forward
+     of T <= 128; three planted tree faults (rows that attend every earlier
+     column, that skip their parent, or that take their column as
+     position) must each be rejected; (c) one sampled request per tree
      accept mode (rejection at temperature 0.8 with top_k 50, typical,
      nucleus with top_p 0.9), each twice with its seed, equal; point-mass
      requests (top_k 1, temperature 1e-5) through both drafters equal to
-     the same engine's greedy run, and held to the oracle by the same rule;
+     the same engine's greedy run, which the judge holds to the oracle;
  10. llama_1b host batching (after 7): BatchedSamdEngine (dense) and
      PagedBatchedSamdEngine (bf16 pages of 128) at B = 4, M = 60, sam_only
      and sam_hybrid over a static corpus of two requests' outputs, six
-     requests of 64 new tokens, each against the same engine driven by the
-     single-token drafter by the rule of phase 9; every page back; K4
+     requests of 64 new tokens (the Token-Recycle cache warm as in phase 9),
+     each against the same engine driven by the single-token drafter by the
+     judge of phase 9 (its bound measured on that oracle); every page back; K4
      launches 22 per step; InterleavedSamdEngine with 3 lanes bitwise equal
      to 3 sequential SamdEngine runs; the server with --engine batched and
      --sam FILE over 127.0.0.1 serving four greedy requests, each equal to
@@ -1770,15 +1778,15 @@ def classify_dense_paged(card, cfg, params, dense, paged) -> None:
 
 class DraftLog:
     """A host drafter that records, for each draft it hands out, whether
-    it is a chain (parents[i] == i - 1 over its real nodes); everything
-    else is the wrapped drafter's."""
+    it is a chain (parents[i] == i - 1 over its real nodes) and its node
+    count; everything else is the wrapped drafter's."""
 
     def __init__(self, inner):
         self.inner = inner
-        self.chains = []
+        self.chains, self.nodes = [], []
 
     def reset(self):
-        self.chains = []
+        self.chains, self.nodes = [], []
         self.inner.reset()
 
     def lookup(self, start_token):
@@ -1786,15 +1794,46 @@ class DraftLog:
         n = d.num_nodes
         self.chains.append(bool((d.packed[1, :n]
                                  == np.arange(-1, n - 1)).all()))
+        self.nodes.append(n)
         return d
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
 
+def run_lengths(xs) -> str:
+    """``[60, 60, 60, 1]`` as ``"60x3 1"``: node counts per step."""
+    out, i = [], 0
+    while i < len(xs):
+        j = i
+        while j < len(xs) and xs[j] == xs[i]:
+            j += 1
+        out.append(f"{xs[i]}x{j - i}" if j - i > 1 else str(xs[i]))
+        i = j
+    return " ".join(out)
+
+
+def warm_token_recycle(tr, vocab, rng, trajectories=()) -> None:
+    """Fill a Token-Recycle cache as a long-served engine holds it: every
+    token has a harvest (seeded random top-8, so every tree has its full
+    node count), and each ``(tokens, oracle rows)`` trajectory carries the
+    oracle's own top-8 after each of its tokens, as a prior run of the
+    same request leaves it (its trees follow the request's path)."""
+    import torch
+
+    from samd_tpu_torch.engine import HARVEST_TOPK, harvest_topk
+
+    tr.harvest(np.arange(vocab), rng.integers(3, vocab,
+                                              size=(vocab, HARVEST_TOPK)))
+    for tokens, rows in trajectories:
+        topk = harvest_topk(torch.stack(rows), HARVEST_TOPK)
+        tr.harvest(np.asarray(tokens[:len(rows)]), topk.cpu().numpy())
+
+
 def plain_next_logits(cfg, params, prefix):
     """The logits after ``prefix`` from one plain-attention prefill over
-    it (canonical columns): the near-tie rule's judge."""
+    it (canonical columns): a computation independent of the verify
+    kernel's."""
     import torch
 
     from samd_tpu_torch.cache import init_kv_cache
@@ -1810,25 +1849,36 @@ def plain_next_logits(cfg, params, prefix):
     return logits[0, -1].float()
 
 
-class OracleRows:
-    """Records, while active, each decode step's logits row 0 (the one real
-    token of a single-token-drafter oracle's block) from the greedy
-    accept of the engine modules: the oracle's own canonical-column
-    logits for every token it emits.  ``steps`` holds one [V] (single
-    stream) or [B, V] (batched) tensor per step, on the card."""
+class AcceptRows:
+    """Records, while active, the logits rows each greedy accept of the
+    engine modules read.  ``oracle``: row 0, the one real token of a
+    single-token-drafter oracle's block (its canonical-column logits for
+    every token it emits).  ``path``: the rows of the accepted path's
+    nodes, whose argmaxes are the tokens the engine emits.  ``steps``
+    holds one tensor per step ([V] / [D, V] single stream, [B, V] /
+    [B, D, V] batched), on the card."""
 
-    def __init__(self):
+    def __init__(self, kind: str):
+        self.kind = kind
         self.steps = []
 
     def __enter__(self):
+        import torch
+
         import samd_tpu_torch.batching as batching
         import samd_tpu_torch.engine as engine
 
         self._saved = [(m, m.greedy_accept) for m in (engine, batching)]
         for mod, orig in self._saved:
             def rec(logits, tokens, paths, orig=orig):
-                self.steps.append(logits[..., 0, :].float().clone())
-                return orig(logits, tokens, paths)
+                res = orig(logits, tokens, paths)
+                if self.kind == "oracle":
+                    self.steps.append(logits[..., 0, :].float().clone())
+                else:
+                    idx = res.path_nodes.clamp(min=0).long()
+                    self.steps.append(torch.take_along_dim(
+                        logits, idx[..., None], dim=-2).float())
+                return res
             mod.greedy_accept = rec
         return self
 
@@ -1837,9 +1887,9 @@ class OracleRows:
             mod.greedy_accept = orig
 
 
-def batched_rows(engine, rows: OracleRows) -> dict:
-    """Wrap a batched oracle engine's step so that each request id maps to
-    its own rows of ``rows.steps`` (one per step it took, in order)."""
+def batched_rows(engine, rows: AcceptRows) -> dict:
+    """Wrap a batched engine's step so that each request id maps to its
+    own rows of ``rows.steps`` (one per step it took, in order)."""
     per_rid = {}
     orig = engine._dispatch
 
@@ -1853,48 +1903,139 @@ def batched_rows(engine, rows: OracleRows) -> dict:
     return per_rid
 
 
-def oracle_verdict(label, cfg, params, prompt, out, ref, chains,
-                   ref_rows) -> str:
-    """'equal', or the near-tie verdict of the first token where ``out``
-    leaves the oracle's ``ref``.  A divergence counts only when a tree
-    draft verified that token or an earlier one (tree rows attend their
-    ancestors at other columns, so their bits may differ from the chain
-    oracle's: docs/EXACTNESS.md) and the oracle's own logits for that token
-    (``ref_rows``, its canonical-column computation, one [V] row per step)
-    put the engine's token within evaluation/neartie.py's 0.08 of its
-    own; anything else fails.  The gap by one plain prefill over the
-    shared prefix, phase 7's judge, is printed beside it: at llama_7b that
-    third computation itself moves logits by ~0.1."""
+TOP_SPREAD = 16     # the oracle's top tokens over which a drift is taken
+
+
+def drift(rows, oracle_rows):
+    """[N] drifts of ``rows`` from ``oracle_rows`` (both [N, V]): the range
+    over each oracle row's top 16 tokens of (row - oracle row), how far
+    the gaps between its likely tokens moved."""
+    import torch
+
+    top = oracle_rows.topk(TOP_SPREAD, dim=-1).indices
+    d = torch.gather(rows - oracle_rows, -1, top)
+    return (d.amax(-1) - d.amin(-1)).cpu().numpy()
+
+
+def noise_spread(cfg, params, cases, per_case: int = 32) -> np.ndarray:
+    """Drifts of one plain prefill from the oracle's own logits at
+    ``per_case`` positions of each ``(output ids, prompt length, oracle
+    rows)``: how far two correct computations of one next-token
+    distribution move its gaps.  Their maximum bounds the near-tie rule."""
+    import torch
+
+    plain, ref = [], []
+    for ids, plen, rows in cases:
+        for g in np.linspace(1, len(rows) - 1, per_case).astype(int):
+            plain.append(plain_next_logits(cfg, params, ids[:plen + g]))
+            ref.append(rows[g - 1])
+    return drift(torch.stack(plain), torch.stack(ref))
+
+
+def emitted_rows(prompt, out, chains, upto):
+    """For the engine's generated tokens 1 .. ``upto`` - 1: (generated
+    index, step of the row that chose it, that row's place on the step's
+    accepted path, whether a tree draft came at or before that step: from
+    then on the cache holds keys and values that tree rows computed, so
+    the bits may differ from the oracle's).  Path token
+    q >= 1 of a step comes from path node q - 1's row; the step's first
+    token is the previous step's bonus, from its last path node's row."""
+    lens, out_rows, cum = out.accept_length_per_step, [], 0
+    for s, n in enumerate(lens):
+        for q in range(n):
+            g = cum + q
+            if 1 <= g < upto:
+                step, k = (s, q - 1) if q else (s - 1, lens[s - 1] - 1)
+                out_rows.append((g, step, k, not all(chains[:step + 1])))
+        cum += n
+    return out_rows
+
+
+def judge(prompt, out, ref, chains, ref_rows, cfg, params, spread,
+          path_rows):
+    """(verdict, None) when the engine's run ``out`` agrees with the
+    oracle's ``ref`` by the near-tie rule, else (None, the reason).  The
+    engine's own logits for every token it emits (``path_rows``, the
+    accepted path's rows per step) are held to the oracle's (``ref_rows``,
+    one [V] row per step): on chain drafts bitwise equal; on tree drafts
+    (tree rows attend their ancestors at other columns, so their bits may
+    differ from the chain oracle's: docs/EXACTNESS.md) within ``spread``,
+    the most a plain prefill drifts from the oracle (``noise_spread``).
+    Where the tokens first differ, a tree draft must have verified that
+    token or an earlier one and, with a = the engine's token and b = the
+    oracle's, the oracle's own logits put a within
+    evaluation/neartie.py's 0.08 of b, and neither a plain prefill over
+    the shared prefix nor the engine's logits move that gap by more than
+    ``spread``."""
+    import torch
+
     a, b = out.output_ids, ref.output_ids
     j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None and len(a) != len(b):
+        return None, "output lengths differ"
+    P = len(prompt)
+    upto = (len(a) if j is None else j + 1) - P
+    emitted = emitted_rows(prompt, out, chains, min(upto, len(ref_rows) + 1))
+    for g, step, k, _ in emitted:
+        if int(path_rows[step][k].argmax()) != a[P + g]:
+            return None, (f"the recorded engine row for token {P + g} does "
+                          "not choose the engine's token")
+    tree = [(g, st, k) for g, st, k, t in emitted if t]
+    chain = [(g, st, k) for g, st, k, t in emitted if not t]
+    for g, st, k in chain:
+        if not torch.equal(path_rows[st][k], ref_rows[g - 1]):
+            return None, (f"the engine's logits for token {P + g}, after "
+                          "chain drafts only, differ from the oracle's")
+    drifts = (drift(torch.stack([path_rows[st][k] for _, st, k in tree]),
+                    torch.stack([ref_rows[g - 1] for g, _, _ in tree]))
+              if tree else np.zeros(0))
+    tally = (f"{len(chain)} tokens after chain drafts only with logits "
+             f"bitwise equal to the oracle's, {len(tree)} after a tree "
+             f"draft drifting "
+             + (f"{np.median(drifts):.5f} median, "
+                f"{np.quantile(drifts, 0.9):.5f} 90th percentile, "
+                f"{drifts.max():.5f} max" if tree else "-")
+             + f" (bound {spread:.5f})")
+    if tree and drifts.max() > spread:
+        g = tree[int(drifts.argmax())][0]
+        return None, (f"{tally}: the engine's logits for token {P + g} "
+                      "drift beyond the bound")
     if j is None:
-        fail_if(len(a) != len(b), f"{label}: output lengths differ")
-        return "equal"
-    g, cum, cause = j - len(prompt), 0, -1
-    for s, n in enumerate(out.accept_length_per_step):
-        if g < cum + n:
-            # the step's first token is the previous step's bonus
-            cause = s if g > cum else s - 1
-            break
-        cum += n
-    fail_if(cause < 0 or all(chains[:cause + 1]),
-            f"{label}: tokens differ from the oracle at {j} after chain "
-            f"drafts only (step {cause})")
+        return f"equal; {tally}", None
+    g = j - P
+    cause = next((st for gg, st, _, _ in emitted if gg == g), -1)
+    if cause < 0 or all(chains[:cause + 1]):
+        return None, (f"tokens differ from the oracle at {j} after chain "
+                      f"drafts only (step {cause})")
     row = ref_rows[g - 1]              # the oracle's step that emitted b[j]
-    fail_if(int(row.argmax()) != b[j], f"{label}: the recorded oracle row "
-            "does not choose the oracle's token")
+    if int(row.argmax()) != b[j]:
+        return None, "the recorded oracle row does not choose its token"
+    erow = next(path_rows[st][k] for gg, st, k, _ in emitted if gg == g)
     gap = float(row[a[j]] - row[b[j]])
     lg = plain_next_logits(cfg, params, a[:j])
     plain = float(lg[a[j]] - lg[b[j]])
-    fail_if(abs(gap) > 0.08, f"{label}: tokens differ from the oracle at "
-            f"{j} (engine {a[j]}, oracle {b[j]}) by a gap of {gap:.5f} in "
-            f"the oracle's own logits (plain prefill {plain:.5f}) > 0.08: "
-            "not a near-tie")
-    return (f"near-tie at token {j} (engine {a[j]}, oracle {b[j]}; logit "
-            f"gap {gap:.5f} in the oracle's own logits, within 0.08; "
-            f"{plain:.5f} by a plain prefill over the shared prefix; first "
-            f"tree draft at step {chains.index(False)}, the token's verify "
-            f"step {cause})")
+    eng = float(erow[a[j]] - erow[b[j]])
+    facts = (f"token {j} (engine {a[j]}, oracle {b[j]}): logit gap "
+             f"{gap:.5f} in the oracle's own logits, {plain:.5f} by a plain "
+             f"prefill over the shared prefix, {eng:.5f} in the engine's "
+             f"own; {tally}")
+    if abs(gap) > 0.08:
+        return None, f"not a near-tie at {facts}: |oracle gap| > 0.08"
+    if abs(plain - gap) > spread:
+        return None, (f"not a near-tie at {facts}: the plain prefill moves "
+                      "the gap by more than the bound")
+    if abs(eng - gap) > spread:
+        return None, (f"not a near-tie at {facts}: the engine's logits move "
+                      "the gap by more than the bound")
+    return (f"near-tie at {facts}; first tree draft at step "
+            f"{chains.index(False)}, the token's verify step {cause}"), None
+
+
+def oracle_verdict(label, *args) -> str:
+    """``judge``'s verdict; any other outcome fails the run."""
+    verdict, reason = judge(*args)
+    fail_if(verdict is None, f"{label}: {reason}")
+    return verdict
 
 
 def branching_copy(ids, prompt_len, rng, every=8):
@@ -1912,6 +2053,36 @@ def by_source(stats) -> str:
                      f"steps" for k, n in sorted(stats.source_counts.items()))
 
 
+def planted_fault(kind: str):
+    """A broken ``unpack_draft`` for the judge to catch: ``causal``, tree
+    rows attend every earlier column of the block (a chain's mask);
+    ``skip_parent``, rows at depth >= 2 do not attend their parent;
+    ``chain_positions``, nodes take their column as position, not their
+    depth."""
+    import torch
+
+    import samd_tpu_torch.engine as engine
+
+    real = engine.unpack_draft
+
+    def broken(draft, D):
+        tokens, mask, depths, paths = real(draft, D)
+        if kind == "causal":
+            mask = torch.tril(torch.ones_like(mask))
+        elif kind == "skip_parent":
+            mask = mask.clone()
+            for i, d in enumerate(depths.tolist()):
+                if d >= 2 and int(paths[i, d - 1]) != i:     # not padding
+                    mask[i, paths[i, d - 1]] = False
+        else:
+            depths = torch.arange(len(depths), dtype=depths.dtype)
+        return tokens, mask, depths, paths
+    return broken
+
+
+PLANTED_FAULTS = ("causal", "skip_parent", "chain_positions")
+
+
 def main_path_7b_host(card: str, cfg, params) -> dict:
     """Phase 9: llama_7b int4 + int8 KV through the host-automaton
     SamdEngine at M = 60."""
@@ -1919,6 +2090,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
 
     import torch
 
+    import samd_tpu_torch.engine as engine
     from samd_tpu_torch.config import GenerationConfig, SamdConfig
     from samd_tpu_torch.drafters import make_drafter
     from samd_tpu_torch.engine import ArBaseline, SamdEngine, StepStats
@@ -1940,15 +2112,30 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     refs, ref_rows = {}, {}
     for n, p in prompts.items():
         if n != "a_repeat":
-            with OracleRows() as rows:
+            with AcceptRows("oracle") as rows:
                 refs[n] = oracle.generate(p, gen)
             ref_rows[n] = rows.steps
     refs["a_repeat"], ref_rows["a_repeat"] = refs["a_random"], \
         ref_rows["a_random"]
+    plain = noise_spread(cfg, params, [
+        (refs[n].output_ids, len(prompts[n]), ref_rows[n])
+        for n in ("a_random", "c_random_200")])
+    spread = float(plain.max())
+    print(f"llama_7b host: a plain prefill drifts from the oracle's own "
+          f"logits (range of the difference over the oracle's top "
+          f"{TOP_SPREAD} tokens) {np.median(plain):.5f} median, "
+          f"{spread:.5f} max over {len(plain)} positions of the oracle's "
+          f"path: the near-tie rule's bound [{card}]", flush=True)
     hy_cfg = SamdConfig(draft_source="sam_hybrid", max_predicts=M)
+    # the path request a leaves in a Token-Recycle cache that served it
+    a_path = [(refs["a_random"].output_ids[len(prompts["a_random"]):],
+               ref_rows["a_random"])]
 
     def hybrid():
-        log = DraftLog(make_drafter(hy_cfg, V))
+        drafter = make_drafter(hy_cfg, V)
+        warm_token_recycle(drafter.tree_drafter, V, np.random.default_rng(17),
+                           a_path)
+        log = DraftLog(drafter)
         return SamdEngine(cfg, params, hy_cfg, log, **kw), log
 
     # (b)'s corpus: random tokens, requests a's and c's oracle outputs and
@@ -1979,9 +2166,10 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     eng_a.generate(prompts["b_repetitive"][:16],
                    GenerationConfig(max_new_tokens=8))          # warm-up
     torch.cuda.synchronize()
-    # (a): a, c, then a again, whose start tokens the Token-Recycle cache
-    # has all seen (full 60-node trees); (b): a through branching
-    # frequency trees, c through its corpus copy
+    # (a): every token of the warm cache has a harvest, so every draft is
+    # a full 60-node tree; a's trees follow its path, c's are random, and
+    # a again finds the harvest of its own first run; (b): a through
+    # branching frequency trees, c through its corpus copy
     runs = [("a hybrid token_recycle", eng_a, log_a, n)
             for n in ("a_random", "c_random_200", "a_repeat")] + [
         ("b sam_only static", eng_b, log_b, n)
@@ -1990,28 +2178,31 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     reset_counts()                              # the path starts here
     for label, eng, log, name in runs:
         eng.stats = StepStats()
-        t0 = time.perf_counter()
-        out = eng.generate(prompts[name], gen)
-        torch.cuda.synchronize()
+        with AcceptRows("path") as rows:
+            t0 = time.perf_counter()
+            out = eng.generate(prompts[name], gen)
+            torch.cuda.synchronize()
         done.append((label, name, out, time.perf_counter() - t0,
-                     list(log.chains), eng.stats))
+                     list(log.chains), list(log.nodes), eng.stats,
+                     rows.steps))
     counts = read_counts()                      # the path ends here
     equal = 0
-    for label, name, out, dt, chains, stats in done:
+    for label, name, out, dt, chains, nodes, stats, rows in done:
         tag = f"llama_7b host {label} request {name}"
-        verdict = oracle_verdict(tag, cfg, params, prompts[name], out,
-                                 refs[name], chains, ref_rows[name])
-        equal += verdict == "equal"
+        verdict = oracle_verdict(tag, prompts[name], out, refs[name], chains,
+                                 ref_rows[name], cfg, params, spread, rows)
+        equal += verdict.startswith("equal")
         new = len(out.output_ids) - len(prompts[name])
         print(f"{tag}: prompt {len(prompts[name])} new {new} steps "
-              f"{out.decode_steps} ({chains.count(False)} tree drafts) "
+              f"{out.decode_steps} ({chains.count(False)} tree drafts; "
+              f"draft nodes per step {run_lengths(nodes)}) "
               f"ms_per_step {dt / out.decode_steps * 1e3:.3f} tok_per_s "
               f"{new / dt:.2f} (prefill included) "
               f"mean accept by source: {by_source(stats)}; against "
               f"ArBaseline(block_size=60): {verdict} [{card}]", flush=True)
-    forwards = sum(1 + o.decode_steps for _, _, o, _, _, _ in done)
-    short = sum(o.decode_steps + (len(prompts[n]) <= 128)
-                for _, n, o, _, _, _ in done)
+    forwards = sum(1 + d[2].decode_steps for d in done)
+    short = sum(d[2].decode_steps + (len(prompts[d[1]]) <= 128)
+                for d in done)
     want = {"flash_block_attention": 0,
             "flash_block_attention_int8kv": cfg.num_layers * short,
             "int4_matmul": (7 * cfg.num_layers + 1) * forwards,
@@ -2023,6 +2214,28 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
           f"{counts['int4_matmul']} = 225 x {forwards} forwards; int8-KV "
           f"verify launches {counts['flash_block_attention_int8kv']} = 32 x "
           f"{short} forwards of T <= 128 [{card}]", flush=True)
+    del done
+    gc.collect()
+
+    # planted faults in the tree buffers, each of which the judge must
+    # reject, on request a with the warm cache of (a)
+    for kind in PLANTED_FAULTS:
+        eng, log = hybrid()
+        real = engine.unpack_draft
+        engine.unpack_draft = planted_fault(kind)
+        try:
+            with AcceptRows("path") as rows:
+                bad = eng.generate(prompts["a_random"], gen)
+        finally:
+            engine.unpack_draft = real
+        verdict, reason = judge(prompts["a_random"], bad, refs["a_random"],
+                                log.chains, ref_rows["a_random"], cfg,
+                                params, spread, rows.steps)
+        fail_if(verdict is not None, f"llama_7b host planted fault {kind}: "
+                f"the judge let it pass ({verdict})")
+        print(f"llama_7b host planted fault {kind}: {bad.decode_steps} "
+              f"steps, rejected: {reason} [{card}]", flush=True)
+        del eng, rows
 
     # (c) sampled: each tree accept mode twice with its seed; point-mass
     # requests equal the same engine's greedy run
@@ -2050,18 +2263,19 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     for label, make in (("hybrid token_recycle", hybrid),
                         ("sam_only static", sam_only)):
         name = "a_random"
-        greedy_out = make()[0].generate(prompts[name], GenerationConfig(
-            **short_gen))
-        eng, log = make()
-        forced = eng.generate(prompts[name], point)
+        g_eng, g_log = make()
+        with AcceptRows("path") as rows:
+            greedy_out = g_eng.generate(prompts[name],
+                                        GenerationConfig(**short_gen))
+        forced = make()[0].generate(prompts[name], point)
         fail_if(forced.output_ids != greedy_out.output_ids,
                 f"llama_7b host point-mass {label}: differs from the same "
                 "engine's greedy run")
         ref = refs[name].output_ids[:len(prompts[name]) + 64]
         verdict = oracle_verdict(
-            f"llama_7b host point-mass {label}", cfg, params, prompts[name],
-            forced, SimpleNamespace(output_ids=ref), list(log.chains),
-            ref_rows[name])
+            f"llama_7b host point-mass {label}", prompts[name], greedy_out,
+            SimpleNamespace(output_ids=ref), g_log.chains, ref_rows[name],
+            cfg, params, spread, rows.steps)
         print(f"llama_7b host point-mass {label} (top_k 1, temperature "
               f"1e-5): equal to the same engine's greedy run; against the "
               f"oracle: {verdict} [{card}]", flush=True)
@@ -2106,12 +2320,20 @@ def main_path_1b_host(card: str) -> dict:
     counted = {}
     static = None
     for kind, make in makers.items():
-        with OracleRows() as rows:
+        with AcceptRows("oracle") as rows:
             ar = make(lambda: _SingleTokenDrafter(M))
             per_rid = batched_rows(ar, rows)
             oracle, _, _ = serve_batched(ar, requests, V)
         del ar
         oracle_rows = [per_rid[i] for i in range(len(requests))]
+        plain = noise_spread(cfg, params, [
+            (o.output_ids, len(p), rr) for (p, _), o, rr in
+            zip(requests[:2], oracle[:2], oracle_rows[:2])])
+        spread = float(plain.max())
+        print(f"llama_1b host {kind}: a plain prefill drifts from the "
+              f"oracle's own logits {np.median(plain):.5f} median, "
+              f"{spread:.5f} max over {len(plain)} positions (as in phase "
+              f"9): the near-tie rule's bound [{card}]", flush=True)
         if static is None:
             # the first two requests' outputs and copies of them that differ
             # at every 8th generated token: frequency trees that branch
@@ -2123,8 +2345,14 @@ def main_path_1b_host(card: str) -> dict:
         for source in ("sam_only", "sam_hybrid"):
             scfg = SamdConfig(draft_source=source, max_predicts=M)
             # one Token-Recycle cache shared by every request (its reset is
-            # a no-op): the repeated requests find their tokens harvested
+            # a no-op), warm: full 60-node trees, along each request's path
+            # where it has not left the oracle's
             shared = make_drafter(scfg, V).tree_drafter
+            if shared is not None:
+                warm_token_recycle(
+                    shared, V, np.random.default_rng(17),
+                    [(o.output_ids[len(p):], rr) for (p, _), o, rr in
+                     zip(requests, oracle, oracle_rows)])
             logs = []
 
             def factory():
@@ -2135,28 +2363,34 @@ def main_path_1b_host(card: str) -> dict:
             eng = make(factory)
             logs.clear()                    # the engine's probe
             torch.cuda.synchronize()
-            reset_counts()                  # the path starts here
-            outs, wall, steps = serve_batched(eng, requests, V)
-            counts = read_counts()          # the path ends here
+            with AcceptRows("path") as prow:
+                eng_rows = batched_rows(eng, prow)
+                reset_counts()              # the path starts here
+                outs, wall, steps = serve_batched(eng, requests, V)
+                counts = read_counts()      # the path ends here
             label = f"llama_1b host {kind} B=4 {source}"
-            verdicts = [oracle_verdict(f"{label} request {i}", cfg, params,
-                                       p, o, r, lg.chains, rr)
+            verdicts = [oracle_verdict(f"{label} request {i}", p, o, r,
+                                       lg.chains, rr, cfg, params, spread,
+                                       eng_rows[i])
                         for i, ((p, _), o, r, lg, rr) in enumerate(
                             zip(requests, outs, oracle, logs, oracle_rows))]
+            del prow, eng_rows
+            n_equal = sum(v.startswith("equal") for v in verdicts)
             new = sum(o.decode_tokens for o in outs)
             trees = sum(lg.chains.count(False) for lg in logs)
+            nodes = sorted((n for lg in logs for n in lg.nodes),
+                           reverse=True)
             print(f"{label}: {len(outs)} requests, {new} new tokens, "
-                  f"{trees} tree drafts, "
+                  f"{trees} tree drafts (draft nodes over all slot-steps, "
+                  f"sorted: {run_lengths(nodes)}), "
                   f"{steps} steps of [4, 60], {wall / steps * 1e3:.3f} "
                   f"ms/step, {new / wall:.2f} tok/s (prefills included), "
                   f"mean accept by source: {by_source(eng.stats)}; against "
                   f"the single-token-drafter oracle: "
-                  f"{verdicts.count('equal')} equal, "
-                  f"{len(verdicts) - verdicts.count('equal')} near-ties "
+                  f"{n_equal} equal, {len(verdicts) - n_equal} near-ties "
                   f"[{card}]", flush=True)
             for i, v in enumerate(verdicts):
-                if v != "equal":
-                    print(f"{label} request {i}: {v} [{card}]", flush=True)
+                print(f"{label} request {i}: {v} [{card}]", flush=True)
             want = {"flash_block_attention": L * len(requests),
                     "flash_block_attention_int8kv": 0, "int4_matmul": 0,
                     "paged_block_attention": L * steps if kind == "paged"

@@ -229,7 +229,7 @@ class BatchedSamdEngine(ProgressStreamMixin):
                              f"sampling signature; got {sigs}")
         self._pre_step(stepping)
         tokens, tree_mask, depths, paths = (
-            t.to(dev) for t in unpack_draft(torch.from_numpy(drafts), D))
+            t.to(dev) for t in unpack_draft(drafts, D))
         lens = torch.from_numpy(cache_lens).to(dev)
         logits = self._forward(tokens, depths + lens[:, None], lens,
                                tree_mask)

@@ -158,7 +158,6 @@ class SamdEngine:
                  eos_token_id: int = 2,
                  stop_token_id: Optional[int] = None,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
-                 harvest_topk: int = HARVEST_TOPK,
                  device: Union[str, torch.device] = "cuda"):
         check_supported(model_cfg)
         if getattr(drafter, "wants_hidden", False):
@@ -175,7 +174,6 @@ class SamdEngine:
         self.stop_token_id = stop_token_id
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= max_cache_len)
-        self.harvest_topk = harvest_topk
         # the top-K harvest is computed (a sort over V) only when the
         # drafter consumes it
         self.wants_harvest = getattr(drafter, "wants_harvest", False)
@@ -201,7 +199,7 @@ class SamdEngine:
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, S, dev))
         last = logits[0, len(input_ids) - 1]
-        topk = (harvest_topk(logits[0, :len(input_ids)], self.harvest_topk)
+        topk = (harvest_topk(logits[0, :len(input_ids)], HARVEST_TOPK)
                 if self.wants_harvest else None)
         return torch.argmax(last).to(torch.int32), last, topk
 
@@ -211,7 +209,7 @@ class SamdEngine:
         cfg, S, dev = self.model_cfg, self.max_cache_len, self.device
         D = self.samd_cfg.max_tree_depth
         tokens, tree_mask, depths, paths = (
-            t.to(dev) for t in unpack_draft(torch.from_numpy(draft), D))
+            t.to(dev) for t in unpack_draft(draft, D))
         mask = block_decode_mask(tree_mask, cache_len, S)
         logits, hidden = forward(
             self.params, cfg, tokens[None], depths[None, :] + cache_len,
@@ -235,7 +233,7 @@ class SamdEngine:
         # one-transfer result: [accept_len, next_token, path tokens...]
         pack = torch.cat([res.accept_len[None], res.next_token[None],
                           res.accepted_tokens]).to(torch.int32)
-        topk = (harvest_topk(logits[0], self.harvest_topk)
+        topk = (harvest_topk(logits[0], HARVEST_TOPK)
                 if self.wants_harvest else None)
         return pack, topk
 

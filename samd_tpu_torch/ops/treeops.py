@@ -3,9 +3,10 @@
 
 A draft is two int32 vectors, ``tokens`` and ``parents``, packed as
 ``[2, M]``.  The attention mask (ancestor closure), node depths and
-root→node paths are derived from it.  The reference's ``lax.scan`` loops
-over M become Python loops of small tensor ops; their integers equal the
-reference's.
+root→node paths are derived from it on the host, where the host drafters
+build it: the reference's ``lax.scan`` loops over M become one numpy pass
+over the nodes, and the results come back as CPU tensors for one upload
+each.  Their integers equal the reference's.
 
 Padding convention: padding node *i* has ``parents[i] == i`` (self-parent)
 and sits after all real nodes; real nodes obey ``parents[i] < i`` and
@@ -20,70 +21,70 @@ import numpy as np
 import torch
 
 
-def tree_mask_from_parents(parents: torch.Tensor) -> torch.Tensor:
-    """[..., M] int -> [..., M, M] bool ancestor-closure mask (self
-    included)."""
-    M = parents.shape[-1]
-    lead = parents.shape[:-1]
-    dev = parents.device
-    eye = torch.eye(M, dtype=torch.bool, device=dev)
-    mask = torch.zeros(lead + (M, M), dtype=torch.bool, device=dev)
+def _host_parents(parents) -> np.ndarray:
+    """A host tensor or array of parents as a [N, M] int64 numpy array."""
+    if isinstance(parents, torch.Tensor):
+        parents = parents.numpy()
+    parents = np.asarray(parents, np.int64)
+    return parents.reshape(-1, parents.shape[-1])
+
+
+def _unpack_parents(P: np.ndarray, max_depth: int = 0):
+    """[N, M] parents -> ([N, M, M] bool ancestor closure, [N, M] int32
+    depths, [N, M, max_depth] int32 root->node paths padded with -1, or
+    None without ``max_depth``), in one pass over the nodes: a node's row,
+    depth and path extend its parent's.  A self-parent padding node reads
+    its own row and depth before they are written (zero), so it sees only
+    itself, gets depth 1 and the path [i, i], as in the reference.  Real
+    nodes need depth < ``max_depth``."""
+    N, M = P.shape
+    n = np.arange(N)
+    mask = np.zeros((N, M, M), bool)
+    depth = np.zeros((N, M), np.int32)
+    paths = (np.full((N, M, max_depth), -1, np.int32) if max_depth
+             else None)
     for i in range(M):
-        p = parents[..., i]
-        idx = torch.clamp(p, min=0).long()[..., None, None].expand(
-            lead + (1, M))
-        parent_row = torch.gather(mask, -2, idx)[..., 0, :]
-        mask[..., i, :] = (parent_row & (p >= 0)[..., None]) | eye[i]
-    return mask
+        p = P[:, i]
+        real = p >= 0
+        pc = np.maximum(p, 0)
+        mask[:, i] = mask[n, pc] & real[:, None]
+        mask[:, i, i] = True
+        d = np.where(real, depth[n, pc] + 1, 0)
+        depth[:, i] = d
+        if paths is not None:
+            paths[:, i] = np.where(real[:, None], paths[n, pc], -1)
+            paths[p == i, i, 0] = i
+            ok = d < max_depth
+            paths[n[ok], i, d[ok]] = i
+    return mask, depth, paths
 
 
-def depths_from_parents(parents: torch.Tensor) -> torch.Tensor:
-    """[..., M] int -> [..., M] int32 node depths (root = 0).  Self-parent
-    padding nodes read their own (unwritten = 0) slot and get depth 1, as
-    in the reference."""
-    M = parents.shape[-1]
-    depth = torch.zeros(parents.shape, dtype=torch.int32,
-                        device=parents.device)
-    for i in range(M):
-        p = parents[..., i]
-        d = torch.gather(depth, -1, torch.clamp(p, min=0).long()[..., None])
-        depth[..., i] = torch.where(p >= 0, d[..., 0] + 1, 0)
-    return depth
+def tree_mask_from_parents(parents) -> torch.Tensor:
+    """[..., M] int (host tensor or array) -> [..., M, M] bool
+    ancestor-closure mask (self included)."""
+    shape = tuple(parents.shape)
+    mask, _, _ = _unpack_parents(_host_parents(parents))
+    return torch.from_numpy(mask.reshape(shape + shape[-1:]))
 
 
-def paths_from_parents(parents: torch.Tensor, depths: torch.Tensor,
-                       max_depth: int) -> torch.Tensor:
-    """[..., M] int -> [..., M, max_depth] int32: row i = node ids on the
-    root→i path (padded with -1).  Requires depth(i) < max_depth for real
-    nodes."""
-    M = parents.shape[-1]
-    parents = parents.long()
-    anc = torch.arange(M, device=parents.device).expand(parents.shape)
-    rows = []
-    for _ in range(max_depth):        # rows[k][..., i] = k-th ancestor of i
-        rows.append(anc)
-        anc = torch.where(anc >= 0, torch.gather(
-            parents, -1, torch.clamp(anc, min=0)), -1)
-    ancestors = torch.stack(rows, dim=-1)                       # [..., M, D]
-    j = torch.arange(max_depth, device=parents.device)          # [D]
-    dist = depths[..., None].long() - j                         # [..., M, D]
-    k = torch.clamp(dist, 0, max_depth - 1)
-    picked = torch.gather(ancestors, -1, k)                     # [..., M, D]
-    return torch.where(dist >= 0, picked, -1).to(torch.int32)
-
-
-def unpack_draft(draft: torch.Tensor, max_depth: int
+def unpack_draft(draft, max_depth: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """draft: [..., 2, M] int (row 0 tokens, row 1 parents) →
-    (tokens [..., M], tree_mask [..., M, M], position_ids/depths [..., M],
-    paths [..., M, D]).  A leading slot axis unpacks a batch's drafts in
-    one pass."""
-    tokens, parents = draft[..., 0, :], draft[..., 1, :]
-    mask = tree_mask_from_parents(parents)
-    depths = depths_from_parents(parents)
-    paths = paths_from_parents(parents, depths, max_depth)
-    return tokens, mask, depths, paths
+    """draft: [..., 2, M] int on the host (tensor or array; row 0 tokens,
+    row 1 parents) → CPU tensors (tokens [..., M], tree_mask [..., M, M],
+    position_ids/depths [..., M], paths [..., M, D]), ready for one upload
+    each.  A leading slot axis unpacks a batch's drafts in one pass."""
+    if isinstance(draft, torch.Tensor):
+        draft = draft.numpy()
+    draft = np.asarray(draft)
+    lead, M = draft.shape[:-2], draft.shape[-1]
+    P = _host_parents(draft[..., 1, :])
+    mask, depth, paths = _unpack_parents(P, max_depth)
+    return (torch.from_numpy(np.ascontiguousarray(
+                draft[..., 0, :], dtype=np.int32)),
+            torch.from_numpy(mask.reshape(lead + (M, M))),
+            torch.from_numpy(depth.reshape(lead + (M,))),
+            torch.from_numpy(paths.reshape(lead + (M, max_depth))))
 
 
 def pack_draft_host(tokens, parents, max_nodes: int) -> np.ndarray:

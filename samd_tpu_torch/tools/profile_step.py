@@ -20,10 +20,12 @@ the twelve prefills) is the warm-up, the second is profiled.
 ``--model llama_7b_int4_tree``: the same single-stream llama_7b (int4
 weights, int8 KV, 1024 slots) through the host-automaton
 ``engine.SamdEngine`` with ``SamdConfig(draft_source="sam_hybrid",
-max_predicts=60)`` and the Token-Recycle tree drafter: one warm-up
-request, then the same repetitive 96-token prompt under the profiler
-(chain drafts from the request's SAM, trees of 60 nodes where it finds no
-match).
+max_predicts=60)`` and the Token-Recycle tree drafter, its cache warm
+as a long-served engine's (every token holds a harvest, seeded random
+top-8 from seed 0), so every tree draft has its full 60 nodes: one
+warm-up request, then the same repetitive 96-token prompt under the
+profiler (chain drafts from the request's SAM where it matches, else
+trees); the line gives the draft nodes per step.
 
 Prints one JSON line: per decode step the wall time, the device-busy time
 (union of the kernels' intervals), the device's idle share and the kernel
@@ -212,8 +214,19 @@ def main(argv=None) -> int:
         label = ("llama_7b int4 kernel, int8 KV, flash, SamdEngine "
                  "sam_hybrid + Token Recycle, M = 60")
         scfg = SamdConfig(draft_source="sam_hybrid", max_predicts=60)
-        eng = SamdEngine(cfg, params, scfg,
-                         make_drafter(scfg, cfg.vocab_size), max_cache_len=S,
+        drafter = make_drafter(scfg, cfg.vocab_size)
+        V, K = cfg.vocab_size, drafter.tree_drafter.topk
+        drafter.tree_drafter.harvest(np.arange(V), np.random.default_rng(
+            0).integers(3, V, size=(V, K)))
+        nodes = []
+        lookup = drafter.lookup
+
+        def counted_lookup(start_token):
+            d = lookup(start_token)
+            nodes.append(d.num_nodes)
+            return d
+        drafter.lookup = counted_lookup
+        eng = SamdEngine(cfg, params, scfg, drafter, max_cache_len=S,
                          eos_token_id=-1)
     else:
         eng = FusedSamEngine(cfg, params, fc, max_cache_len=S,
@@ -224,6 +237,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     gen = GenerationConfig(max_new_tokens=args.new_tokens, max_cache_len=S)
+    if args.model == "llama_7b_int4_tree":
+        nodes.clear()
     stats0 = dict(getattr(eng, "stats", None).source_counts) \
         if hasattr(eng, "stats") else None
     with profile(activities=[ProfilerActivity.CPU,
@@ -240,6 +255,9 @@ def main(argv=None) -> int:
         **({} if stats0 is None else {"draft_steps_by_source": {
             k: v - stats0.get(k, 0)
             for k, v in eng.stats.source_counts.items()}}),
+        **({"draft_nodes_per_step": {str(n): nodes.count(n)
+                                     for n in sorted(set(nodes))}}
+           if args.model == "llama_7b_int4_tree" else {}),
         **summarize(prof, wall_us, out.decode_steps, args.top)}))
     return 0
 
