@@ -23,8 +23,9 @@ Phases, in order; any failure exits non-zero:
         shape, and one llama_1b shape; int8 bytes of 127 and scales of 1e30
         past kv_limit change nothing; the same cut-cache check;
      c. the int4 matmul at every llama_7b projection and head shape, at
-        16, 128, 192 and 256 rows (decode, the prefill buckets 128 and 256,
-        and B * M = 12 * 16 rows of batched serving), in bf16 and f32
+        16, 60, 64, 128, 192, 256 and 288 rows (decode, the host engines'
+        and the hybrid's blocks, the prefill buckets 128 and 256, and B * M
+        = 12 * 16 and 12 * 24 rows of batched serving), in bf16 and f32
         output; row invariance: a row alone, or placed at another row of
         another block, gives the same bits, and every 16-row block of an R
         = 192 call equals the same rows run at R = 16; ragged R = 1, 13
@@ -46,8 +47,16 @@ Phases, in order; any failure exits non-zero:
         kv_limit changing nothing, each K4 slot bitwise equal to the verify
         kernel on its gathered KV; each timed beside its plain version,
         SDPA with the boolean mask and the bound.  Phase 3c also holds the
-        int4 matmul at R = 60 (the host engines' block) at every llama_7b
-        shape, each 16-row block bitwise equal to the same rows at R = 16;
+        int4 matmul at R = 60, 64 and 288 (the host engines' block, the
+        hybrid's, and B = 12 x 24 with a ragged fifth 64-row tile) at every
+        llama_7b shape, each 16-row block bitwise equal to the same rows
+        at R = 16;
+     f. the fused drafters' shapes, with the same checks and timings: the
+        int8 mode at llama_7b KH 32, D 128, T = 64 on the hybrid's
+        relabelled 61-node tree and its self-parented padding; K4 over int8
+        pages at llama_7b B = 12, T = 24 on the server block's 23-node tree
+        in every window; the verify kernel at llama_1b T = 11 (PLD's
+        chain) and T = 61 (the fused Token-Recycle tree);
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -136,7 +145,31 @@ Phases, in order; any failure exits non-zero:
      to 3 sequential SamdEngine runs; the server with --engine batched and
      --sam FILE over 127.0.0.1 serving four greedy requests, each equal to
      the same engine called directly.
-Then a JSON line of kernels, the nvidia-smi line, and last the device line.
+ 11. llama_7b fused hybrid (after 9), phase 5's weights: (a)
+     FusedHybridEngine over int8 KV with the default config (M 64, a
+     61-node tree, chains of 40) and phase 5's cache buckets, its harvest
+     warm (a random top-8 for every token, the oracle's own along request
+     a's path), three requests of 128 new tokens, each against
+     ArBaseline(block_size=64) by phase 9's judge; (c) on that engine, from
+     one saved harvest, one sampled request per accept mode run twice with
+     its seed (equal), and point-mass rejection and nucleus requests equal
+     to the greedy run; (b) PagedBatchedFusedHybridEngine at B = 12 with
+     the server's block (M 24, a 23-node tree, 16 steps per segment) over
+     64 int8 pages of 128, buckets 128 and 256, warm, phase 6's 16 requests
+     (the four repeats' oracle outputs in the corpus), each judged against
+     the chain-only PagedBatchedFusedSamEngine at alpha = 0 with the same
+     M = 24; every page back; K3 225 launches per forward, K4 32 per step;
+ 12. llama_1b fused drafters (after 10): PldEngine, two requests of 128
+     new tokens bitwise equal to ArBaseline(block_size=11);
+     FusedTokenRecycleEngine (61 nodes, warm) judged against
+     ArBaseline(block_size=61); the dense and paged BatchedFusedHybridEngine
+     at B = 4, M = 24 (bf16 pages of 128), six requests of 64, each judged
+     against its chain-only engine at alpha = 0; both --engine
+     fused_hybrid_batched and paged_fused_hybrid over 127.0.0.1, four
+     greedy replies each equal to the same engine called directly from the
+     same empty harvest.
+Then a JSON line of kernels (launches summed over every path), the
+nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
 
@@ -461,7 +494,7 @@ def check_int4(card: str) -> dict:
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
         xs = {}
-        for R in (16, 60, 128, 192, 256):
+        for R in (16, 60, 64, 128, 192, 256, 288):
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -500,13 +533,19 @@ def check_int4(card: str) -> dict:
                               f"{outside.numel()} outputs", flush=True)
                     del q
             (err, tol_at), (err_o, tol_o) = errs.values()
-            if R == 60:       # the host engines' block: ragged rows
-                for a in (0, 16, 32, 44):
+            if R in (60, 64, 288):      # the engines' blocks, ragged
+                for a in range(0, R - 15, 16 if R < 288 else 48):
+                    a = min(a, R - 16)
                     small = int4_matmul(x[a:a + 16].contiguous(), packed,
                                         scale, 0, out_dtype=out_dtype)
                     fail_if(not torch.equal(small, got[a:a + 16]),
                             f"int4_matmul {label}: rows {a}..{a + 15} differ "
-                            "between R = 16 and R = 60")
+                            f"between R = 16 and R = {R}")
+                small = int4_matmul(x[R - 16:].contiguous(), packed, scale,
+                                    0, out_dtype=out_dtype)
+                fail_if(not torch.equal(small, got[R - 16:]),
+                        f"int4_matmul {label}: the last 16 rows differ "
+                        f"between R = 16 and R = {R}")
             if R == 16:       # row invariance, bitwise
                 for r in (0, 7, 15):
                     alone = int4_matmul(x[r:r + 1].contiguous(), packed,
@@ -681,122 +720,179 @@ def tree_parents(card: str) -> dict:
     return trees
 
 
-def check_tree_masks(card: str) -> None:
-    """Phase 3e: the verify kernel (bf16 and f32 q at llama_1b T = 60), its
-    int8 mode (llama_7b KH 32, D 128, T = 60) and K4 (bf16 pages, llama_1b
-    B = 4) on the host engines' tree masks: within kernel_tolerance, two
-    runs bitwise equal, poison past kv_limit changing nothing, each K4
-    slot bitwise equal to the verify kernel on its gathered KV; timed
-    beside the plain version, SDPA with the boolean mask and the bound."""
+def tree_attention_check(card, tag, T, NH, KH, D, S, cl, int8, dtype,
+                         parents, seed) -> float:
+    """The verify kernel (``int8``: its int8-KV mode) on the tree mask of
+    ``parents`` at cache_len ``cl``: within kernel_tolerance, two runs
+    bitwise equal, poison past kv_limit changing nothing; timed beside the
+    plain version, SDPA with the boolean mask and the bound.  Returns the
+    max |kernel - plain|."""
     import torch
 
-    from samd_tpu_torch.cache import (QuantizedKV, dequantize_kv,
-                                      quantize_kv_block)
+    from samd_tpu_torch.cache import QuantizedKV, dequantize_kv
+    from samd_tpu_torch.cache import quantize_kv_block
     from samd_tpu_torch.ops.flash_attention import (
         flash_block_attention, flash_block_attention_ref, kernel_tolerance)
+    from samd_tpu_torch.tools.time_kernels import (attention_case,
+                                                   library_attention)
+
+    dname = str(dtype).split(".")[1]
+    tag = f"{tag} {dname}"
+    q, k, v, mask, lim = attention_case(
+        T, NH, KH, D, S, cl, torch.float32 if int8 else dtype, seed=seed,
+        parents=parents)
+    q = q.to(dtype)
+    if int8:
+        (k, ks), (v, vs) = (quantize_kv_block(x) for x in (k, v))
+        args = (q, k, v, mask, lim, ks, vs)
+        kd = dequantize_kv(QuantizedKV(k, ks), dtype)
+        vd = dequantize_kv(QuantizedKV(v, vs), dtype)
+        poison = (127, 1e30)
+    else:
+        args, kd, vd = (q, k, v, mask, lim), k, v
+        poison = (1e30, None)
+    got = flash_block_attention(*args)
+    again = flash_block_attention(*args)
+    ref = flash_block_attention_ref(*args)
+    torch.cuda.synchronize()
+    err, tol_at = check_close(tag, got, ref, kernel_tolerance(ref), again)
+    kv = cl + T
+    bad = [x.clone() for x in args]
+    bad[1][:, :, kv:] = poison[0]
+    bad[2][:, :, kv:] = -poison[0]
+    if int8:
+        bad[5][:, :, kv:] = poison[1]
+        bad[6][:, :, kv:] = poison[1]
+    fail_if(not torch.equal(got, flash_block_attention(*bad)),
+            f"{tag}: poison past kv_limit changed the result")
+    ms = cuda_ms(lambda i: flash_block_attention(*args))
+    plain_ms = cuda_ms(lambda i: flash_block_attention_ref(*args))
+    library_ms = cuda_ms(library_attention(q, kd, vd, mask, lim))
+    bound_ms, bound_by = attention_bound(
+        T, NH, KH, D, kv, dname,
+        kv_bytes=2 * kv * KH * (D + 4) if int8 else None)
+    print(f"kernel flash_block_attention {tag}: max_abs_err {err:.3e} (tol "
+          f"at that element {tol_at:.3e}) kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, boolean mask"
+          f"{', dequantized live KV' if int8 else ''}) bound_ms "
+          f"{bound_ms:.5f} ({bound_by}); two runs and poison bitwise equal "
+          f"[{card}]", flush=True)
+    return err
+
+
+def tree_paged_check(card, tag, B, T, NH, KH, D, page, committed, int8,
+                     parents, seed) -> float:
+    """K4 over bf16 q (``int8``: int8 pages, else bf16 pages) with the tree
+    of ``parents`` in every slot's window: within the tolerance, two runs
+    and poisoned pools bitwise equal, every active slot bitwise equal to
+    the verify kernel on its gathered KV; timed beside the plain version,
+    SDPA per slot and the bound.  Returns the max |kernel - plain|."""
+    import torch
+
+    from samd_tpu_torch.ops.flash_attention import (flash_block_attention,
+                                                    kernel_tolerance)
     from samd_tpu_torch.ops.paged_attention import (gather_pages,
                                                     paged_block_attention,
                                                     paged_block_attention_ref,
                                                     window_to_mask)
-    from samd_tpu_torch.tools.time_kernels import (attention_case,
-                                                   library_attention,
-                                                   library_paged, paged_case)
+    from samd_tpu_torch.tools.time_kernels import library_paged, paged_case
+
+    args, active, spare = paged_case(B, T, NH, KH, D, page, committed,
+                                     torch.bfloat16, int8, seed=seed,
+                                     parents=parents)
+    got = paged_block_attention(*args)
+    again = paged_block_attention(*args)
+    poisoned = paged_block_attention(*poison_pages(args, active, spare,
+                                                   page))
+    ref = paged_block_attention_ref(*args)
+    torch.cuda.synchronize()
+    err, tol_at = check_close(f"paged_block_attention {tag}", got[active],
+                              ref[active], kernel_tolerance(ref[active]),
+                              again[active])
+    fail_if(not torch.equal(got[active], poisoned[active]),
+            f"paged_block_attention {tag}: poison changed the result")
+    q, kp, vp, tables, win, lims, ks, vs = args
+    for b in active:
+        tb = tables[b:b + 1]
+        kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+        sc = () if ks is None else (gather_pages(ks, tb),
+                                    gather_pages(vs, tb))
+        mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                              kd.shape[2])
+        one = flash_block_attention(q[b:b + 1].contiguous(), kd, vd, mask,
+                                    lims[b], *sc)
+        fail_if(not torch.equal(got[b], one[0]),
+                f"paged_block_attention {tag}: slot {b} differs from the "
+                "verify kernel on its gathered KV")
+    ms = cuda_ms(lambda i: paged_block_attention(*args))
+    plain_ms = cuda_ms(lambda i: paged_block_attention_ref(*args), iters=10)
+    library_ms = cuda_ms(library_paged(args, active, page))
+    live = sum(int(lims[b]) for b in active)
+    per_col = KH * (D + 4 if int8 else D * 2)       # K or V, per column
+    nbytes = (2 * live * per_col + 2 * q.numel() * 2 + win.numel()
+              + tables.numel() * 4 + B * 4)
+    bound_ms, bound_by = bound(nbytes, 4 * NH * T * D * live, "bfloat16")
+    print(f"kernel paged_block_attention {tag}: max_abs_err {err:.3e} (tol "
+          f"at that element {tol_at:.3e}) kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA per active slot "
+          f"on its gathered live KV{', dequantized' if int8 else ''}) "
+          f"bound_ms {bound_ms:.5f} ({bound_by}; {live} live columns); every "
+          f"active slot bitwise equal to the verify kernel on its gathered "
+          f"KV, poison changes nothing [{card}]", flush=True)
+    return err
+
+
+def check_tree_masks(card: str) -> None:
+    """Phase 3e: the verify kernel (bf16 and f32 q at llama_1b T = 60), its
+    int8 mode (llama_7b KH 32, D 128, T = 60) and K4 (bf16 pages, llama_1b
+    B = 4) on the host engines' tree masks (``tree_attention_check``,
+    ``tree_paged_check``)."""
+    import torch
 
     for t, (tree, parents) in enumerate(tree_parents(card).items()):
-        # the verify kernel, k/v of q's type and int8
         for label, NH, KH, D, S, cl, int8 in (
                 ("llama_1b T=60 cache_len=700", 32, 4, 64, 2048, 700, False),
                 ("llama_7b T=60 cache_len=700 int8-KV", 32, 32, 128, 1024,
                  700, True)):
             for dtype in (torch.bfloat16, torch.float32):
-                dname = str(dtype).split(".")[1]
-                tag = f"{tree} tree {label} {dname}"
-                q, k, v, mask, lim = attention_case(
-                    60, NH, KH, D, S, cl, torch.float32 if int8 else dtype,
-                    seed=500 + t, parents=parents)
-                q = q.to(dtype)
-                if int8:
-                    (k, ks), (v, vs) = (quantize_kv_block(x) for x in (k, v))
-                    args = (q, k, v, mask, lim, ks, vs)
-                    kd = dequantize_kv(QuantizedKV(k, ks), dtype)
-                    vd = dequantize_kv(QuantizedKV(v, vs), dtype)
-                    poison = (127, 1e30)
-                else:
-                    args, kd, vd = (q, k, v, mask, lim), k, v
-                    poison = (1e30, None)
-                got = flash_block_attention(*args)
-                again = flash_block_attention(*args)
-                ref = flash_block_attention_ref(*args)
-                torch.cuda.synchronize()
-                err, tol_at = check_close(tag, got, ref,
-                                          kernel_tolerance(ref), again)
-                kv = cl + 60
-                bad = [x.clone() for x in args]
-                bad[1][:, :, kv:] = poison[0]
-                bad[2][:, :, kv:] = -poison[0]
-                if int8:
-                    bad[5][:, :, kv:] = poison[1]
-                    bad[6][:, :, kv:] = poison[1]
-                fail_if(not torch.equal(got, flash_block_attention(*bad)),
-                        f"{tag}: poison past kv_limit changed the result")
-                ms = cuda_ms(lambda i: flash_block_attention(*args))
-                plain_ms = cuda_ms(lambda i: flash_block_attention_ref(*args))
-                library_ms = cuda_ms(library_attention(q, kd, vd, mask, lim))
-                bound_ms, bound_by = attention_bound(
-                    60, NH, KH, D, kv, dname,
-                    kv_bytes=2 * kv * KH * (D + 4) if int8 else None)
-                print(f"kernel flash_block_attention {tag}: max_abs_err "
-                      f"{err:.3e} (tol at that element {tol_at:.3e}) "
-                      f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                      f"library_ms {library_ms:.4f} (SDPA, boolean mask"
-                      f"{', dequantized live KV' if int8 else ''}) bound_ms "
-                      f"{bound_ms:.5f} ({bound_by}); two runs and poison "
-                      f"bitwise equal [{card}]", flush=True)
-        # K4, bf16 pages, the same tree in every slot
-        B, T, NH, KH, D, page = 4, 60, 32, 4, 64, 128
-        committed = [300, None, 64, 900]
-        args, active, spare = paged_case(B, T, NH, KH, D, page, committed,
-                                         torch.bfloat16, False,
-                                         seed=600 + t, parents=parents)
-        tag = f"{tree} tree llama_1b B=4 T=60 bf16 pages"
-        got = paged_block_attention(*args)
-        again = paged_block_attention(*args)
-        poisoned = paged_block_attention(*poison_pages(args, active, spare,
-                                                       page))
-        ref = paged_block_attention_ref(*args)
-        torch.cuda.synchronize()
-        err, tol_at = check_close(f"paged_block_attention {tag}",
-                                  got[active], ref[active],
-                                  kernel_tolerance(ref[active]),
-                                  again[active])
-        fail_if(not torch.equal(got[active], poisoned[active]),
-                f"paged_block_attention {tag}: poison changed the result")
-        q, kp, vp, tables, win, lims, _, _ = args
-        for b in active:
-            tb = tables[b:b + 1]
-            kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
-            mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
-                                  kd.shape[2])
-            one = flash_block_attention(q[b:b + 1].contiguous(), kd, vd,
-                                        mask, lims[b])
-            fail_if(not torch.equal(got[b], one[0]),
-                    f"paged_block_attention {tag}: slot {b} differs from "
-                    "the verify kernel on its gathered KV")
-        ms = cuda_ms(lambda i: paged_block_attention(*args))
-        plain_ms = cuda_ms(lambda i: paged_block_attention_ref(*args),
-                           iters=10)
-        library_ms = cuda_ms(library_paged(args, active, page))
-        live = sum(int(lims[b]) for b in active)
-        nbytes = (2 * live * KH * D * 2 + 2 * q.numel() * 2 + win.numel()
-                  + tables.numel() * 4 + B * 4)
-        bound_ms, bound_by = bound(nbytes, 4 * NH * T * D * live, "bfloat16")
-        print(f"kernel paged_block_attention {tag}: max_abs_err {err:.3e} "
-              f"(tol at that element {tol_at:.3e}) kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA "
-              f"per active slot on its gathered live KV) bound_ms "
-              f"{bound_ms:.5f} ({bound_by}; {live} live columns); every "
-              f"active slot bitwise equal to the verify kernel on its "
-              f"gathered KV, poison changes nothing [{card}]", flush=True)
+                tree_attention_check(card, f"{tree} tree {label}", 60, NH,
+                                     KH, D, S, cl, int8, dtype, parents,
+                                     500 + t)
+        tree_paged_check(card, f"{tree} tree llama_1b B=4 T=60 bf16 pages",
+                         4, 60, 32, 4, 64, 128, [300, None, 64, 900], False,
+                         parents, 600 + t)
+
+
+def check_hybrid_masks(card: str) -> dict:
+    """Phase 3f: the fused drafters' new shapes (``tree_attention_check``,
+    ``tree_paged_check``): the int8 mode at llama_7b KH 32, D 128, T = 64
+    on the hybrid's relabelled 61-node tree with its self-parented
+    padding; K4 over int8 pages at llama_7b B = 12, T = 24 on the server
+    block's 23-node tree (one padding node) in every window; the verify
+    kernel at llama_1b T = 11 (PLD's chain) and T = 61 (the fused
+    Token-Recycle tree), bf16 and f32 q.  Returns the max errors."""
+    import torch
+
+    from samd_tpu_torch.fused_hybrid import build_tr_topology
+
+    tree61 = build_tr_topology(61, 8)[0].tolist()
+    tree23 = build_tr_topology(23, 8)[0].tolist()
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        errs[("int8", dtype)] = tree_attention_check(
+            card, "hybrid tree llama_7b T=64 cache_len=700 int8-KV", 64, 32,
+            32, 128, 1024, 700, True, dtype, tree61 + [61, 62, 63], 700)
+        errs[("pld", dtype)] = tree_attention_check(
+            card, "PLD chain llama_1b T=11 cache_len=700", 11, 32, 4, 64,
+            2048, 700, False, dtype, list(range(-1, 10)), 701)
+        errs[("tr", dtype)] = tree_attention_check(
+            card, "fused Token-Recycle tree llama_1b T=61 cache_len=700", 61,
+            32, 4, 64, 2048, 700, False, dtype, tree61, 702)
+    errs["k4"] = tree_paged_check(
+        card, "hybrid tree llama_7b B=12 T=24 int8 pages", 12, 24, 32, 32,
+        128, 128, [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700,
+                   1000], True, tree23 + [23], 703)
+    return errs
 
 
 def reset_counts() -> None:
@@ -811,18 +907,26 @@ def reset_counts() -> None:
     paged_block_attention.launches_int8 = 0
 
 
+# every path's launches, summed over the run for the kernels line
+TOTALS: dict = {}
+
+
 def read_counts() -> dict:
+    """The launches since ``reset_counts``, added to ``TOTALS``."""
     from samd_tpu_torch.ops.flash_attention import flash_block_attention
     from samd_tpu_torch.ops.int4_matmul import int4_matmul
     from samd_tpu_torch.ops.paged_attention import paged_block_attention
 
-    return {"flash_block_attention": flash_block_attention.launches,
-            "flash_block_attention_int8kv":
-                flash_block_attention.launches_int8,
-            "int4_matmul": int4_matmul.launches,
-            "paged_block_attention": paged_block_attention.launches,
-            "paged_block_attention_int8kv":
-                paged_block_attention.launches_int8}
+    counts = {"flash_block_attention": flash_block_attention.launches,
+              "flash_block_attention_int8kv":
+                  flash_block_attention.launches_int8,
+              "int4_matmul": int4_matmul.launches,
+              "paged_block_attention": paged_block_attention.launches,
+              "paged_block_attention_int8kv":
+                  paged_block_attention.launches_int8}
+    for k, v in counts.items():
+        TOTALS[k] = TOTALS.get(k, 0) + v
+    return counts
 
 
 def serve(card, name_cfg, engines, prompts, refs, gen, vocab) -> list:
@@ -2480,6 +2584,636 @@ def main_path_1b_host(card: str) -> dict:
     return counted
 
 
+class FusedSteps:
+    """Records, per request, what a fused tree engine verified at each of
+    its steps: whether the draft was a retrieval chain, the committed
+    length, and the accepted path's logits rows ``[length, V]`` (their
+    argmaxes are the tokens the step emits).  Patches the engine module's
+    ``forward`` and ``greedy_accept`` while active, and wraps the
+    engine's ``_step`` (and the hybrid's ``_hybrid_draft``).  Batched
+    engines are keyed by request id, a single stream by its calls in
+    order (``next_request``)."""
+
+    def __init__(self, engine, module):
+        self.engine, self.mod = engine, module
+        self.per_rid = {}
+        self.rid = -1
+        self.logits = self.res = self.use_sam = None
+
+    def next_request(self) -> None:
+        self.rid += 1
+
+    def _rec(self, rid):
+        return self.per_rid.setdefault(rid, dict(rows=[], chains=[],
+                                                 alens=[]))
+
+    def __enter__(self):
+        import torch
+
+        mod, eng = self.mod, self.engine
+        self._saved = (mod.forward, mod.greedy_accept, eng._step)
+        fwd, acc, step = self._saved
+
+        def forward(*a, **k):
+            out = fwd(*a, **k)
+            self.logits = out[0]
+            return out
+
+        def greedy(*a):
+            self.res = acc(*a)
+            return self.res
+        mod.forward, mod.greedy_accept = forward, greedy
+        if hasattr(eng, "_hybrid_draft"):
+            draft = eng._hybrid_draft
+
+            def hybrid_draft(*a):
+                out = draft(*a)
+                self.use_sam = out[0]
+                return out
+            eng._hybrid_draft = hybrid_draft
+
+        def keep(rid, b, alen, chain):
+            r = self._rec(rid)
+            nodes = self.res.path_nodes
+            nodes = nodes[b] if nodes.dim() == 2 else nodes
+            r["rows"].append(self.logits[b][nodes[:alen].long()].float())
+            r["chains"].append(chain)
+            r["alens"].append(alen)
+
+        if hasattr(eng, "B"):
+            def batched_step(hist_lens, starts, budgets, lives, *rest):
+                live = lives.cpu().numpy()
+                rids = list(eng._slot_req)
+                out = step(hist_lens, starts, budgets, lives, *rest)
+                alens = (out[0] - hist_lens).cpu().numpy()
+                use = self.use_sam.cpu().numpy()
+                for b in np.nonzero(live)[0]:
+                    keep(rids[b], b, int(alens[b]), bool(use[b]))
+                return out
+            eng._step = batched_step
+        else:
+            def single_step(*a, **k):
+                out = step(*a, **k)
+                alen = int(self.res.accept_len)
+                chain = (self.use_sam is not None
+                         and bool(self.use_sam.reshape(-1)[0]))
+                keep(self.rid, 0, alen, chain)
+                return out
+            eng._step = single_step
+        self._torch = torch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward, self.mod.greedy_accept = self._saved[:2]
+        for name in ("_step", "_hybrid_draft"):
+            self.engine.__dict__.pop(name, None)
+
+    def outputs(self, rid, out):
+        """``out`` with its per-step committed lengths, for ``judge``."""
+        return SimpleNamespace(output_ids=out.output_ids,
+                               accept_length_per_step=self._rec(rid)["alens"])
+
+
+class ChainOracleRows:
+    """While active, the logits row 0 of every live slot at each step of a
+    batched chain engine run as its ``alpha = 0`` oracle (one real token a
+    step), per request id in order: the rows ``judge`` holds a batched
+    engine to."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.per_rid = {}
+
+    def __enter__(self):
+        import samd_tpu_torch.fused_sam as fs
+
+        eng, self._fwd, step = self.engine, fs.forward, self.engine._step
+        last = {}
+
+        def forward(*a, **k):
+            out = self._fwd(*a, **k)
+            last["logits"] = out[0]
+            return out
+        fs.forward = forward
+
+        def oracle_step(hist_lens, starts, budgets, lives, *rest):
+            live = lives.cpu().numpy()
+            rids = list(eng._slot_req)
+            out = step(hist_lens, starts, budgets, lives, *rest)
+            for b in np.nonzero(live)[0]:
+                self.per_rid.setdefault(rids[b], []).append(
+                    last["logits"][b, 0].float())
+            return out
+        eng._step = oracle_step
+        return self
+
+    def __exit__(self, *exc):
+        import samd_tpu_torch.fused_sam as fs
+
+        fs.forward = self._fwd
+        self.engine.__dict__.pop("_step", None)
+
+
+def warm_harvest(engine, rng, trajectories=()) -> None:
+    """Fill a fused tree engine's harvest tables as a long-served engine
+    holds them (``tools.profile_step.warm_harvest``: every token seen, a
+    seeded random top-8, so every tree has its full node count), and along
+    each ``(slot, tokens, oracle rows)`` trajectory the oracle's own top-8
+    after each token."""
+    import torch
+
+    from samd_tpu_torch.engine import harvest_topk
+    from samd_tpu_torch.fused_base import harvest_update
+    from samd_tpu_torch.tools.profile_step import warm_harvest as warm
+
+    harvests, seens = engine.harvests, engine.seens
+    K = harvests.shape[2]
+    warm(harvests, seens, rng)
+    for slot, tokens, rows in trajectories:
+        n = len(rows)
+        harvest_update(harvests[slot:slot + 1], seens[slot:slot + 1],
+                       torch.tensor(tokens[:n], device=harvests.device)[None],
+                       harvest_topk(torch.stack(rows), K)[None])
+
+
+def check_paged_compaction(card: str) -> None:
+    """``paged_kv.paged_compact_block`` on the card over one side of phase
+    11b's int8 pool (32 layers, 64 pages of 128 rows, KH 32, D 128) at B =
+    12, M = 24: shuffled tables, blocks across page boundaries, paths of
+    depth 10, two slots without pages (their rows on the scratch page).
+    Every page must equal a row-by-row copy of each slot's path, values
+    and scales bitwise, and pages outside every table stay untouched."""
+    import torch
+
+    from samd_tpu_torch.paged_kv import PagedKV, paged_compact_block
+
+    L, KH, D, page, n = 32, 32, 128, 128, 64
+    B, M, A, P = 12, 24, 10, 8
+    rng = np.random.default_rng(41)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    pool = torch.randint(-127, 128, (L, n + 1, KH, page, D), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    scale = torch.rand((L, n + 1, KH, page), generator=gen, device="cuda")
+    perm = rng.permutation(n)
+    tables = np.full((B, P), -1, np.int32)
+    for b in range(10):                       # slots 10 and 11 hold none
+        tables[b, :6] = perm[6 * b:6 * b + 6]
+    offsets = rng.integers(0, 6 * page - M, size=B).astype(np.int32)
+    offsets[:3] = (1, 2, 3) * np.array([page]) - 5   # across a boundary
+    paths = np.stack([np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, M), A - 1, replace=False))]) for _ in range(B)])
+    want_pool, want_scale = pool.clone(), scale.clone()
+    for b in range(10):
+        def at(pos):
+            return int(tables[b, pos // page]), pos % page
+        rows = [at(int(offsets[b] + paths[b, i])) for i in range(A)]
+        vals = [(want_pool[:, pg, :, sl].clone(),
+                 want_scale[:, pg, :, sl].clone()) for pg, sl in rows]
+        for i, (v, sc) in enumerate(vals):
+            pg, sl = at(int(offsets[b]) + i)
+            want_pool[:, pg, :, sl] = v
+            want_scale[:, pg, :, sl] = sc
+    got = PagedKV(pool, scale)
+    paged_compact_block(got, torch.from_numpy(tables).cuda(),
+                        torch.from_numpy(offsets).cuda(),
+                        torch.from_numpy(paths.astype(np.int32)).cuda(), M,
+                        n)
+    torch.cuda.synchronize()
+    fail_if(not (torch.equal(got.pool[:, :n], want_pool[:, :n])
+                 and torch.equal(got.scale[:, :n], want_scale[:, :n])),
+            "paged_compact_block: int8 pages differ from a row-by-row copy")
+    print(f"paged_compact_block over int8 pages (B 12, M 24, paths of depth "
+          f"{A}, 10 slots with pages and 2 on the scratch page): every page "
+          f"bitwise equal to a row-by-row copy, values and scales [{card}]",
+          flush=True)
+    del pool, scale, want_pool, want_scale, got
+    torch.cuda.empty_cache()
+
+
+def deep_tree_steps(card, label, rec) -> None:
+    """Fails unless some live slot-step of ``rec`` (``FusedSteps``)
+    accepted a tree path past the root's child (a committed length of 3 or
+    more after a tree draft): otherwise the judge saw no real tree path."""
+    alens = [a for r in rec.per_rid.values()
+             for c, a in zip(r["chains"], r["alens"]) if not c]
+    deep = sum(a >= 3 for a in alens)
+    print(f"{label}: {deep} of {len(alens)} tree slot-steps accepted a path "
+          f"of depth >= 2, longest {max(alens, default=0)} [{card}]",
+          flush=True)
+    fail_if(not deep, f"{label}: no tree draft accepted a path of depth "
+            ">= 2")
+
+
+def judge_all(card, label, cases, cfg, params, spread) -> list:
+    """``oracle_verdict`` of every (name, prompt, engine outputs, oracle
+    outputs, chains, oracle rows, engine path rows); prints each verdict
+    and returns them."""
+    verdicts = []
+    for name, p, out, ref, chains, ref_rows, rows in cases:
+        v = oracle_verdict(f"{label} request {name}", p, out, ref, chains,
+                           ref_rows, cfg, params, spread, rows)
+        print(f"{label} request {name}: {v}; {chains.count(True)} chain and "
+              f"{chains.count(False)} tree drafts [{card}]", flush=True)
+        verdicts.append(v)
+    return verdicts
+
+
+def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
+    """Phase 11: llama_7b int4 through the fused SAM[Token Recycle] hybrid:
+    (a) FusedHybridEngine over int8 KV, (b) PagedBatchedFusedHybridEngine
+    at B = 12 over int8 pages, (c) sampled requests."""
+    import torch
+
+    import samd_tpu_torch.fused_hybrid as fh
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_hybrid import (FusedHybridConfig,
+                                             FusedHybridEngine,
+                                             PagedBatchedFusedHybridEngine)
+    from samd_tpu_torch.fused_sam import (FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    # (a) one stream, int8 KV, the default hybrid (M 64, tree 61, chains 40)
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    hc = FusedHybridConfig(corpus_capacity=4096,
+                           cache_buckets=(256, 384, 512, 768))
+    M, S, new = hc.block, 1024, 128
+    gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
+    rng = np.random.default_rng(21)
+    prompts = {
+        "a_random_200": rng.integers(3, V, size=200).tolist(),
+        "b_own_corpus": rng.integers(3, V, size=96).tolist(),
+        "c_repetitive": rng.integers(3, V, size=8).tolist() * 12}
+    oracle = ArBaseline(qcfg, params, max_cache_len=S, eos_token_id=-1,
+                        block_size=M)
+    refs, ref_rows = {}, {}
+    with AcceptRows("oracle") as rows:
+        for name, p in prompts.items():
+            n0 = len(rows.steps)
+            refs[name] = oracle.generate(p, gen)
+            ref_rows[name] = rows.steps[n0:]
+    del oracle
+    plain = noise_spread(qcfg, params, [
+        (refs[n].output_ids, len(prompts[n]), ref_rows[n])
+        for n in ("a_random_200", "c_repetitive")])
+    spread = float(plain.max())
+    print(f"llama_7b hybrid: a plain prefill drifts from the oracle's own "
+          f"logits {np.median(plain):.5f} median, {spread:.5f} max over "
+          f"{len(plain)} positions: the near-tie rule's bound [{card}]",
+          flush=True)
+    engines = {"a_random_200": FusedHybridEngine(
+        qcfg, params, hc, max_cache_len=S, eos_token_id=-1)}
+    engines["c_repetitive"] = engines["a_random_200"]
+    engines["b_own_corpus"] = FusedHybridEngine(
+        qcfg, params, hc, corpus=refs["b_own_corpus"].output_ids + [0],
+        max_cache_len=S, eos_token_id=-1)
+    a = prompts["a_random_200"]
+    for e in (engines["a_random_200"], engines["b_own_corpus"]):
+        warm_harvest(e, np.random.default_rng(22), [
+            (0, refs["a_random_200"].output_ids[len(a):],
+             ref_rows["a_random_200"])])
+    torch.cuda.synchronize()
+    cases, done = [], []
+    reset_counts()                              # the path starts here
+    for name, p in prompts.items():
+        eng = engines[name]
+        with FusedSteps(eng, fh) as rec:
+            rec.next_request()
+            t0 = time.perf_counter()
+            out = eng.generate(p, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        r = rec.per_rid[0]
+        cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
+                      ref_rows[name], r["rows"]))
+        done.append((len(p), out.decode_steps))
+        print(f"llama_7b hybrid int8-KV request {name}: prompt {len(p)} new "
+              f"{out.decode_tokens} decode_steps {out.decode_steps} "
+              f"(retrieval chains {eng.sam_steps}) mean_accept "
+              f"{out.decode_tokens / out.decode_steps:.3f} ms_per_step "
+              f"{dt / out.decode_steps * 1e3:.3f} tok_per_s "
+              f"{out.decode_tokens / dt:.2f} (prefill included) [{card}]",
+              flush=True)
+    counts = read_counts()                      # the path ends here
+    judge_all(card, "llama_7b hybrid int8-KV", cases, qcfg, params, spread)
+    forwards = sum(1 + steps for _, steps in done)
+    short = sum(steps + (n <= 128) for n, steps in done)
+    want = {"flash_block_attention": 0,
+            "flash_block_attention_int8kv": L * short,
+            "int4_matmul": (7 * L + 1) * forwards,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want, f"llama_7b hybrid: launch counts {counts}, "
+            f"expected {want}")
+    print(f"llama_7b hybrid path: int4_matmul {counts['int4_matmul']} = 225 "
+          f"x {forwards} forwards; int8-KV verify "
+          f"{counts['flash_block_attention_int8kv']} = 32 x {short} forwards "
+          f"of T <= 128 [{card}]", flush=True)
+
+    # (c) sampled: each accept mode twice from one saved harvest state;
+    # point-mass requests equal the greedy run from that state
+    eng = engines["a_random_200"]
+    saved = (eng.harvests.clone(), eng.seens.clone())
+    p = prompts["c_repetitive"]
+
+    def run(**kw):
+        eng.harvests.copy_(saved[0])
+        eng.seens.copy_(saved[1])
+        return eng.generate(p, GenerationConfig(
+            max_new_tokens=64, max_cache_len=S, **kw)).output_ids
+
+    for i, (mode, knobs) in enumerate((
+            ("rejection", dict(temperature=0.8, top_k=50)),
+            ("typical", dict(temperature=0.8)),
+            ("nucleus", dict(temperature=0.8, top_p=0.9)))):
+        one = run(greedy=False, seed=70 + i, accept_mode=mode, **knobs)
+        fail_if(one != run(greedy=False, seed=70 + i, accept_mode=mode,
+                           **knobs),
+                f"llama_7b hybrid sampled {mode}: two runs with one seed "
+                "differ")
+        print(f"llama_7b hybrid sampled {mode}: two runs with seed {70 + i} "
+              f"equal [{card}]", flush=True)
+    greedy = run()
+    for mode in POINT_MASS:
+        fail_if(run(greedy=False, seed=80, accept_mode=mode,
+                    **POINT_MASS[mode]) != greedy,
+                f"llama_7b hybrid point-mass {mode}: differs from greedy")
+    print(f"llama_7b hybrid point-mass rejection and nucleus requests equal "
+          f"the greedy run [{card}]", flush=True)
+    del engines, eng, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) paged B = 12, the server's block, over int8 pages
+    B, page, n_pages = 12, 128, 64
+    kw = dict(batch_size=B, max_cache_len=S, eos_token_id=-1,
+              prefill_buckets=(128, 256), n_pages=n_pages, page_size=page,
+              quantized_kv=True)
+    hy = FusedHybridConfig(steps_per_call=16, tree_nodes=23, n_predicts=20,
+                           max_block=24, corpus_capacity=4096)
+    oracle_eng = PagedBatchedFusedSamEngine(
+        cfg, params, FusedSamConfig(n_predicts=hy.block - 1,
+                                    steps_per_call=16, alpha=0.0,
+                                    corpus_capacity=4096), **kw)
+    with ChainOracleRows(oracle_eng) as orows:
+        oracle, o_wall, o_steps = serve_batched(oracle_eng, requests, V)
+    o_rows = [orows.per_rid[i] for i in range(len(requests))]
+    del oracle_eng
+    corpus = sum((o.output_ids + [0] for o in oracle[:4]), [])
+    plain = noise_spread(cfg, params, [
+        (o.output_ids, len(p), rr) for (p, _), o, rr in
+        zip(requests[4:6], oracle[4:6], o_rows[4:6])])
+    spread = float(plain.max())
+    print(f"llama_7b paged hybrid: the chain oracle at M = 24 "
+          f"{o_wall / o_steps * 1e3:.3f} ms/step; a plain prefill drifts "
+          f"from its logits {np.median(plain):.5f} median, {spread:.5f} max "
+          f"over {len(plain)} positions [{card}]", flush=True)
+    check_paged_compaction(card)
+    eng = PagedBatchedFusedHybridEngine(cfg, params, hy, corpus=corpus, **kw)
+    warm_harvest(eng, np.random.default_rng(23))
+    gc.collect()
+    torch.cuda.synchronize()
+    with FusedSteps(eng, fh) as rec:
+        reset_counts()                          # the path starts here
+        outs, wall, steps = serve_batched(eng, requests, V)
+        counts = read_counts()                  # the path ends here
+    label = "llama_7b paged hybrid B=12 int8 pages"
+    rid0 = min(rec.per_rid)
+    cases = [(str(i), p, rec.outputs(rid0 + i, o), r,
+              rec.per_rid[rid0 + i]["chains"], rr,
+              rec.per_rid[rid0 + i]["rows"])
+             for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
+                                                        oracle, o_rows))]
+    verdicts = judge_all(card, label, cases, cfg, params, spread)
+    del rec, cases
+    fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
+            f"{label}: {n_pages - len(eng.pool._free)} pages not returned")
+    new_tok = sum(o.decode_tokens for o in outs)
+    n_equal = sum(v.startswith("equal") for v in verdicts)
+    print(f"{label}: {len(outs)} requests, {new_tok} new tokens, {steps} "
+          f"steps of [12, 24], wall {wall:.3f} s: {new_tok / wall:.2f} tok/s, "
+          f"{wall / steps * 1e3:.3f} ms/step, mean accept "
+          f"{new_tok / eng.steps_total:.3f} per live slot-step, retrieval "
+          f"chains {eng.sam_steps_total} of {eng.steps_total} slot-steps, "
+          f"peak_pages {eng.peak_pages} of {n_pages}; {n_equal} equal to "
+          f"the chain oracle, {len(outs) - n_equal} near-ties; all pages "
+          f"returned [{card}]", flush=True)
+    p128 = sum(len(p) <= 128 for p, _ in requests)
+    want = {"flash_block_attention": L * p128,
+            "flash_block_attention_int8kv": 0,
+            "int4_matmul": (7 * L + 1) * (steps + len(requests)),
+            "paged_block_attention": 0,
+            "paged_block_attention_int8kv": L * steps}
+    fail_if(counts != want or not steps,
+            f"{label}: launch counts {counts}, expected {want}")
+    print(f"{label} path: K4 int8 {counts['paged_block_attention_int8kv']} = "
+          f"32 x {steps} steps; K3 {counts['int4_matmul']} = 225 x "
+          f"{steps + len(requests)} forwards [{card}]", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main_path_1b_fused(card: str) -> None:
+    """Phase 12: llama_1b bf16 through PldEngine, FusedTokenRecycleEngine,
+    the dense and paged BatchedFusedHybridEngine at B = 4, and both hybrid
+    server engines over HTTP."""
+    import torch
+
+    import samd_tpu_torch.fused_hybrid as fh
+    import samd_tpu_torch.token_recycle_fused as trf
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
+                                             FusedHybridConfig,
+                                             PagedBatchedFusedHybridEngine)
+    from samd_tpu_torch.fused_sam import (BatchedFusedSamEngine,
+                                          FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+    from samd_tpu_torch.models import init_params, llama_1b
+    from samd_tpu_torch.pld import PldConfig, PldEngine
+    from samd_tpu_torch.server import build_server_engine
+    from samd_tpu_torch.server import serve as serve_http
+    from samd_tpu_torch.token_recycle_fused import FusedTokenRecycleEngine
+
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    S, V, L = 2048, cfg.vocab_size, cfg.num_layers
+    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    rng = np.random.default_rng(31)
+    base = rng.integers(3, V, size=8).tolist()
+    prompts = {"a_random": rng.integers(3, V, size=64).tolist(),
+               "b_repetitive": base * 12}
+
+    # PLD: chains only, bitwise equal to the block-11 oracle
+    pld = PldEngine(cfg, params, PldConfig(), max_cache_len=S,
+                    eos_token_id=-1)
+    oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
+                        block_size=PldConfig().block)
+    refs = {n: oracle.generate(p, gen) for n, p in prompts.items()}
+    reset_counts()                              # the path starts here
+    done = serve(card, "llama_1b PLD", {n: pld for n in prompts}, prompts,
+                 refs, gen, V)
+    counts = read_counts()                      # the path ends here
+    forwards = sum(1 + steps for _, steps in done)
+    fail_if(counts["flash_block_attention"] != L * forwards
+            or sum(counts.values()) != L * forwards,
+            f"llama_1b PLD: launch counts {counts}, expected 22 x "
+            f"{forwards} verify launches")
+    del pld, oracle
+
+    # fused Token Recycle, a warm harvest: 61-node trees, judged
+    tr = FusedTokenRecycleEngine(cfg, params, max_cache_len=S,
+                                 eos_token_id=-1)
+    oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
+                        block_size=tr.N)
+    refs, ref_rows = {}, {}
+    with AcceptRows("oracle") as rows:
+        for name, p in prompts.items():
+            n0 = len(rows.steps)
+            refs[name] = oracle.generate(p, gen)
+            ref_rows[name] = rows.steps[n0:]
+    del oracle
+    plain = noise_spread(cfg, params, [
+        (refs[n].output_ids, len(p), ref_rows[n])
+        for n, p in prompts.items()])
+    spread = float(plain.max())
+    a = prompts["a_random"]
+    warm_harvest(tr, np.random.default_rng(32), [
+        (0, refs["a_random"].output_ids[len(a):], ref_rows["a_random"])])
+    cases, forwards = [], 0
+    reset_counts()                              # the path starts here
+    for name, p in prompts.items():
+        with FusedSteps(tr, trf) as rec:
+            rec.next_request()
+            t0 = time.perf_counter()
+            out = tr.generate(p, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        r = rec.per_rid[0]
+        cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
+                      ref_rows[name], r["rows"]))
+        forwards += 1 + out.decode_steps
+        print(f"llama_1b fused Token Recycle request {name}: "
+              f"{out.decode_steps} steps of a 61-node tree, mean accept "
+              f"{out.decode_tokens / out.decode_steps:.3f}, "
+              f"{dt / out.decode_steps * 1e3:.3f} ms/step [{card}]",
+              flush=True)
+    counts = read_counts()                      # the path ends here
+    print(f"llama_1b fused Token Recycle: the plain prefill's bound "
+          f"{spread:.5f} [{card}]", flush=True)
+    judge_all(card, "llama_1b fused Token Recycle", cases, cfg, params,
+              spread)
+    fail_if(counts["flash_block_attention"] != L * forwards
+            or sum(counts.values()) != L * forwards,
+            f"llama_1b fused Token Recycle: launch counts {counts}")
+    del tr, cases
+    gc.collect()
+
+    # the dense and paged batched hybrid at B = 4, M = 24
+    kw = dict(batch_size=4, max_cache_len=1024, eos_token_id=-1,
+              prefill_buckets=(128, 256))
+    rng = np.random.default_rng(33)
+    fresh = [(rng.integers(3, V, size=int(n)).tolist(), 64)
+             for n in rng.integers(40, 101, size=4)]
+    requests = fresh + fresh[:2]
+    hy = FusedHybridConfig(steps_per_call=16, tree_nodes=23, n_predicts=20,
+                           max_block=24, corpus_capacity=4096)
+    chain = FusedSamConfig(n_predicts=hy.block - 1, steps_per_call=16,
+                           alpha=0.0, corpus_capacity=4096)
+    pages = dict(n_pages=32, page_size=128)
+    for kind, (hy_ctor, sam_ctor, extra) in {
+            "dense": (BatchedFusedHybridEngine, BatchedFusedSamEngine, {}),
+            "paged": (PagedBatchedFusedHybridEngine,
+                      PagedBatchedFusedSamEngine, pages)}.items():
+        label = f"llama_1b {kind} hybrid B=4"
+        ora = sam_ctor(cfg, params, chain, **kw, **extra)
+        with ChainOracleRows(ora) as orows:
+            oracle, _, _ = serve_batched(ora, requests, V)
+        o_rows = [orows.per_rid[i] for i in range(len(requests))]
+        del ora
+        plain = noise_spread(cfg, params, [
+            (o.output_ids, len(p), rr) for (p, _), o, rr in
+            zip(requests[:2], oracle[:2], o_rows[:2])])
+        spread = float(plain.max())
+        corpus = sum((o.output_ids + [0] for o in oracle[:2]), [])
+        eng = hy_ctor(cfg, params, hy, corpus=corpus, **kw, **extra)
+        warm_harvest(eng, np.random.default_rng(34), [
+            (b, o.output_ids[len(p):], rr) for b in range(kw["batch_size"])
+            for (p, _), o, rr in zip(requests, oracle, o_rows)])
+        torch.cuda.synchronize()
+        with FusedSteps(eng, fh) as rec:
+            reset_counts()                      # the path starts here
+            outs, wall, steps = serve_batched(eng, requests, V)
+            counts = read_counts()              # the path ends here
+        cases = [(str(i), p, rec.outputs(i, o), r, rec.per_rid[i]["chains"],
+                  rr, rec.per_rid[i]["rows"])
+                 for i, ((p, _), o, r, rr) in enumerate(zip(
+                     requests, outs, oracle, o_rows))]
+        verdicts = judge_all(card, label, cases, cfg, params, spread)
+        deep_tree_steps(card, label, rec)
+        del rec, cases
+        n_equal = sum(v.startswith("equal") for v in verdicts)
+        new_tok = sum(o.decode_tokens for o in outs)
+        print(f"{label}: {new_tok} new tokens, {steps} steps of [4, 24], "
+              f"{wall / steps * 1e3:.3f} ms/step, {new_tok / wall:.2f} tok/s, "
+              f"retrieval chains {eng.sam_steps_total} of {eng.steps_total} "
+              f"slot-steps; {n_equal} equal to the chain oracle, "
+              f"{len(outs) - n_equal} near-ties (bound {spread:.5f}) "
+              f"[{card}]", flush=True)
+        want = {"flash_block_attention": L * len(requests),
+                "flash_block_attention_int8kv": 0, "int4_matmul": 0,
+                "paged_block_attention": L * steps if kind == "paged"
+                else 0, "paged_block_attention_int8kv": 0}
+        fail_if(counts != want or not steps,
+                f"{label}: launch counts {counts}, expected {want}")
+        if kind == "paged":
+            fail_if(len(eng.pool._free) != 32, f"{label}: pages not "
+                    "returned")
+        del eng
+        gc.collect()
+
+    # both hybrid server engines over 127.0.0.1, against the same engine
+    # called directly from the same (empty) harvest tables
+    four = [p for p, _ in requests[:4]]
+    for name in ("fused_hybrid_batched", "paged_fused_hybrid"):
+        args = SimpleNamespace(model=None, random_model=True, tiny=False,
+                               engine=name, batch_size=4, quantize=None,
+                               max_cache_len=1024, sam=None, cpu=False,
+                               inline_prefill=False)
+        eng = build_server_engine(args)
+        direct, _, _ = serve_batched(eng, [(p, 32) for p in four], V)
+        eng.harvests.zero_()
+        eng.seens.zero_()
+        server, sched = serve_http(eng, port=0, block=False)
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            reset_counts()                      # the path starts here
+            replies = http_traffic(url, [{"input_ids": p,
+                                          "max_new_tokens": 32}
+                                         for p in four], name)
+            counts = read_counts()              # the path ends here
+        finally:
+            server.shutdown()
+            sched.close()
+        fail_if([r["output_ids"] for r in replies]
+                != [o.output_ids for o in direct],
+                f"server --engine {name}: replies differ from the engine "
+                "called directly")
+        fail_if(counts["flash_block_attention"] != L * len(four)
+                or (name == "paged_fused_hybrid")
+                != bool(counts["paged_block_attention"]),
+                f"server --engine {name}: launch counts {counts}")
+        print(f"server --engine {name}: 4 greedy replies over HTTP equal to "
+              f"the engine called directly; launches {counts} [{card}]",
+              flush=True)
+        del eng
+        gc.collect()
+
+
 def main() -> int:
     import torch
 
@@ -2528,32 +3262,46 @@ def main() -> int:
             "flash_block_attention_int8kv": check_int8_attention(card),
             "int4_matmul": check_int4(card), **check_paged(card)}
     check_tree_masks(card)
+    errs = check_hybrid_masks(card)
+    for name, key in (("flash_block_attention", "pld"),
+                      ("flash_block_attention", "tr"),
+                      ("flash_block_attention_int8kv", "int8")):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        errs[(key, torch.bfloat16)])
+    rows["paged_block_attention_int8kv"]["max_abs_err"] = max(
+        rows["paged_block_attention_int8kv"]["max_abs_err"], errs["k4"])
 
-    # phases 4 to 10: the paths, each with its counts read on its own
-    launches = {"flash_block_attention": main_path_1b(card)}
+    # phases 4 to 12: the paths, each with its counts read on its own and
+    # summed into TOTALS
+    main_path_1b(card)
     gc.collect()
     torch.cuda.empty_cache()
     cfg7, params7 = llama_7b_int4_params()
-    (launches["int4_matmul"],
-     launches["flash_block_attention_int8kv"]) = main_path_7b(card, cfg7,
-                                                             params7)
+    main_path_7b(card, cfg7, params7)
     gc.collect()
     torch.cuda.empty_cache()
-    (launches["paged_block_attention_int8kv"], requests7,
-     oracle7) = main_path_7b_paged(card, cfg7, params7)
+    _, requests7, oracle7 = main_path_7b_paged(card, cfg7, params7)
     gc.collect()
     torch.cuda.empty_cache()
     main_path_server(card, cfg7, params7, requests7, oracle7)
     gc.collect()
     torch.cuda.empty_cache()
     main_path_7b_host(card, cfg7, params7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_7b_hybrid(card, cfg7, params7, requests7)
     del params7
     gc.collect()
     torch.cuda.empty_cache()
-    launches["paged_block_attention"] = main_path_1b_batched(card)
+    main_path_1b_batched(card)
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_host(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_1b_fused(card)
+    fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "
+            f"{TOTALS}")
 
     meta = {
         "flash_block_attention": (
@@ -2573,7 +3321,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],
-         "replaces": meta[name][1], "launches": launches[name], **rows[name]}
+         "replaces": meta[name][1], "launches": TOTALS[name], **rows[name]}
         for name in meta]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,8 @@ from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.paged_attention import boundary_mask_window
 from .ops.treeops import pack_draft_host, unpack_draft
 from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
-                       paged_flat_indices, paged_write_block)
+                       paged_compact_block, paged_flat_indices,
+                       paged_write_block)
 from .streaming import ProgressStreamMixin
 from .verify import (draw_first_token, draw_tree_noise, greedy_accept,
                      make_accept_fn)
@@ -393,22 +394,13 @@ class PagedBatchedSamdEngine(BatchedSamdEngine):
         return logits
 
     def _compact(self, cache_lens, path_nodes) -> None:
-        """One gather and one scatter per layer compact every slot's
-        accepted block rows to [offset, offset + D) (reference
-        ``compact_all``, ``samd_tpu/batching.py:420-444``).  Live slots own
-        disjoint pages; released slots' rows all land on the scratch
-        page, where write order does not matter."""
+        """One gather and one scatter compact every slot's accepted block
+        rows to [offset, offset + D) (reference ``compact_all``,
+        ``samd_tpu/batching.py:420-444``, here ``paged_compact_block``)."""
         M = self.samd_cfg.max_predicts
-        B, D = path_nodes.shape
-        pg, sl = paged_flat_indices(self._tables(), cache_lens, M,
-                                    self.page_size, self.pool.scratch_page)
-        src = (path_nodes.long()
-               + M * torch.arange(B, device=self.device)[:, None]).reshape(-1)
-        dst_pg = pg.reshape(B, M)[:, :D].reshape(-1)
-        dst_sl = sl.reshape(B, M)[:, :D].reshape(-1)
         for side in (self.kv_k, self.kv_v):
-            rows = side.pool[:, pg, :, sl]           # [B*M, L, KH, Dh]
-            side.pool[:, dst_pg, :, dst_sl] = rows[src]
+            paged_compact_block(side, self._tables(), cache_lens, path_nodes,
+                                M, self.pool.scratch_page)
 
     def _release_slot(self, slot: int) -> None:
         self.page_reqs[slot].release()

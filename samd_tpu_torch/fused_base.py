@@ -1,5 +1,5 @@
 """Shared pieces of the fused device-resident engines (counterpart of
-``samd_tpu/fused_base.py:59-150``).
+``samd_tpu/fused_base.py:59-163``).
 
 The corpus buffer and its n-gram index are explicit arguments of the
 retrieval function, never captured in a closure (the reference's lesson of
@@ -130,3 +130,34 @@ def init_history(input_ids: Sequence[int], S: int,
     history[:len(input_ids)] = torch.tensor(list(input_ids),
                                             dtype=torch.int32)
     return history.to(device)
+
+
+def harvest_update(harvests: torch.Tensor, seens: torch.Tensor,
+                   rows: torch.Tensor, topk: torch.Tensor) -> None:
+    """The Token-Recycle harvest scatter, IN PLACE: for every slot b and
+    block row t, ``harvests[b, rows[b, t]] = topk[b, t]`` and
+    ``seens[b, rows[b, t]] = True``, then ``seens[:, V] = False``.
+
+    harvests [B, V + 1, K] int32, seens [B, V + 1] bool, rows [B, T] int
+    (V, the sink row, for rows that must not land: dead slots, invalid
+    nodes, prefill padding), topk [B, T, K] (``engine.harvest_topk``).
+
+    A block often holds one token at several rows.  The reference's
+    ``.at[rows].set`` keeps the last of them on the CPU; a CUDA scatter
+    promises no order.  Here the rule is explicit: the highest row index
+    wins, and every duplicate writes that winner's values, so the scatter's
+    order cannot matter."""
+    B, V1, K = harvests.shape
+    T = rows.shape[1]
+    dev = rows.device
+    r = rows.long()
+    t = torch.arange(T, device=dev)
+    same = r[:, :, None] == r[:, None, :]                        # [B, T, T]
+    win = torch.where(same, t, -1).amax(dim=-1)                  # [B, T]
+    vals = torch.gather(topk.to(torch.int32), 1,
+                        win[:, :, None].expand(B, T, K))
+    flat = (r + V1 * torch.arange(B, device=dev)[:, None]).reshape(-1)
+    harvests.view(B * V1, K).index_copy_(0, flat, vals.reshape(B * T, K))
+    seens.view(-1)[flat] = True
+    seens[:, V1 - 1] = False
+

@@ -308,44 +308,59 @@ def make_chain_accept_fn(sig: tuple) -> AcceptFn:
     return rejection
 
 
-class FusedSamEngine:
-    """Fused retrieval decoding over one batch-1 KV cache: greedy, or
-    sampled by the request's accept rule."""
+class _DraftRules:
+    """The hooks by which an engine's drafter meets the shared loops: the
+    sampled accept rule and its noise (chain rules here; the tree engines
+    of ``fused_hybrid`` take the tree rules), and what the drafter learns
+    from a prefill (nothing here)."""
 
-    def __init__(self, model_cfg: ModelConfig, params: Params,
-                 fs_cfg: Optional[FusedSamConfig] = None, *,
-                 corpus: Optional[Sequence[int]] = None,
+    def _accept_rule(self, sig: tuple):
+        return make_chain_accept_fn(sig)
+
+    def _draw_noise(self, generators, sig: tuple):
+        return draw_chain_noise(generators, sig, self.cfg.block,
+                                self.model_cfg.vocab_size, self.device)
+
+    def _observe_prompt(self, slot: int, tokens: torch.Tensor, true_len: int,
+                        logits: torch.Tensor) -> None:
+        """The prefill's bucket-padded tokens [P] and logits [P, V] for
+        ``slot`` (0 for one stream); rows from ``true_len`` are padding."""
+
+
+class SingleStreamEngine(_DraftRules):
+    """The request loop of the one-stream fused engines (``FusedSamEngine``
+    and its hybrid subclass, ``pld.PldEngine``,
+    ``token_recycle_fused.FusedTokenRecycleEngine``): a prefill into a
+    batch-1 cache (its logits shown to ``_observe_prompt``), then ``_step``
+    until the request is done, with one host read of the packed control
+    vector per step.  ``cfg.block`` is the verify block M; the cache holds
+    ``max_cache_len`` slots, or per request the smallest of
+    ``cache_buckets`` that covers prompt + budget + M.  Subclasses
+    implement ``_step`` (the contract of ``FusedSamEngine._step``); a
+    greedy-only drafter refuses sampled requests in ``_accept_rule``,
+    before the prefill."""
+
+    def __init__(self, model_cfg: ModelConfig, params: Params, cfg, *,
+                 cache_buckets: Sequence[int] = (),
                  max_cache_len: int = 2048, eos_token_id: int = 2,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  device: Union[str, torch.device] = "cuda"):
-        from .fused_base import (_retrieval_draft_argform,
-                                 build_optional_index, load_corpus_buffer)
-
         check_supported(model_cfg)
-        self.cfg = fs_cfg or FusedSamConfig()
+        self.cfg = cfg
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.model_cfg = model_cfg
         self.params = params
         self.S = max_cache_len
+        self.cache_buckets = tuple(sorted(cache_buckets))
         self.eos_token_id = eos_token_id
         self.prefill_buckets = tuple(b for b in prefill_buckets
                                      if b <= max_cache_len)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
-        # retrieval state (the corpus and its optional index) is an
-        # explicit argument of every draft call
-        self.corpus, self.corpus_len = load_corpus_buffer(
-            corpus, self.cfg.corpus_capacity, self.device)
-        self.corpus_index = build_optional_index(corpus, self.cfg,
-                                                 self.device)
-        self._draft = _retrieval_draft_argform(
-            S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
-            len_bias=self.cfg.len_bias, block=self.cfg.block)
-        self._chain_pos = torch.arange(self.cfg.block, dtype=torch.int32,
+        self._chain_pos = torch.arange(cfg.block, dtype=torch.int32,
                                        device=self.device)
 
-    # ------------------------------------------------------------------
     def _prefill(self, input_ids, P: int, W: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fresh (zeroed) cache of W slots, prompt forward at offset 0;
@@ -360,12 +375,91 @@ class FusedSamEngine:
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(input_ids)] = torch.tensor(input_ids,
                                                   dtype=torch.int32)
+        padded = padded.to(dev)
         logits, _ = forward(
-            self.params, self.model_cfg, padded.to(dev),
+            self.params, self.model_cfg, padded,
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, W, dev))
+        self._observe_prompt(0, padded[0], len(input_ids), logits[0])
         last = logits[0, len(input_ids) - 1]
         return torch.argmax(last).to(torch.int32), last
+
+    def generate(self, input_ids: Sequence[int],
+                 gen_config: Optional[GenerationConfig] = None) -> Outputs:
+        from .fused_base import (finalize_generation, init_history,
+                                 pack_ctrl)
+
+        gen = gen_config or GenerationConfig()
+        input_ids = list(input_ids)
+        if not input_ids:
+            raise ValueError("generate() requires a non-empty prompt")
+        check_request(input_ids, gen, self.model_cfg.vocab_size)
+        accept = rng = sig = None
+        if not gen.greedy:
+            sig = gen.sampling_signature
+            accept = self._accept_rule(sig)
+        dev, M = self.device, self.cfg.block
+        P = _bucket(len(input_ids), self.prefill_buckets)
+        # cache bucket: the smallest configured size covering this
+        # request's reachable length (prompt + budget + block)
+        W = self.S
+        need = max(len(input_ids) + gen.max_new_tokens + M, P)
+        for w in self.cache_buckets:
+            if need <= w < self.S:
+                W = w
+                break
+        start, last = self._prefill(input_ids, P, W)
+        if accept is not None:
+            rng = torch.Generator(device=dev)
+            rng.manual_seed(gen.seed)
+            start = draw_first_token(rng, last, gen.temperature)
+
+        history = init_history(input_ids, self.S, dev)
+        hist_len = torch.tensor(len(input_ids), dtype=torch.int32,
+                                device=dev)
+        budget = torch.tensor(gen.max_new_tokens, dtype=torch.int32,
+                              device=dev)
+        eos = torch.tensor(self.eos_token_id, dtype=torch.int32, device=dev)
+        hl, left, done = len(input_ids), gen.max_new_tokens, False
+        decode_steps = 0
+        while not done and left > 0 and hl + M <= W:
+            noise = None if rng is None else self._draw_noise([rng], sig)
+            hist_len, start, budget, done_t = self._step(
+                W, history, hist_len, start, budget, eos, accept, noise)
+            # the step's one host read
+            hl, left, done_i = pack_ctrl(hist_len, budget,
+                                         done_t).cpu().tolist()
+            done = bool(done_i)
+            decode_steps += 1
+        output = finalize_generation(history, hl, len(input_ids),
+                                     self.eos_token_id, gen.max_new_tokens)
+        return Outputs(output, len(output) - len(input_ids), decode_steps,
+                       [])
+
+
+class FusedSamEngine(SingleStreamEngine):
+    """Fused retrieval decoding over one batch-1 KV cache: greedy, or
+    sampled by the request's accept rule.  Keyword arguments are
+    ``SingleStreamEngine``'s."""
+
+    def __init__(self, model_cfg: ModelConfig, params: Params,
+                 fs_cfg: Optional[FusedSamConfig] = None, *,
+                 corpus: Optional[Sequence[int]] = None, **kwargs):
+        from .fused_base import (_retrieval_draft_argform,
+                                 build_optional_index, load_corpus_buffer)
+
+        fs_cfg = fs_cfg or FusedSamConfig()
+        super().__init__(model_cfg, params, fs_cfg,
+                         cache_buckets=fs_cfg.cache_buckets, **kwargs)
+        # retrieval state (the corpus and its optional index) is an
+        # explicit argument of every draft call
+        self.corpus, self.corpus_len = load_corpus_buffer(
+            corpus, self.cfg.corpus_capacity, self.device)
+        self.corpus_index = build_optional_index(corpus, self.cfg,
+                                                 self.device)
+        self._draft = _retrieval_draft_argform(
+            S=self.S, max_ngram=self.cfg.max_ngram, ext=self.cfg.ext,
+            len_bias=self.cfg.len_bias, block=self.cfg.block)
 
     def _step(self, W: int, history: torch.Tensor, hist_len: torch.Tensor,
               start: torch.Tensor, budget: torch.Tensor, eos: torch.Tensor,
@@ -414,65 +508,12 @@ class FusedSamEngine:
         done = any_eos | (budget <= 0)
         return hist_len, bonus, budget, done
 
-    # ------------------------------------------------------------------
-    def generate(self, input_ids: Sequence[int],
-                 gen_config: Optional[GenerationConfig] = None) -> Outputs:
-        from .fused_base import (finalize_generation, init_history,
-                                 pack_ctrl)
-
-        gen = gen_config or GenerationConfig()
-        input_ids = list(input_ids)
-        if not input_ids:
-            raise ValueError("generate() requires a non-empty prompt")
-        check_request(input_ids, gen, self.model_cfg.vocab_size)
-        dev, M = self.device, self.cfg.block
-        P = _bucket(len(input_ids), self.prefill_buckets)
-        # cache bucket: the smallest configured size covering this
-        # request's reachable length (prompt + budget + block)
-        W = self.S
-        need = max(len(input_ids) + gen.max_new_tokens + M, P)
-        for w in sorted(self.cfg.cache_buckets):
-            if need <= w < self.S:
-                W = w
-                break
-        start, last = self._prefill(input_ids, P, W)
-        accept = rng = sig = None
-        if not gen.greedy:
-            sig = gen.sampling_signature
-            accept = make_chain_accept_fn(sig)
-            rng = torch.Generator(device=dev)
-            rng.manual_seed(gen.seed)
-            start = draw_first_token(rng, last, gen.temperature)
-
-        history = init_history(input_ids, self.S, dev)
-        hist_len = torch.tensor(len(input_ids), dtype=torch.int32,
-                                device=dev)
-        budget = torch.tensor(gen.max_new_tokens, dtype=torch.int32,
-                              device=dev)
-        eos = torch.tensor(self.eos_token_id, dtype=torch.int32, device=dev)
-        hl, left, done = len(input_ids), gen.max_new_tokens, False
-        decode_steps = 0
-        while not done and left > 0 and hl + M <= W:
-            noise = None if rng is None else draw_chain_noise(
-                [rng], sig, M, self.model_cfg.vocab_size, dev)
-            hist_len, start, budget, done_t = self._step(
-                W, history, hist_len, start, budget, eos, accept, noise)
-            # the step's one host read
-            hl, left, done_i = pack_ctrl(hist_len, budget,
-                                         done_t).cpu().tolist()
-            done = bool(done_i)
-            decode_steps += 1
-        output = finalize_generation(history, hl, len(input_ids),
-                                     self.eos_token_id, gen.max_new_tokens)
-        return Outputs(output, len(output) - len(input_ids), decode_steps,
-                       [])
-
 
 # ----------------------------------------------------------------------
 # Batched fused serving: continuous batching x device-resident retrieval
 # ----------------------------------------------------------------------
 
-class BatchedFusedSamEngine(ProgressStreamMixin):
+class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
     """B request slots stepped together (reference
     ``samd_tpu/fused_sam.py:446-887``).
 
@@ -570,7 +611,7 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         and the last prompt row's logits."""
         P = _bucket(len(ids), self.prefill_buckets)
         fk, fv = init_kv_cache(self.model_cfg, 1, self.S, self.device)
-        first = self._prefill_forward(ids, P, fk, fv, self.S)
+        first = self._prefill_forward(slot, ids, P, fk, fv, self.S)
         update_slot(self.kv_k, fk, slot)
         update_slot(self.kv_v, fv, slot)
         self._seed_history(slot, ids)
@@ -623,17 +664,20 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         occupant's pages; growth happens per segment)."""
 
     # -- device pieces ---------------------------------------------------
-    def _prefill_forward(self, ids, P: int, fk, fv, W: int
+    def _prefill_forward(self, slot: int, ids, P: int, fk, fv, W: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The bucket-padded prompt's forward at offset 0 into a batch-1
-        cache of W slots; returns the greedy next token (0-dim, on the
-        device) and the last prompt row's logits [V]."""
+        cache of W slots, shown to the drafter of ``slot``; returns the
+        greedy next token (0-dim, on the device) and the last prompt row's
+        logits [V]."""
         dev = self.device
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
-        logits, _ = forward(self.params, self.model_cfg, padded.to(dev),
+        padded = padded.to(dev)
+        logits, _ = forward(self.params, self.model_cfg, padded,
                             torch.arange(P, device=dev)[None, :], fk, fv, 0,
                             prefill_mask(1, P, W, dev))
+        self._observe_prompt(slot, padded[0], len(ids), logits[0])
         last = logits[0, len(ids) - 1]
         return torch.argmax(last).to(torch.int32), last
 
@@ -763,7 +807,7 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
         prompt_t, limits_t = up(prompt_lens), up(limits)
         accept = samp_t = None
         if sig is not None and samp.any():
-            accept = make_chain_accept_fn(sig)
+            accept = self._accept_rule(sig)
             samp_t = up(samp, torch.bool)
         lives, steps = init_lives, 0
         while lives.any() and steps < self.cfg.steps_per_call \
@@ -772,10 +816,9 @@ class BatchedFusedSamEngine(ProgressStreamMixin):
             if accept is not None:
                 # only the live sampled slots draw: a slot's stream advances
                 # with its own steps alone
-                noise = draw_chain_noise(
+                noise = self._draw_noise(
                     [self._slot_gen[i] if samp[i] and lives[i] else None
-                     for i in range(B)], sig, M, self.model_cfg.vocab_size,
-                    dev)
+                     for i in range(B)], sig)
             state = self._step(*state, prompt_t, limits_t, paged, samp_t,
                                accept, noise)
             self.steps_run += 1
@@ -1054,7 +1097,7 @@ class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
         req.ensure(min(-(-P // self._page_size) * self._page_size, self.S))
         # a bf16 (cfg.dtype) cache of P slots, also over an int8 pool
         fk, fv = init_kv_cache(self.model_cfg, 1, P, self.device)
-        first = self._prefill_forward(ids, P, fk, fv, P)
+        first = self._prefill_forward(slot, ids, P, fk, fv, P)
         flat_pg, flat_sl = paged_flat_indices(
             req.table(self.device)[None],
             torch.zeros((1,), dtype=torch.int32, device=self.device), P,

@@ -14,8 +14,9 @@ The reference's ``paged_forward`` and ``scatter_block_t`` (used by its
 ``batching.py``) are this module's ``paged_write_block`` and the paged mode
 of ``models.llama.forward``, which ``batching.PagedBatchedSamdEngine``
 runs; its v1 gather path (``gather_request``, ``scatter_block``) has no
-caller, and ``paged_compact_block`` (the fused tree engines) comes with
-ROADMAP queue 1 item 13.
+caller.  ``paged_compact_block`` compacts accepted tree paths on the pages
+for every paged tree engine (``batching.PagedBatchedSamdEngine``,
+``fused_hybrid.PagedBatchedFusedHybridEngine``).
 """
 
 from __future__ import annotations
@@ -172,4 +173,40 @@ def paged_write_block(cache: PagedKV, block: torch.Tensor,
         cache.scale[flat_pages, :, flat_slots] = srows
     else:
         cache.pool[flat_pages, :, flat_slots] = rows.to(cache.pool.dtype)
+    return cache
+
+
+def paged_compact_block(cache: PagedKV, tables: torch.Tensor,
+                        offsets: torch.Tensor, path_nodes: torch.Tensor,
+                        block_size: int, scratch_page: int) -> PagedKV:
+    """Per-slot compaction of accepted tree-draft rows on the page pool, IN
+    PLACE over every layer, and return ``cache`` (reference
+    ``samd_tpu/paged_kv.py:314``; the paged form of
+    ``cache.compact_accepted_batched``).
+
+    cache:      one side's pools ``[L, n + 1, KH, page, D]`` (and int8
+                scales ``[L, n + 1, KH, page]``)
+    tables:     [B, P] page tables, -1 padded
+    offsets:    [B] each slot's block start
+    path_nodes: [B, A] block-relative accepted rows per slot (A <= M)
+
+    Each slot's block rows ``[offset, offset + M)`` are gathered (one
+    gather over all layers) and its path's rows written back at ``[offset,
+    offset + A)`` (one scatter).  Rows outside a slot's table read and
+    write the scratch page (``paged_flat_indices``): live slots own disjoint
+    pages, so two writes meet only there, where no slot reads."""
+    B, A = path_nodes.shape
+    M = block_size
+    dev = tables.device
+    pg, sl = paged_flat_indices(tables, offsets, M, cache.page_size,
+                                scratch_page)                    # [B*M]
+    src = (path_nodes.long()
+           + M * torch.arange(B, device=dev)[:, None]).reshape(-1)
+    dst_pg = pg.reshape(B, M)[:, :A].reshape(-1)
+    dst_sl = sl.reshape(B, M)[:, :A].reshape(-1)
+    rows = cache.pool[:, pg, :, sl]                  # [B*M, L, KH, D]
+    cache.pool[:, dst_pg, :, dst_sl] = rows[src]
+    if cache.scale is not None:
+        srows = cache.scale[:, pg, :, sl]            # [B*M, L, KH]
+        cache.scale[:, dst_pg, :, dst_sl] = srows[src]
     return cache

@@ -426,9 +426,8 @@ def serve(engine, *, host: str = "127.0.0.1", port: int = 8089,
 
 
 # engines of the reference's server that the port does not have yet, with
-# the ROADMAP queue 1 item that ports each
-_NOT_PORTED = {"fused_hybrid_batched": 13, "paged_fused_hybrid": 13,
-               "eagle2_hybrid_batched": 13}
+# the ROADMAP queue 1 item that ports each (item 13's SAM[EAGLE-2] half)
+_NOT_PORTED = {"eagle2_hybrid_batched": 13}
 
 
 def build_server_engine(args):
@@ -437,10 +436,13 @@ def build_server_engine(args):
     tokens, random weights from a seeded ``torch.Generator``), optional
     int8/fp8/int4 weights, on the card or with ``--cpu`` on the CPU.
     ``--engine batched`` serves ``batching.BatchedSamdEngine`` with the
-    ``sam_only`` host drafters; ``--sam FILE`` loads a static corpus SAM
-    (``sam.load_sam(FILE, topk=8)``), which the host drafters share through
-    one ``sam.SamCursor`` per request and whose text is the fused engines'
-    corpus."""
+    ``sam_only`` host drafters; ``fused_hybrid_batched`` and
+    ``paged_fused_hybrid`` the SAM[Token Recycle] engines of
+    ``fused_hybrid`` with the batch-tuned block (M 24, a 23-node tree,
+    chains of 20, 16 steps per segment); ``--sam FILE`` loads a static
+    corpus SAM (``sam.load_sam(FILE, topk=8)``), which the host drafters
+    share through one ``sam.SamCursor`` per request and whose text is the
+    fused engines' corpus."""
     import torch
 
     from .fused_sam import (BatchedFusedSamEngine, FusedSamConfig,
@@ -488,14 +490,27 @@ def build_server_engine(args):
                 else SamCursor(static_sam))
         return BatchedSamdEngine(cfg, params, scfg, drafter, **kw)
     corpus = static_sam.text if static_sam is not None else None
+    inline = getattr(args, "inline_prefill", False)
+    if args.engine in ("fused_hybrid_batched", "paged_fused_hybrid"):
+        from .fused_hybrid import (BatchedFusedHybridEngine,
+                                   FusedHybridConfig,
+                                   PagedBatchedFusedHybridEngine)
+
+        # the reference's batch-tuned hybrid block (B = 12: M 24, tree 23)
+        hy_cfg = FusedHybridConfig(steps_per_call=16, tree_nodes=23,
+                                   n_predicts=20, max_block=24)
+        ctor = (PagedBatchedFusedHybridEngine
+                if args.engine == "paged_fused_hybrid"
+                else BatchedFusedHybridEngine)
+        return ctor(cfg, params, hy_cfg, corpus=corpus,
+                    inline_prefill=inline, **kw)
     # the batch-tuned block M = 16; steps_per_call sets admission latency
     fs_cfg = FusedSamConfig(steps_per_call=16, n_predicts=15)
     if args.engine == "paged_fused_sam":
         return PagedBatchedFusedSamEngine(cfg, params, fs_cfg, corpus=corpus,
                                           **kw)
-    return BatchedFusedSamEngine(
-        cfg, params, fs_cfg, corpus=corpus,
-        inline_prefill=getattr(args, "inline_prefill", False), **kw)
+    return BatchedFusedSamEngine(cfg, params, fs_cfg, corpus=corpus,
+                                 inline_prefill=inline, **kw)
 
 
 def main(argv=None):
@@ -509,6 +524,7 @@ def main(argv=None):
                    help="with --random-model: a tiny config (smoke tests)")
     p.add_argument("--engine", default="fused_sam_batched",
                    choices=["fused_sam_batched", "paged_fused_sam",
+                            "fused_hybrid_batched", "paged_fused_hybrid",
                             "batched", *_NOT_PORTED])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--quantize", choices=["int8", "fp8", "int4"])
@@ -517,7 +533,8 @@ def main(argv=None):
                    "format, either package's)")
     p.add_argument("--inline-prefill", action="store_true",
                    help="greedy prompts stream through the decode steps "
-                        "as forced-accept chains (fused_sam_batched)")
+                        "as forced-accept chains (fused_sam_batched, "
+                        "the hybrid engines)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8089)
     p.add_argument("--cpu", action="store_true",

@@ -17,6 +17,14 @@ serving, ``PagedBatchedFusedSamEngine`` at B = 12, M = 16, 16 steps per
 segment, 52 int8 pages of 128 over 1024 slots, twelve random prompts of
 40-128 tokens with 128 new tokens each; the first segment (16 steps, after
 the twelve prefills) is the warm-up, the second is profiled.
+``--model llama_7b_int4_paged_hybrid``: the same weights and prompts
+through ``PagedBatchedFusedHybridEngine`` with the server's block (M 24,
+a 23-node Token-Recycle tree, chains of 20, 16 steps per segment) over 64
+int8 pages of 128, its harvest tables warm as a long-served engine's
+(every token holds a seeded random top-8 of distinct tokens, so every tree
+draft has its 23 nodes); the line adds the retrieval-chain share of the
+slot-steps and the time of the harvest's top-8 over one step's [12, 24,
+32000] logits by CUDA events.
 ``--model llama_7b_int4_tree``: the same single-stream llama_7b (int4
 weights, int8 KV, 1024 slots) through the host-automaton
 ``engine.SamdEngine`` with ``SamdConfig(draft_source="sam_hybrid",
@@ -79,7 +87,7 @@ def build(model: str):
         return ("llama_1b bf16 flash", cfg,
                 init_params(cfg, gen_w, scale=0.02, device="cuda"),
                 FusedSamConfig(), 2048)
-    paged = model == "llama_7b_int4_paged"
+    paged = model.startswith("llama_7b_int4_paged")
     if model == "llama_7b_int4_tree":
         model = "llama_7b_int4"
     cfg = llama_7b() if paged else dataclasses.replace(llama_7b(),
@@ -88,6 +96,14 @@ def build(model: str):
                                        dtype=torch.int8, device="cuda")
     params = int4_from_int8_params(base)
     del base
+    if model == "llama_7b_int4_paged_hybrid":
+        from samd_tpu_torch.fused_hybrid import FusedHybridConfig
+
+        return ("llama_7b int4 kernel, paged hybrid B=12 M=24 tree 23, 64 "
+                "int8 pages of 128", cfg, params,
+                FusedHybridConfig(steps_per_call=16, tree_nodes=23,
+                                  n_predicts=20, max_block=24,
+                                  corpus_capacity=4096), 1024)
     if paged:
         return ("llama_7b int4 kernel, paged B=12 M=16, 52 int8 pages of "
                 "128", cfg, params,
@@ -129,19 +145,61 @@ def summarize(prof, wall_us: float, steps: int, top_n: int) -> dict:
     }
 
 
+def warm_harvest(harvests, seens, rng) -> None:
+    """Fill Token-Recycle harvest tables [B, V + 1, K] / [B, V + 1] as a
+    long-served engine holds them: every token seen, each row K distinct
+    tokens from ``rng`` (a random start and stride), so every tree draft
+    has its full node count; the sink row V stays unseen."""
+    import numpy as np
+    import torch
+
+    B, V1, K = harvests.shape
+    first = rng.integers(0, V1 - 4, size=(B, V1, 1))
+    stride = rng.integers(1, (V1 - 4) // K, size=(B, V1, 1))
+    harvests.copy_(torch.from_numpy(
+        (3 + (first + stride * np.arange(K)) % (V1 - 4)).astype(np.int32)))
+    seens.fill_(True)
+    seens[:, V1 - 1] = False
+
+
+def harvest_topk_ms(V: int, iters: int = 20) -> float:
+    """Device ms of ``engine.harvest_topk`` (top-8 by a stable sort) over
+    one B = 12, M = 24 step's f32 logits, by CUDA events."""
+    import torch
+
+    from samd_tpu_torch.engine import HARVEST_TOPK, harvest_topk
+
+    logits = torch.randn((12, 24, V), device="cuda")
+    harvest_topk(logits, HARVEST_TOPK)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        harvest_topk(logits, HARVEST_TOPK)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
-    """Profile the second segment of a B = 12 paged batched run."""
+    """Profile the second segment of a B = 12 paged batched run (the
+    hybrid engine for a ``FusedHybridConfig``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.fused_hybrid import (FusedHybridConfig,
+                                             PagedBatchedFusedHybridEngine)
     from samd_tpu_torch.fused_sam import PagedBatchedFusedSamEngine
 
-    eng = PagedBatchedFusedSamEngine(
+    hybrid = isinstance(fc, FusedHybridConfig)
+    eng = (PagedBatchedFusedHybridEngine if hybrid
+           else PagedBatchedFusedSamEngine)(
         cfg, params, fc, batch_size=12, max_cache_len=S, eos_token_id=-1,
-        prefill_buckets=(128, 256), n_pages=52, page_size=128,
-        quantized_kv=True)
+        prefill_buckets=(128, 256), n_pages=64 if hybrid else 52,
+        page_size=128, quantized_kv=True)
+    if hybrid:
+        warm_harvest(eng.harvests, eng.seens, np.random.default_rng(0))
     rng = np.random.default_rng(0)
     for n in rng.integers(40, 129, size=12):
         eng.add_request(rng.integers(3, cfg.vocab_size, size=int(n)).tolist(),
@@ -165,12 +223,21 @@ def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
         return out
 
     eng._segment = profiled_segment
-    eng.run()
+    outs = eng.run()
     prof, wall_us, steps = seen["result"]
+    extra = {}
+    if hybrid:
+        extra = {"retrieval_chain_share": eng.sam_steps_total
+                 / max(eng.steps_total, 1),
+                 "mean_accept_whole_run": sum(
+                     o.decode_tokens for o in outs.values())
+                 / max(eng.steps_total, 1),
+                 "harvest_topk_ms_12x24": harvest_topk_ms(cfg.vocab_size)}
     return {"batch": 12, "decode_steps": steps,
             "note": "one profiled segment of B = 12 slots, after a warm-up "
-                    "segment; per-step figures are per [12, 16] forward",
-            "peak_pages": eng.peak_pages,
+                    f"segment; per-step figures are per [12, {fc.block}] "
+                    "forward",
+            "peak_pages": eng.peak_pages, **extra,
             **summarize(prof, wall_us, steps, top_n)}
 
 
@@ -178,6 +245,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("llama_1b", "llama_7b_int4",
                                         "llama_7b_int4_paged",
+                                        "llama_7b_int4_paged_hybrid",
                                         "llama_7b_int4_tree"),
                     default="llama_1b")
     ap.add_argument("--new-tokens", type=int, default=128)
@@ -202,7 +270,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     label, cfg, params, fc, S = build(args.model)
-    if args.model == "llama_7b_int4_paged":
+    if args.model.startswith("llama_7b_int4_paged"):
         print(json.dumps({"card": card, "model": label,
                           **profile_paged(cfg, params, fc, S, args.top)}))
         return 0

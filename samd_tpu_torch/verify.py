@@ -18,7 +18,11 @@ fused engines, the randomness is an explicit argument (``TreeNoise``),
 drawn from the request's ``torch.Generator`` (``draw_tree_noise``), so a
 request's stream depends only on its seed.  Every rule takes a leading
 slot axis: ``logits [..., M, V]``, ``draft_tokens [..., M]``,
-``retrieve_indices [..., R, D]``.
+``retrieve_indices [..., R, D]``.  A draft token of -1 (an invalid node of
+the fused tree drafters, ``fused_hybrid``) is accepted by no rule: each
+rule treats it as if the tree did not hold it.  The reference's typical
+rule reads such a token's probability as token 0's and its rejection rule
+as the last token's.
 """
 
 from __future__ import annotations
@@ -280,7 +284,8 @@ def typical_accept(logits: torch.Tensor, draft_tokens: torch.Tensor,
     cand_prob = _parent_probs(probs, nodes, cand)
     parent_thresh = torch.gather(thresh, 1, nodes[..., :-1].reshape(
         nodes.shape[0], -1)).reshape(cand_prob.shape)
-    mask = (cand_prob > parent_thresh) & valid[..., 1:]
+    mask = (cand_prob > parent_thresh) & valid[..., 1:] \
+        & (cand[..., 1:] >= 0)
     lik = torch.log(torch.clamp(cand_prob, min=1e-20))
     return _best_row_result(lead, warped, draft_tokens, retrieve_indices,
                             mask, lik, noise.gumbel.reshape(
@@ -353,7 +358,9 @@ def sampling_accept(logits: torch.Tensor, draft_tokens: torch.Tensor,
         parent = _pick(nodes[..., i - 1], best)                 # [N]
         p = _pick(probs, parent)                                # [N, V]
         toks = cand[..., i]                                     # [N, R]
-        row_ok = alive & valid[..., i]
+        # a -1 node (an invalid draft node) is no candidate, as if the
+        # tree did not hold it
+        row_ok = alive & valid[..., i] & (toks >= 0)
         # each distinct token once, at its first alive row
         same = (toks[:, :, None] == toks[:, None, :]) & row_ok[:, None, :]
         first_row = torch.where(same, rows, R).amin(dim=-1)

@@ -356,6 +356,69 @@ def test_sampling_accept_keeps_target_distribution(case):
     assert 0.5 * np.abs(freq - target).sum() < TV_TOL
 
 
+def invalid_node_tree(rng, M, V):
+    """Random parents (node 0 the root) and draft tokens where about a
+    third of the nodes carry -1, as the fused tree drafters mark a node
+    under a never-harvested token, and so do all their descendants; node 1
+    is a -1 child of the root.  The real children mostly carry token 0 or
+    V - 1, where the logits put their mass."""
+    parents = [-1, 0] + [int(rng.integers(0, i)) for i in range(2, M)]
+    tokens = [5, -1]
+    for i in range(2, M):
+        if tokens[parents[i]] < 0 or rng.random() < 0.3:
+            tokens.append(-1)
+        elif rng.random() < 0.7:
+            tokens.append(int(rng.choice([0, V - 1])))
+        else:
+            tokens.append(int(rng.integers(0, V)))
+    return np.asarray(parents, np.int32), np.asarray(tokens, np.int32)
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("mode", ["rejection", "typical", "nucleus"])
+def test_tree_rules_never_accept_invalid_nodes(mode, seed):
+    """A -1 draft node is no candidate for any tree rule: over many noise
+    draws no accepted path holds one, and every result (accept length,
+    path, tokens, bonus and the logits it was drawn from, the rejection
+    rule's residual) equals the result on the same tree with those nodes
+    removed from its paths.  The logits put most mass on token 0 and on
+    the last token, the tokens whose probability the reference reads for
+    a -1 node."""
+    from samd_tpu_torch.fused_hybrid import constant_buffers
+
+    M, V, n = 12, 16, 400
+    rng = np.random.default_rng(seed)
+    parents, tokens = invalid_node_tree(rng, M, V)
+    logits = (rng.standard_normal((M, V)) * 0.5).astype(np.float32)
+    logits[:, [0, V - 1]] += 3.0
+    paths = constant_buffers(parents, M)[2]                    # [M, M]
+    removed = torch.where(
+        torch.from_numpy(tokens)[paths.clamp(min=0).long()] < 0, -1, paths)
+    g = torch.Generator()
+    g.manual_seed(seed)
+    noise = draw_tree_noise([g] * n, ("_", 0, 0, mode), M, M, M, V, "cpu")
+    rule = {"rejection": lambda *a: sampling_accept(
+                *a, temperature=1.0, top_p=0.0, top_k=0),
+            "typical": lambda *a: typical_accept(*a, temperature=1.0),
+            "nucleus": lambda *a: nucleus_accept(*a, temperature=1.0,
+                                                 top_p=0.9)}[mode]
+    lg = torch.from_numpy(logits).expand(n, -1, -1)
+    draft = torch.from_numpy(tokens).expand(n, -1)
+    got = rule(lg, draft, paths.expand(n, -1, -1), noise)
+    want = rule(lg, draft, removed.expand(n, -1, -1), noise)
+    alen = got.accept_len.long()
+    on_path = torch.arange(M)[None, :] < alen[:, None]
+    taken = torch.gather(draft.long(), 1, got.path_nodes.long())
+    assert (taken[on_path] >= 0).all()
+    assert (alen >= 2).any()
+    np.testing.assert_array_equal(got.accept_len, want.accept_len)
+    for name in ("path_nodes", "accepted_tokens"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert torch.equal(a[on_path], b[on_path]), name
+    np.testing.assert_array_equal(got.next_token, want.next_token)
+    assert torch.equal(got.next_logits, want.next_logits)
+
+
 # ----------------------------------------------------------------------
 # sampled requests through the engine
 # ----------------------------------------------------------------------

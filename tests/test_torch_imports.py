@@ -31,7 +31,8 @@ def test_port_files_found():
                 "cache.py", "tools/profile_step.py", "server.py",
                 "ops/ngram_index.py", "batching.py", "interleave.py",
                 "sam/automaton.py", "sam/native.py",
-                "drafters/sam_drafter.py", "drafters/token_recycle.py"):
+                "drafters/sam_drafter.py", "drafters/token_recycle.py",
+                "pld.py", "token_recycle_fused.py", "fused_hybrid.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 
@@ -67,12 +68,22 @@ def test_engines_without_device_raise_when_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
+                                             FusedHybridEngine,
+                                             PagedBatchedFusedHybridEngine)
     from samd_tpu_torch.fused_sam import FusedSamEngine
     from samd_tpu_torch.models import tiny_config
+    from samd_tpu_torch.pld import PldEngine
+    from samd_tpu_torch.token_recycle_fused import FusedTokenRecycleEngine
 
     cfg = tiny_config(vocab_size=32)
     params = {"embed": torch.zeros(32, 64)}
     for make in (lambda: ArBaseline(cfg, params),
-                 lambda: FusedSamEngine(cfg, params)):
+                 lambda: FusedSamEngine(cfg, params),
+                 lambda: PldEngine(cfg, params),
+                 lambda: FusedTokenRecycleEngine(cfg, params),
+                 lambda: FusedHybridEngine(cfg, params),
+                 lambda: BatchedFusedHybridEngine(cfg, params),
+                 lambda: PagedBatchedFusedHybridEngine(cfg, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

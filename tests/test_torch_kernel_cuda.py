@@ -182,7 +182,8 @@ K3_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R", [1, 13, 16, 60, 128, 192, 200, 256])
+@pytest.mark.parametrize("R", [1, 13, 16, 60, 64, 128, 192, 200, 256,
+                               288])
 @pytest.mark.parametrize("IN,OUT", K3_SHAPES)
 def test_int4_kernel_matches_plain(cuda_device, IN, OUT, R, xdt):
     """Within ``ops.int4_matmul.kernel_tolerance`` of the plain version in
@@ -461,6 +462,111 @@ def test_int4_kernel_r60_rows_equal_r16(cuda_device, IN, OUT):
     for out_dtype in (torch.bfloat16, torch.float32):
         big = k3.int4_matmul(x, packed, scale, layer, out_dtype=out_dtype)
         for a in (0, 16, 32, 44):
+            small = k3.int4_matmul(x[a:a + 16].contiguous(), packed, scale,
+                                   layer, out_dtype=out_dtype)
+            assert torch.equal(small, big[a:a + 16]), (out_dtype, a)
+
+
+# the fused drafters' shapes: the hybrid's relabelled 61-node tree padded
+# to M = 64 (int8 KV, llama_7b), PLD's 11-node chain and the fused
+# Token-Recycle 61-node tree (llama_1b), the server block's 23-node tree
+# in B = 12 int8 page windows, and K3 at R = 64 and 12 x 24 = 288
+# ----------------------------------------------------------------------
+
+def fused_parents(name):
+    from samd_tpu_torch.fused_hybrid import build_tr_topology
+
+    if name == "pld11":
+        return list(range(-1, 10))
+    n, pad = {"hybrid64": (61, 3), "tr61": (61, 0), "hybrid24": (23, 1)}[name]
+    return build_tr_topology(n, 8)[0].tolist() + list(range(n, n + pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tree,T,NH,KH,D,S,cl,int8", [
+    ("hybrid64", 64, 32, 32, 128, 1024, 700, True),
+    ("pld11", 11, 32, 4, 64, 2048, 700, False),
+    ("tr61", 61, 32, 4, 64, 2048, 700, False)])
+def test_fused_drafter_masks_kernel_matches_plain(cuda_device, tree, T, NH,
+                                                  KH, D, S, cl, int8, dtype):
+    """The verify kernel on the fused drafters' masks: within
+    ``kernel_tolerance``, two runs bitwise equal, poison past kv_limit
+    changes nothing."""
+    q, k, v, mask, lim = make_case(T, NH, KH, D, S, cl,
+                                   torch.float32 if int8 else dtype,
+                                   cuda_device, seed=9,
+                                   parents=fused_parents(tree))
+    q = q.to(dtype)
+    if int8:
+        (k, ks), (v, vs) = (quantize_kv_block(t) for t in (k, v))
+        args = [q, k, v, mask, lim, ks, vs]
+    else:
+        args = [q, k, v, mask, lim]
+    got = flash_block_attention(*args)
+    again = flash_block_attention(*args)
+    ref = flash_block_attention_ref(*args)
+    args[1][:, :, cl + T:] = 127 if int8 else 1e30
+    args[2][:, :, cl + T:] = -127 if int8 else -1e30
+    if int8:
+        args[5][:, :, cl + T:] = 1e30
+        args[6][:, :, cl + T:] = 1e30
+    poisoned = flash_block_attention(*args)
+    torch.cuda.synchronize()
+    excess = ((got.float() - ref.float()).abs() - kernel_tolerance(ref))
+    assert excess.max().item() <= 0, excess.max().item()
+    assert torch.equal(got, again)
+    assert torch.equal(got, poisoned)
+
+
+@pytest.mark.cuda
+def test_hybrid_tree_int8_paged_kernel(cuda_device):
+    """K4 over int8 pages at llama_7b B = 12, T = 24 with the 23-node tree
+    in every window: within ``kernel_tolerance``, two runs bitwise equal,
+    each active slot bitwise equal to the verify kernel on its gathered
+    KV, poison changes nothing."""
+    T, page = 24, 128
+    args, active, spare = paged_case(
+        12, T, 32, 32, 128, page,
+        [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700, 1000],
+        torch.bfloat16, True, cuda_device, seed=8,
+        parents=fused_parents("hybrid24"))
+    got = paged_block_attention(*args)
+    again = paged_block_attention(*args)
+    poisoned = paged_block_attention(*poison_pages(args, active, spare,
+                                                   page))
+    torch.cuda.synchronize()
+    ref = paged_block_attention_ref(*args)[active]
+    excess = (got[active].float() - ref.float()).abs() - kernel_tolerance(ref)
+    assert excess.max().item() <= 0, excess.max().item()
+    assert torch.equal(got, again)
+    assert torch.equal(got[active], poisoned[active])
+    q, kp, vp, tables, win, lims, ks, vs = args
+    for b in active:
+        tb = tables[b:b + 1]
+        kd, vd = gather_pages(kp, tb), gather_pages(vp, tb)
+        mask = window_to_mask(win[b:b + 1], lims[b:b + 1], T, page,
+                              kd.shape[2])
+        dense = flash_block_attention(q[b:b + 1].contiguous(), kd, vd, mask,
+                                      lims[b], gather_pages(ks, tb),
+                                      gather_pages(vs, tb))
+        assert torch.equal(got[b], dense[0]), f"slot {b}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 288])
+@pytest.mark.parametrize("IN,OUT", K3_SHAPES)
+def test_int4_kernel_fused_blocks_rows_equal_r16(cuda_device, IN, OUT, R):
+    """The fused hybrid's blocks, 64 rows (one stream) and 288 (B = 12 x
+    24, a ragged fifth 64-row tile): every 16-row block is the same bits
+    as those rows at R = 16."""
+    x, packed, scale = int4_case(2, IN, OUT, R, cuda_device, seed=6)
+    layer = 1
+    if OUT == 32000:
+        packed, scale, layer = packed[1], scale[1], None
+    for out_dtype in (torch.bfloat16, torch.float32):
+        big = k3.int4_matmul(x, packed, scale, layer, out_dtype=out_dtype)
+        for a in range(0, R, 16):
             small = k3.int4_matmul(x[a:a + 16].contiguous(), packed, scale,
                                    layer, out_dtype=out_dtype)
             assert torch.equal(small, big[a:a + 16]), (out_dtype, a)

@@ -417,11 +417,17 @@ def args_for(**kw):
 @pytest.mark.parametrize("name,quant", [
     ("fused_sam_batched", None), ("paged_fused_sam", None),
     ("fused_sam_batched", "int8"), ("fused_sam_batched", "fp8"),
-    ("paged_fused_sam", "int4")])
+    ("paged_fused_sam", "int4"), ("fused_hybrid_batched", None),
+    ("paged_fused_hybrid", "int4")])
 def test_build_server_engine_ported(name, quant):
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
+                                             PagedBatchedFusedHybridEngine)
+
     eng = build_server_engine(args_for(engine=name, quantize=quant))
-    want = (PagedBatchedFusedSamEngine if name == "paged_fused_sam"
-            else BatchedFusedSamEngine)
+    want = {"fused_sam_batched": BatchedFusedSamEngine,
+            "paged_fused_sam": PagedBatchedFusedSamEngine,
+            "fused_hybrid_batched": BatchedFusedHybridEngine,
+            "paged_fused_hybrid": PagedBatchedFusedHybridEngine}[name]
     assert type(eng) is want and eng.device.type == "cpu"
     rid = eng.add_request([5, 6, 7, 8], GenerationConfig(
         max_new_tokens=4, max_cache_len=256))
@@ -429,8 +435,6 @@ def test_build_server_engine_ported(name, quant):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="fused_hybrid_batched"), "item 13"),
-    (dict(engine="paged_fused_hybrid"), "item 13"),
     (dict(engine="eagle2_hybrid_batched"), "item 13"),
     (dict(random_model=False, model="ckpt"), "item 15")])
 def test_build_server_engine_not_ported(kw, item):
@@ -507,3 +511,38 @@ def test_sam_file_is_the_fused_corpus(sam_file):
                                        sam=str(path)))
     assert int(eng.corpus_len) == len(text)
     assert eng.corpus[:len(text)].tolist() == text
+
+
+@pytest.mark.parametrize("name", ["fused_hybrid_batched",
+                                  "paged_fused_hybrid"])
+def test_hybrid_engines_over_http(name):
+    """``--engine fused_hybrid_batched`` / ``paged_fused_hybrid`` on the CPU
+    (``--tiny --cpu``): greedy replies over HTTP from concurrent clients
+    each equal the same engine called directly (the harvest tables persist
+    across requests, so each side starts from a fresh engine and sends the
+    prompts in one batch)."""
+    args = args_for(engine=name, batch_size=4)
+    direct = build_server_engine(args)
+    gen = GenerationConfig(max_new_tokens=12, max_cache_len=256)
+    rids = [direct.add_request(p, gen) for p in SAM_PROMPTS]
+    res = direct.run()
+    want = [res[r].output_ids for r in rids]
+    server, sched = serve(build_server_engine(args), port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        outs = [None] * len(SAM_PROMPTS)
+
+        def client(i):
+            outs[i] = post(url, {"input_ids": SAM_PROMPTS[i],
+                                 "max_new_tokens": 12})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(SAM_PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert [o["output_ids"] for o in outs] == want
+    finally:
+        server.shutdown()
+        sched.close()
