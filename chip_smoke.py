@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (samd_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --isolate-11b   (phases 1-2, then ``isolate_11b``)
 
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit, torch and CUDA versions, TF32 flags;
@@ -57,6 +58,13 @@ Phases, in order; any failure exits non-zero:
         pages at llama_7b B = 12, T = 24 on the server block's 23-node tree
         in every window; the verify kernel at llama_1b T = 11 (PLD's
         chain) and T = 61 (the fused Token-Recycle tree);
+     g. the EAGLE paths' shapes on trees from real EAGLE-2 expansions
+        (``eagle_tree``), with the same checks and timings: the int8 mode
+        at llama_7b KH 32, D 128, T = 64 (depth 5, top-8, 64 nodes), the
+        verify kernel at llama_1b T = 64 on that tree, K4 over int8 pages
+        at llama_7b B = 12, T = 24 (depth 4, top-4, 24 nodes) in every
+        window; phase 3c also holds K3 on the head at the draft head's R
+        = 8, 12 and 48;
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -158,7 +166,13 @@ Phases, in order; any failure exits non-zero:
      64 int8 pages of 128, buckets 128 and 256, warm, phase 6's 16 requests
      (the four repeats' oracle outputs in the corpus), each judged against
      the chain-only PagedBatchedFusedSamEngine at alpha = 0 with the same
-     M = 24; every page back; K3 225 launches per forward, K4 32 per step;
+     M = 24, every slot's harvest warm along every request's oracle path
+     (it fails unless some tree slot-step accepts a path of depth >= 2);
+     every page back; K3 225 launches per forward, K4 32 per step.  Over
+     int8 KV (phases 9, 11, 13) the judge's near-tie bound tau is the
+     larger of 0.08 and the largest change a plain prefill makes to the
+     oracle's top-2 gap at the bound's positions (``near_tie_rule``),
+     printed beside every verdict;
  12. llama_1b fused drafters (after 10): PldEngine, two requests of 128
      new tokens bitwise equal to ArBaseline(block_size=11);
      FusedTokenRecycleEngine (61 nodes, warm) judged against
@@ -168,6 +182,30 @@ Phases, in order; any failure exits non-zero:
      fused_hybrid_batched and paged_fused_hybrid over 127.0.0.1, four
      greedy replies each equal to the same engine called directly from the
      same empty harvest.
+ 13. llama_7b SAM[EAGLE-2] (after 11), phase 5's weights and a random
+     int8 draft net (seed 7, ``quantize_eagle_params``): (a)
+     FusedHybridEagleEngine over int8 KV (M 64, depth 5, top-8, 63 nodes,
+     chains of 40) on phase 11a's three requests, judged against its
+     ArBaseline(block_size=64) rows; (c) sampled pairs per tree accept
+     mode, equal, and point-mass runs equal to greedy; (b)
+     PagedBatchedFusedHybridEagleEngine at B = 12 with the server's block
+     (M 24, depth 4, top-4, 23 nodes) over 64 int8 pages on phase 6's 16
+     requests, judged against 11b's chain oracle; every page back; K3 225
+     per forward plus the draft head's launches (one per tree level a
+     step), K4 32 per step; the tree steps' committed lengths printed;
+ 14. llama_1b EAGLE (after 12), a random bf16 draft net:
+     FusedEagle2Engine (depth 5, top-8, 63 nodes) and SamdEngine at M =
+     64 with the EAGLE-2 and EAGLE-1 drafters against
+     ArBaseline(block_size=64); the dense BatchedFusedHybridEagleEngine at
+     B = 4 with the server's block against its chain engine at alpha = 0;
+     --engine eagle2_hybrid_batched over 127.0.0.1, four greedy replies
+     equal to the same engine called directly; all judged.
+``--isolate-11b`` reports phase 11b (every path warm) without failing on
+the judge and, at the first rejected request, the diverging token (i)
+over bf16 pages, (ii) through the dense int8 BatchedFusedHybridEngine,
+(iii) re-verified as a chain over the engine's own cache at that step and
+(iv) over the chain oracle's cache at that length, and how the two
+caches' int8 values differ.
 Then a JSON line of kernels (launches summed over every path), the
 nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
@@ -494,7 +532,10 @@ def check_int4(card: str) -> dict:
         w16 = [dequant(Int4Tensor(packed[l], scale[l]), torch.bfloat16)
                for l in range(L)]
         xs = {}
-        for R in (16, 60, 64, 128, 192, 256, 288):
+        # the head also drafts: 8 rows a level in one stream (top-8), and
+        # at B = 12 (top-4) 12 root and 48 level rows
+        draft_rows = (8, 12, 48) if name == "lm_head" else ()
+        for R in (16, 60, 64, 128, 192, 256, 288) + draft_rows:
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -533,7 +574,7 @@ def check_int4(card: str) -> dict:
                               f"{outside.numel()} outputs", flush=True)
                     del q
             (err, tol_at), (err_o, tol_o) = errs.values()
-            if R in (60, 64, 288):      # the engines' blocks, ragged
+            if R in (48, 60, 64, 288):  # the engines' blocks, ragged
                 for a in range(0, R - 15, 16 if R < 288 else 48):
                     a = min(a, R - 16)
                     small = int4_matmul(x[a:a + 16].contiguous(), packed,
@@ -892,6 +933,64 @@ def check_hybrid_masks(card: str) -> dict:
         card, "hybrid tree llama_7b B=12 T=24 int8 pages", 12, 24, 32, 32,
         128, 128, [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700,
                    1000], True, tree23 + [23], 703)
+    return errs
+
+
+def eagle_tree(depth: int, topk: int, total: int, M: int, seed: int):
+    """The parents of one real EAGLE-2 expansion on the card
+    (``drafters.eagle.drafter.Eagle2Drafter``): a small bf16 target and
+    draft net drawn from ``seed``, the stable KV of a 12-token prompt of
+    random hidden states: packed in (depth, pool index) order and
+    self-parent padded to M; returns the parents and the node count at
+    each depth."""
+    import torch
+
+    from samd_tpu_torch.config import SamdConfig
+    from samd_tpu_torch.drafters.eagle.drafter import make_eagle2
+    from samd_tpu_torch.models import init_params, tiny_config
+    from samd_tpu_torch.sam.trees import node_depths
+
+    cfg = tiny_config(vocab_size=512, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, scale=0.5, device="cuda")
+    d = make_eagle2(cfg, params, SamdConfig(
+        max_predicts=M, eagle_depth=depth, eagle_topk=topk,
+        eagle_total_tokens=total), generator=gen)
+    d.observe_prompt_hidden(list(range(3, 15)), torch.randn(
+        (12, cfg.hidden_size), generator=gen, device="cuda").to(cfg.dtype))
+    parents = d.lookup(5).packed[1].tolist()
+    width = np.bincount(node_depths(np.asarray(parents[:total + 1])))
+    return parents, width.tolist()
+
+
+def check_eagle_masks(card: str) -> dict:
+    """Phase 3g: the EAGLE paths' new shapes (``tree_attention_check``,
+    ``tree_paged_check``) on trees from real EAGLE-2 expansions
+    (``eagle_tree``): the int8 mode at llama_7b KH 32, D 128, T = 64 on a
+    64-node tree (depth 5, top-8: the single-stream SAM[EAGLE-2]), the
+    verify kernel at llama_1b T = 64 on the same tree (FusedEagle2Engine,
+    SamdEngine at M = 64), bf16 and f32 q, and K4 over int8 pages at
+    llama_7b B = 12, T = 24 on a 24-node tree (depth 4, top-4: the
+    server's block) in every window.  Returns the max errors."""
+    import torch
+
+    tree64, w64 = eagle_tree(5, 8, 63, 64, 801)
+    tree24, w24 = eagle_tree(4, 4, 23, 24, 802)
+    print(f"EAGLE-2 trees from real expansions: 64 nodes, {w64} per depth; "
+          f"24 nodes, {w24} per depth [{card}]", flush=True)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        errs[("int8", dtype)] = tree_attention_check(
+            card, "EAGLE-2 tree llama_7b T=64 cache_len=700 int8-KV", 64, 32,
+            32, 128, 1024, 700, True, dtype, tree64, 804)
+        errs[("k1", dtype)] = tree_attention_check(
+            card, "EAGLE-2 tree llama_1b T=64 cache_len=700", 64, 32, 4, 64,
+            2048, 700, False, dtype, tree64, 805)
+    errs["k4"] = tree_paged_check(
+        card, "EAGLE-2 tree llama_7b B=12 T=24 int8 pages", 12, 24, 32, 32,
+        128, 128, [0, 112, None, 128, 200, 255, 256, 384, None, 640, 700,
+                   1000], True, tree24, 806)
     return errs
 
 
@@ -1309,6 +1408,18 @@ def report_batched(card, label, requests, outs, wall, steps, oracle):
           f"equal to the alpha = 0 oracle [{card}]", flush=True)
 
 
+def phase6_requests(V: int) -> list:
+    """Phase 6's 16 (prompt, budget) requests: 11 prompts of 40-128
+    tokens, one of 200, and four repeats of earlier prompts."""
+    rng = np.random.default_rng(11)
+    fresh = [(rng.integers(3, V, size=int(n)).tolist(),
+              int(rng.integers(32, 129)))
+             for n in rng.integers(40, 129, size=11)]
+    fresh.append((rng.integers(3, V, size=200).tolist(),
+                  int(rng.integers(32, 129))))
+    return fresh + fresh[:4]          # four repeats of earlier prompts
+
+
 def main_path_7b_paged(card: str, cfg, params) -> int:
     """Phase 6: llama_7b int4 weights over int8 pages, B = 12."""
     import torch
@@ -1320,13 +1431,7 @@ def main_path_7b_paged(card: str, cfg, params) -> int:
     kw = dict(batch_size=B, max_cache_len=S, eos_token_id=-1,
               prefill_buckets=(128, 256), n_pages=n_pages, page_size=page,
               quantized_kv=True)
-    rng = np.random.default_rng(11)
-    fresh = [(rng.integers(3, cfg.vocab_size, size=int(n)).tolist(),
-              int(rng.integers(32, 129)))
-             for n in rng.integers(40, 129, size=11)]
-    fresh.append((rng.integers(3, cfg.vocab_size, size=200).tolist(),
-                  int(rng.integers(32, 129))))
-    requests = fresh + fresh[:4]          # four repeats of earlier prompts
+    requests = phase6_requests(cfg.vocab_size)
 
     def engine(fc, corpus=None):
         return PagedBatchedFusedSamEngine(cfg, params, fc, corpus=corpus,
@@ -1896,8 +2001,10 @@ class DraftLog:
     def lookup(self, start_token):
         d = self.inner.lookup(start_token)
         n = d.num_nodes
-        self.chains.append(bool((d.packed[1, :n]
-                                 == np.arange(-1, n - 1)).all()))
+        par = d.packed[1, :n]
+        if not isinstance(par, np.ndarray):     # a draft built on the card
+            par = par.cpu().numpy()
+        self.chains.append(bool((par == np.arange(-1, n - 1)).all()))
         self.nodes.append(n)
         return d
 
@@ -2021,11 +2128,60 @@ def drift(rows, oracle_rows):
     return (d.amax(-1) - d.amin(-1)).cpu().numpy()
 
 
-def noise_spread(cfg, params, cases, per_case: int = 32) -> np.ndarray:
-    """Drifts of one plain prefill from the oracle's own logits at
-    ``per_case`` positions of each ``(output ids, prompt length, oracle
-    rows)``: how far two correct computations of one next-token
-    distribution move its gaps.  Their maximum bounds the near-tie rule."""
+NEAR_TIE = 0.08    # evaluation/neartie.py's bound: bf16 rounding alone
+
+
+def top2_gap_changes(oracle_rows, plain_rows) -> np.ndarray:
+    """[N] |change| that the plain rows make to each oracle row's top-2
+    gap (its best token's logit less its second's)."""
+    import torch
+
+    top2 = torch.as_tensor(oracle_rows).topk(2, dim=-1).indices
+    o = torch.gather(torch.as_tensor(oracle_rows), -1, top2)
+    p = torch.gather(torch.as_tensor(plain_rows), -1, top2)
+    return ((p[:, 0] - p[:, 1]) - (o[:, 0] - o[:, 1])).abs().cpu().numpy()
+
+
+def near_tie_rule(oracle_rows, plain_rows, gaps, spread: float,
+                  int8: bool):
+    """The near-tie rule, a pure function: (tau, None) when a first
+    difference whose logit gaps ``gaps`` = (the oracle's own, a plain
+    prefill's, the engine's; each the engine token's logit less the
+    oracle token's) is a near-tie, else (tau, the reason).  ``gaps=None``
+    only gives tau.  ``oracle_rows`` and ``plain_rows`` [N, V] are the
+    oracle's and a plain prefill's logits at ``noise_spread``'s positions,
+    measured before the engine runs; ``spread`` is the most a plain
+    prefill drifts from the oracle there.  Over bf16 KV, tau is 0.08
+    (bf16 rounding).  Over int8 KV, where each value carries up to half an
+    int8 step of its own (docs/EXACTNESS.md:93-96), tau is the larger of
+    0.08 and the largest change a plain prefill makes to the oracle's
+    top-2 gap at those positions.  A near-tie needs |oracle gap| <= tau
+    and neither the plain prefill nor the engine moving that gap by more
+    than ``spread``."""
+    tau = NEAR_TIE
+    if int8:
+        tau = max(NEAR_TIE, float(top2_gap_changes(oracle_rows,
+                                                   plain_rows).max()))
+    if gaps is None:
+        return tau, None
+    gap, plain, eng = gaps
+    if abs(gap) > tau:
+        return tau, f"|oracle gap| > tau {tau:.5f}"
+    if abs(plain - gap) > spread:
+        return tau, "the plain prefill moves the gap by more than the bound"
+    if abs(eng - gap) > spread:
+        return tau, "the engine's logits move the gap by more than the bound"
+    return tau, None
+
+
+def noise_spread(cfg, params, cases, per_case: int = 32, *,
+                 int8: bool = False) -> SimpleNamespace:
+    """One plain prefill's logits beside the oracle's own at ``per_case``
+    positions of each ``(output ids, prompt length, oracle rows)``: how
+    far two correct computations of one next-token distribution move its
+    gaps.  Returns the rows (``oracle``, ``plain``), their ``drifts``, the
+    bound ``spread`` (their maximum) and the near-tie rule's ``tau``
+    (``near_tie_rule``; ``int8``: the path's KV is int8)."""
     import torch
 
     plain, ref = [], []
@@ -2033,7 +2189,24 @@ def noise_spread(cfg, params, cases, per_case: int = 32) -> np.ndarray:
         for g in np.linspace(1, len(rows) - 1, per_case).astype(int):
             plain.append(plain_next_logits(cfg, params, ids[:plen + g]))
             ref.append(rows[g - 1])
-    return drift(torch.stack(plain), torch.stack(ref))
+    plain, ref = torch.stack(plain), torch.stack(ref)
+    drifts = drift(plain, ref)
+    return SimpleNamespace(
+        oracle=ref, plain=plain, drifts=drifts, spread=float(drifts.max()),
+        tau=near_tie_rule(ref, plain, None, 0.0, int8)[0], int8=int8,
+        changes=top2_gap_changes(ref, plain))
+
+
+def noise_line(noise) -> str:
+    """The bound's numbers for a log line."""
+    ch = noise.changes
+    return (f"a plain prefill drifts from the oracle's own logits "
+            f"{np.median(noise.drifts):.5f} median, {noise.spread:.5f} max "
+            f"over {len(noise.drifts)} positions (the drift bound); it "
+            f"changes the oracle's top-2 gap {np.median(ch):.5f} median, "
+            f"{np.quantile(ch, 0.9):.5f} 90th percentile, {ch.max():.5f} "
+            f"max: tau {noise.tau:.5f} ("
+            + ("int8 KV" if noise.int8 else "bf16 KV: 0.08") + ")")
 
 
 def emitted_rows(prompt, out, chains, upto):
@@ -2055,7 +2228,7 @@ def emitted_rows(prompt, out, chains, upto):
     return out_rows
 
 
-def judge(prompt, out, ref, chains, ref_rows, cfg, params, spread,
+def judge(prompt, out, ref, chains, ref_rows, cfg, params, noise,
           path_rows):
     """(verdict, None) when the engine's run ``out`` agrees with the
     oracle's ``ref`` by the near-tie rule, else (None, the reason).  The
@@ -2063,16 +2236,16 @@ def judge(prompt, out, ref, chains, ref_rows, cfg, params, spread,
     accepted path's rows per step) are held to the oracle's (``ref_rows``,
     one [V] row per step): on chain drafts bitwise equal; on tree drafts
     (tree rows attend their ancestors at other columns, so their bits may
-    differ from the chain oracle's: docs/EXACTNESS.md) within ``spread``,
-    the most a plain prefill drifts from the oracle (``noise_spread``).
-    Where the tokens first differ, a tree draft must have verified that
-    token or an earlier one and, with a = the engine's token and b = the
-    oracle's, the oracle's own logits put a within
-    evaluation/neartie.py's 0.08 of b, and neither a plain prefill over
-    the shared prefix nor the engine's logits move that gap by more than
-    ``spread``."""
+    differ from the chain oracle's: docs/EXACTNESS.md) within
+    ``noise.spread``, the most a plain prefill drifts from the oracle
+    (``noise_spread``).  Where the tokens first differ, a tree draft must
+    have verified that token or an earlier one and, with a = the engine's
+    token and b = the oracle's, the gaps row[a] - row[b] in the oracle's
+    own logits, a plain prefill's over the shared prefix and the engine's
+    must pass ``near_tie_rule`` (tau and the verdict printed)."""
     import torch
 
+    spread = noise.spread
     a, b = out.output_ids, ref.output_ids
     j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if j is None and len(a) != len(b):
@@ -2123,16 +2296,13 @@ def judge(prompt, out, ref, chains, ref_rows, cfg, params, spread,
              f"{gap:.5f} in the oracle's own logits, {plain:.5f} by a plain "
              f"prefill over the shared prefix, {eng:.5f} in the engine's "
              f"own; {tally}")
-    if abs(gap) > 0.08:
-        return None, f"not a near-tie at {facts}: |oracle gap| > 0.08"
-    if abs(plain - gap) > spread:
-        return None, (f"not a near-tie at {facts}: the plain prefill moves "
-                      "the gap by more than the bound")
-    if abs(eng - gap) > spread:
-        return None, (f"not a near-tie at {facts}: the engine's logits move "
-                      "the gap by more than the bound")
-    return (f"near-tie at {facts}; first tree draft at step "
-            f"{chains.index(False)}, the token's verify step {cause}"), None
+    tau, why = near_tie_rule(noise.oracle, noise.plain, (gap, plain, eng),
+                             spread, noise.int8)
+    if why is not None:
+        return None, f"not a near-tie (tau {tau:.5f}) at {facts}: {why}"
+    return (f"near-tie (tau {tau:.5f}) at {facts}; first tree draft at "
+            f"step {chains.index(False)}, the token's verify step "
+            f"{cause}"), None
 
 
 def oracle_verdict(label, *args) -> str:
@@ -2221,15 +2391,12 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
             ref_rows[n] = rows.steps
     refs["a_repeat"], ref_rows["a_repeat"] = refs["a_random"], \
         ref_rows["a_random"]
-    plain = noise_spread(cfg, params, [
+    noise = noise_spread(cfg, params, [
         (refs[n].output_ids, len(prompts[n]), ref_rows[n])
-        for n in ("a_random", "c_random_200")])
-    spread = float(plain.max())
-    print(f"llama_7b host: a plain prefill drifts from the oracle's own "
-          f"logits (range of the difference over the oracle's top "
-          f"{TOP_SPREAD} tokens) {np.median(plain):.5f} median, "
-          f"{spread:.5f} max over {len(plain)} positions of the oracle's "
-          f"path: the near-tie rule's bound [{card}]", flush=True)
+        for n in ("a_random", "c_random_200")], int8=True)
+    print(f"llama_7b host: {noise_line(noise)}; drifts are ranges of the "
+          f"difference over the oracle's top {TOP_SPREAD} tokens [{card}]",
+          flush=True)
     hy_cfg = SamdConfig(draft_source="sam_hybrid", max_predicts=M)
     # the path request a leaves in a Token-Recycle cache that served it
     a_path = [(refs["a_random"].output_ids[len(prompts["a_random"]):],
@@ -2294,7 +2461,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     for label, name, out, dt, chains, nodes, stats, rows in done:
         tag = f"llama_7b host {label} request {name}"
         verdict = oracle_verdict(tag, prompts[name], out, refs[name], chains,
-                                 ref_rows[name], cfg, params, spread, rows)
+                                 ref_rows[name], cfg, params, noise, rows)
         equal += verdict.startswith("equal")
         new = len(out.output_ids) - len(prompts[name])
         print(f"{tag}: prompt {len(prompts[name])} new {new} steps "
@@ -2334,7 +2501,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
             engine.unpack_draft = real
         verdict, reason = judge(prompts["a_random"], bad, refs["a_random"],
                                 log.chains, ref_rows["a_random"], cfg,
-                                params, spread, rows.steps)
+                                params, noise, rows.steps)
         fail_if(verdict is not None, f"llama_7b host planted fault {kind}: "
                 f"the judge let it pass ({verdict})")
         print(f"llama_7b host planted fault {kind}: {bad.decode_steps} "
@@ -2379,7 +2546,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
         verdict = oracle_verdict(
             f"llama_7b host point-mass {label}", prompts[name], greedy_out,
             SimpleNamespace(output_ids=ref), g_log.chains, ref_rows[name],
-            cfg, params, spread, rows.steps)
+            cfg, params, noise, rows.steps)
         print(f"llama_7b host point-mass {label} (top_k 1, temperature "
               f"1e-5): equal to the same engine's greedy run; against the "
               f"oracle: {verdict} [{card}]", flush=True)
@@ -2430,14 +2597,11 @@ def main_path_1b_host(card: str) -> dict:
             oracle, _, _ = serve_batched(ar, requests, V)
         del ar
         oracle_rows = [per_rid[i] for i in range(len(requests))]
-        plain = noise_spread(cfg, params, [
+        noise = noise_spread(cfg, params, [
             (o.output_ids, len(p), rr) for (p, _), o, rr in
             zip(requests[:2], oracle[:2], oracle_rows[:2])])
-        spread = float(plain.max())
-        print(f"llama_1b host {kind}: a plain prefill drifts from the "
-              f"oracle's own logits {np.median(plain):.5f} median, "
-              f"{spread:.5f} max over {len(plain)} positions (as in phase "
-              f"9): the near-tie rule's bound [{card}]", flush=True)
+        print(f"llama_1b host {kind}: {noise_line(noise)} [{card}]",
+              flush=True)
         if static is None:
             # the first two requests' outputs and copies of them that differ
             # at every 8th generated token: frequency trees that branch
@@ -2474,7 +2638,7 @@ def main_path_1b_host(card: str) -> dict:
                 counts = read_counts()      # the path ends here
             label = f"llama_1b host {kind} B=4 {source}"
             verdicts = [oracle_verdict(f"{label} request {i}", p, o, r,
-                                       lg.chains, rr, cfg, params, spread,
+                                       lg.chains, rr, cfg, params, noise,
                                        eng_rows[i])
                         for i, ((p, _), o, r, lg, rr) in enumerate(
                             zip(requests, outs, oracle, logs, oracle_rows))]
@@ -2805,34 +2969,32 @@ def deep_tree_steps(card, label, rec) -> None:
             ">= 2")
 
 
-def judge_all(card, label, cases, cfg, params, spread) -> list:
+def judge_all(card, label, cases, cfg, params, noise) -> list:
     """``oracle_verdict`` of every (name, prompt, engine outputs, oracle
     outputs, chains, oracle rows, engine path rows); prints each verdict
     and returns them."""
     verdicts = []
     for name, p, out, ref, chains, ref_rows, rows in cases:
         v = oracle_verdict(f"{label} request {name}", p, out, ref, chains,
-                           ref_rows, cfg, params, spread, rows)
+                           ref_rows, cfg, params, noise, rows)
         print(f"{label} request {name}: {v}; {chains.count(True)} chain and "
               f"{chains.count(False)} tree drafts [{card}]", flush=True)
         verdicts.append(v)
     return verdicts
 
 
-def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
+def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
     """Phase 11: llama_7b int4 through the fused SAM[Token Recycle] hybrid:
-    (a) FusedHybridEngine over int8 KV, (b) PagedBatchedFusedHybridEngine
-    at B = 12 over int8 pages, (c) sampled requests."""
+    (a) FusedHybridEngine over int8 KV, (c) sampled requests; (b) is
+    ``main_path_7b_paged_hybrid``.  Returns (a)'s prompts, oracle outputs,
+    oracle rows and bound for phase 13a."""
     import torch
 
     import samd_tpu_torch.fused_hybrid as fh
     from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.engine import ArBaseline
     from samd_tpu_torch.fused_hybrid import (FusedHybridConfig,
-                                             FusedHybridEngine,
-                                             PagedBatchedFusedHybridEngine)
-    from samd_tpu_torch.fused_sam import (FusedSamConfig,
-                                          PagedBatchedFusedSamEngine)
+                                             FusedHybridEngine)
 
     L, V = cfg.num_layers, cfg.vocab_size
     # (a) one stream, int8 KV, the default hybrid (M 64, tree 61, chains 40)
@@ -2855,14 +3017,10 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
             refs[name] = oracle.generate(p, gen)
             ref_rows[name] = rows.steps[n0:]
     del oracle
-    plain = noise_spread(qcfg, params, [
+    noise = noise_spread(qcfg, params, [
         (refs[n].output_ids, len(prompts[n]), ref_rows[n])
-        for n in ("a_random_200", "c_repetitive")])
-    spread = float(plain.max())
-    print(f"llama_7b hybrid: a plain prefill drifts from the oracle's own "
-          f"logits {np.median(plain):.5f} median, {spread:.5f} max over "
-          f"{len(plain)} positions: the near-tie rule's bound [{card}]",
-          flush=True)
+        for n in ("a_random_200", "c_repetitive")], int8=True)
+    print(f"llama_7b hybrid: {noise_line(noise)} [{card}]", flush=True)
     engines = {"a_random_200": FusedHybridEngine(
         qcfg, params, hc, max_cache_len=S, eos_token_id=-1)}
     engines["c_repetitive"] = engines["a_random_200"]
@@ -2897,7 +3055,7 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
               f"{out.decode_tokens / dt:.2f} (prefill included) [{card}]",
               flush=True)
     counts = read_counts()                      # the path ends here
-    judge_all(card, "llama_7b hybrid int8-KV", cases, qcfg, params, spread)
+    judge_all(card, "llama_7b hybrid int8-KV", cases, qcfg, params, noise)
     forwards = sum(1 + steps for _, steps in done)
     short = sum(steps + (n <= 128) for n, steps in done)
     want = {"flash_block_attention": 0,
@@ -2944,39 +3102,83 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
     del engines, eng, saved
     gc.collect()
     torch.cuda.empty_cache()
+    return prompts, refs, ref_rows, noise
 
-    # (b) paged B = 12, the server's block, over int8 pages
-    B, page, n_pages = 12, 128, 64
-    kw = dict(batch_size=B, max_cache_len=S, eos_token_id=-1,
-              prefill_buckets=(128, 256), n_pages=n_pages, page_size=page,
-              quantized_kv=True)
-    hy = FusedHybridConfig(steps_per_call=16, tree_nodes=23, n_predicts=20,
-                           max_block=24, corpus_capacity=4096)
+
+PAGED_KW = dict(batch_size=12, max_cache_len=1024, eos_token_id=-1,
+                prefill_buckets=(128, 256), n_pages=64, page_size=128,
+                quantized_kv=True)
+
+
+def server_hybrid_cfg():
+    """The server's hybrid block: M 24, a 23-node tree, chains of 20."""
+    from samd_tpu_torch.fused_hybrid import FusedHybridConfig
+
+    return FusedHybridConfig(steps_per_call=16, tree_nodes=23,
+                             n_predicts=20, max_block=24,
+                             corpus_capacity=4096)
+
+
+def chain_oracle_24(card, cfg, params, requests, **kw):
+    """Phase 6's requests through the chain-only
+    PagedBatchedFusedSamEngine at alpha = 0 and M = 24 over int8 pages
+    (``PAGED_KW``): its outputs and per-request rows (``ChainOracleRows``),
+    the corpus of its first four outputs, and the bound measured on
+    requests 4 and 5 (int8 KV)."""
+    from samd_tpu_torch.fused_sam import (FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+
     oracle_eng = PagedBatchedFusedSamEngine(
-        cfg, params, FusedSamConfig(n_predicts=hy.block - 1,
-                                    steps_per_call=16, alpha=0.0,
-                                    corpus_capacity=4096), **kw)
+        cfg, params, FusedSamConfig(n_predicts=23, steps_per_call=16,
+                                    alpha=0.0, corpus_capacity=4096),
+        **{**PAGED_KW, **kw})
     with ChainOracleRows(oracle_eng) as orows:
-        oracle, o_wall, o_steps = serve_batched(oracle_eng, requests, V)
+        oracle, o_wall, o_steps = serve_batched(oracle_eng, requests,
+                                                cfg.vocab_size)
     o_rows = [orows.per_rid[i] for i in range(len(requests))]
     del oracle_eng
     corpus = sum((o.output_ids + [0] for o in oracle[:4]), [])
-    plain = noise_spread(cfg, params, [
+    noise = noise_spread(cfg, params, [
         (o.output_ids, len(p), rr) for (p, _), o, rr in
-        zip(requests[4:6], oracle[4:6], o_rows[4:6])])
-    spread = float(plain.max())
-    print(f"llama_7b paged hybrid: the chain oracle at M = 24 "
-          f"{o_wall / o_steps * 1e3:.3f} ms/step; a plain prefill drifts "
-          f"from its logits {np.median(plain):.5f} median, {spread:.5f} max "
-          f"over {len(plain)} positions [{card}]", flush=True)
+        zip(requests[4:6], oracle[4:6], o_rows[4:6])], int8=True)
+    print(f"llama_7b paged chain oracle at M = 24: "
+          f"{o_wall / o_steps * 1e3:.3f} ms/step; {noise_line(noise)} "
+          f"[{card}]", flush=True)
+    return oracle, o_rows, corpus, noise
+
+
+def every_path(requests, oracle, o_rows, slots: int) -> list:
+    """``warm_harvest`` trajectories: every slot along every request's
+    oracle path."""
+    return [(b, o.output_ids[len(p):], rr) for b in range(slots)
+            for (p, _), o, rr in zip(requests, oracle, o_rows)]
+
+
+def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
+    """Phase 11b: PagedBatchedFusedHybridEngine at B = 12 with the
+    server's block over 64 int8 pages, every slot's harvest warm along
+    every request's oracle path, judged against the chain oracle at M =
+    24 with the int8 tau; some tree slot-step must accept a path of depth
+    >= 2.  Returns the oracle's outputs, rows, corpus and bound for phase
+    13b."""
+    import torch
+
+    import samd_tpu_torch.fused_hybrid as fh
+    from samd_tpu_torch.fused_hybrid import PagedBatchedFusedHybridEngine
+
+    L, n_pages = cfg.num_layers, PAGED_KW["n_pages"]
+    oracle, o_rows, corpus, noise = chain_oracle_24(card, cfg, params,
+                                                    requests)
     check_paged_compaction(card)
-    eng = PagedBatchedFusedHybridEngine(cfg, params, hy, corpus=corpus, **kw)
-    warm_harvest(eng, np.random.default_rng(23))
+    eng = PagedBatchedFusedHybridEngine(cfg, params, server_hybrid_cfg(),
+                                        corpus=corpus, **PAGED_KW)
+    warm_harvest(eng, np.random.default_rng(23),
+                 every_path(requests, oracle, o_rows, eng.B))
     gc.collect()
     torch.cuda.synchronize()
     with FusedSteps(eng, fh) as rec:
         reset_counts()                          # the path starts here
-        outs, wall, steps = serve_batched(eng, requests, V)
+        outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
         counts = read_counts()                  # the path ends here
     label = "llama_7b paged hybrid B=12 int8 pages"
     rid0 = min(rec.per_rid)
@@ -2985,7 +3187,8 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
               rec.per_rid[rid0 + i]["rows"])
              for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
                                                         oracle, o_rows))]
-    verdicts = judge_all(card, label, cases, cfg, params, spread)
+    verdicts = judge_all(card, label, cases, cfg, params, noise)
+    deep_tree_steps(card, label, rec)
     del rec, cases
     fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
             f"{label}: {n_pages - len(eng.pool._free)} pages not returned")
@@ -2997,8 +3200,8 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
           f"{new_tok / eng.steps_total:.3f} per live slot-step, retrieval "
           f"chains {eng.sam_steps_total} of {eng.steps_total} slot-steps, "
           f"peak_pages {eng.peak_pages} of {n_pages}; {n_equal} equal to "
-          f"the chain oracle, {len(outs) - n_equal} near-ties; all pages "
-          f"returned [{card}]", flush=True)
+          f"the chain oracle, {len(outs) - n_equal} near-ties (tau "
+          f"{noise.tau:.5f}); all pages returned [{card}]", flush=True)
     p128 = sum(len(p) <= 128 for p, _ in requests)
     want = {"flash_block_attention": L * p128,
             "flash_block_attention_int8kv": 0,
@@ -3013,6 +3216,403 @@ def main_path_7b_hybrid(card: str, cfg, params, requests) -> None:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return oracle, o_rows, corpus, noise
+
+
+def tree_depths(label, card, rec) -> None:
+    """The committed lengths of ``rec``'s (``FusedSteps``) tree-drafted
+    live slot-steps, counted: 1 is the root alone (no draft token
+    accepted), d + 1 a path of depth d."""
+    alens = [a for r in rec.per_rid.values()
+             for c, a in zip(r["chains"], r["alens"]) if not c]
+    counts = np.bincount(alens, minlength=2)[1:] if alens else []
+    print(f"{label}: {len(alens)} tree slot-steps"
+          + (" committing " + ", ".join(
+              f"{n}: {k}" for n, k in enumerate(counts, 1) if k)
+             + " tokens" if alens else "")
+          + f"; {sum(a >= 2 for a in alens)} accepted a drafted token, "
+          f"{sum(a >= 3 for a in alens)} a path of depth >= 2 [{card}]",
+          flush=True)
+
+
+def eagle_net_7b(cfg):
+    """A random EAGLE draft net for llama_7b drawn on the card from seed 7
+    and quantized to int8 (``quantize_eagle_params``)."""
+    import torch
+
+    from samd_tpu_torch.drafters.eagle.net import (EagleNetConfig,
+                                                   init_eagle_params)
+    from samd_tpu_torch.ops.quant import quantize_eagle_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    return quantize_eagle_params(init_eagle_params(
+        EagleNetConfig.from_target(cfg), gen, device="cuda"))
+
+
+def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
+    """Phase 13: llama_7b int4 through SAM[EAGLE-2] with an int8 draft net:
+    (a) FusedHybridEagleEngine over int8 KV (M 64, depth 5, top-8, 63
+    nodes, chains of 40) on phase 11a's requests, judged against its
+    ArBaseline(block_size=64) rows (``single``); (b)
+    PagedBatchedFusedHybridEagleEngine at B = 12 with the server's block
+    (M 24, depth 4, top-4, 23 nodes, chains of 20) over 64 int8 pages on
+    phase 6's requests, judged against 11b's chain oracle (``paged``);
+    (c) one sampled pair per tree accept mode, point-mass requests equal
+    to greedy."""
+    import torch
+
+    import samd_tpu_torch.fused_hybrid as fh
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.fused_hybrid import (
+        FusedHybridEagleConfig, FusedHybridEagleEngine,
+        PagedBatchedFusedHybridEagleEngine)
+
+    L, S = cfg.num_layers, 1024
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    net = eagle_net_7b(cfg)
+    prompts, refs, ref_rows, noise = single
+    hc = FusedHybridEagleConfig(corpus_capacity=4096)
+    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    eng = FusedHybridEagleEngine(qcfg, params, hc, net_params=net,
+                                 max_cache_len=S, eos_token_id=-1)
+    own = FusedHybridEagleEngine(
+        qcfg, params, hc, net_params=net,
+        corpus=refs["b_own_corpus"].output_ids + [0], max_cache_len=S,
+        eos_token_id=-1)
+    engines = {"a_random_200": eng, "b_own_corpus": own,
+               "c_repetitive": eng}
+    eng.generate(prompts["c_repetitive"][:16],
+                 GenerationConfig(max_new_tokens=8))         # warm-up
+    torch.cuda.synchronize()
+    label = "llama_7b SAM[EAGLE-2] int8-KV"
+    cases, done = [], []
+    with FusedSteps(eng, fh) as rec_a, FusedSteps(own, fh) as rec_b:
+        recs = {"a_random_200": rec_a, "b_own_corpus": rec_b,
+                "c_repetitive": rec_a}
+        reset_counts()                          # the path starts here
+        for name, p in prompts.items():
+            e, rec = engines[name], recs[name]
+            rec.next_request()
+            t0 = time.perf_counter()
+            out = e.generate(p, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            r = rec.per_rid[rec.rid]
+            cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
+                          r["chains"], ref_rows[name], r["rows"]))
+            done.append((len(p), out.decode_steps))
+            print(f"{label} request {name}: prompt {len(p)} new "
+                  f"{out.decode_tokens} decode_steps {out.decode_steps} "
+                  f"(retrieval chains {e.sam_steps}) mean_accept "
+                  f"{out.decode_tokens / out.decode_steps:.3f} ms_per_step "
+                  f"{dt / out.decode_steps * 1e3:.3f} tok_per_s "
+                  f"{out.decode_tokens / dt:.2f} (prefill included) "
+                  f"[{card}]", flush=True)
+        counts = read_counts()                  # the path ends here
+        judge_all(card, label, cases, qcfg, params, noise)
+        for rec in (rec_a, rec_b):
+            tree_depths(label, card, rec)
+    steps = sum(s for _, s in done)
+    forwards = sum(1 + s for _, s in done)
+    short = sum(s + (n <= 128) for n, s in done)
+    want = {"flash_block_attention": 0,
+            "flash_block_attention_int8kv": L * short,
+            "int4_matmul": (7 * L + 1) * forwards + hc.eagle_depth * steps,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want, f"{label}: launch counts {counts}, expected "
+            f"{want}")
+    print(f"{label} path: int4_matmul {counts['int4_matmul']} = 225 x "
+          f"{forwards} forwards + {hc.eagle_depth} draft-head launches x "
+          f"{steps} steps; int8-KV verify "
+          f"{counts['flash_block_attention_int8kv']} = 32 x {short} forwards "
+          f"of T <= 128 [{card}]", flush=True)
+
+    # (c) sampled pairs per tree accept mode; point-mass equals greedy
+    p = prompts["c_repetitive"]
+
+    def run(**kw):
+        return eng.generate(p, GenerationConfig(
+            max_new_tokens=64, max_cache_len=S, **kw)).output_ids
+
+    for i, (mode, knobs) in enumerate((
+            ("rejection", dict(temperature=0.8, top_k=50)),
+            ("typical", dict(temperature=0.8)),
+            ("nucleus", dict(temperature=0.8, top_p=0.9)))):
+        one = run(greedy=False, seed=90 + i, accept_mode=mode, **knobs)
+        fail_if(one != run(greedy=False, seed=90 + i, accept_mode=mode,
+                           **knobs),
+                f"{label} sampled {mode}: two runs with one seed differ")
+        print(f"{label} sampled {mode}: two runs with seed {90 + i} equal "
+              f"[{card}]", flush=True)
+    greedy = run()
+    for mode in POINT_MASS:
+        fail_if(run(greedy=False, seed=95, accept_mode=mode,
+                    **POINT_MASS[mode]) != greedy,
+                f"{label} point-mass {mode}: differs from greedy")
+    print(f"{label} point-mass rejection and nucleus requests equal the "
+          f"greedy run [{card}]", flush=True)
+    del eng, own, engines, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) paged B = 12, the server's block, over int8 pages
+    oracle, o_rows, corpus, noise = paged
+    n_pages = PAGED_KW["n_pages"]
+    hy = FusedHybridEagleConfig(steps_per_call=16, eagle_depth=4,
+                                eagle_topk=4, eagle_total=23, max_block=24,
+                                n_predicts=20, corpus_capacity=4096)
+    eng = PagedBatchedFusedHybridEagleEngine(cfg, params, hy, net_params=net,
+                                             corpus=corpus, **PAGED_KW)
+    gc.collect()
+    torch.cuda.synchronize()
+    label = "llama_7b paged SAM[EAGLE-2] B=12 int8 pages"
+    with FusedSteps(eng, fh) as rec:
+        reset_counts()                          # the path starts here
+        outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
+        counts = read_counts()                  # the path ends here
+    cases = [(str(i), p, rec.outputs(i, o), r, rec.per_rid[i]["chains"], rr,
+              rec.per_rid[i]["rows"])
+             for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
+                                                        oracle, o_rows))]
+    verdicts = judge_all(card, label, cases, cfg, params, noise)
+    tree_depths(label, card, rec)
+    del rec, cases
+    fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
+            f"{label}: {n_pages - len(eng.pool._free)} pages not returned")
+    new_tok = sum(o.decode_tokens for o in outs)
+    n_equal = sum(v.startswith("equal") for v in verdicts)
+    print(f"{label}: {len(outs)} requests, {new_tok} new tokens, {steps} "
+          f"steps of [12, 24], wall {wall:.3f} s: {new_tok / wall:.2f} tok/s, "
+          f"{wall / steps * 1e3:.3f} ms/step, mean accept "
+          f"{new_tok / eng.steps_total:.3f} per live slot-step, retrieval "
+          f"chains {eng.sam_steps_total} of {eng.steps_total} slot-steps, "
+          f"peak_pages {eng.peak_pages} of {n_pages}; {n_equal} equal to "
+          f"the chain oracle, {len(outs) - n_equal} near-ties (tau "
+          f"{noise.tau:.5f}); all pages returned [{card}]", flush=True)
+    p128 = sum(len(p) <= 128 for p, _ in requests)
+    want = {"flash_block_attention": L * p128,
+            "flash_block_attention_int8kv": 0,
+            "int4_matmul": (7 * L + 1) * (steps + len(requests))
+            + hy.eagle_depth * steps,
+            "paged_block_attention": 0,
+            "paged_block_attention_int8kv": L * steps}
+    fail_if(counts != want or not steps,
+            f"{label}: launch counts {counts}, expected {want}")
+    print(f"{label} path: K4 int8 {counts['paged_block_attention_int8kv']} = "
+          f"32 x {steps} steps; K3 {counts['int4_matmul']} = 225 x "
+          f"{steps + len(requests)} forwards + {hy.eagle_depth} draft-head "
+          f"launches x {steps} steps [{card}]", flush=True)
+    del eng, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# python3 chip_smoke.py --isolate-11b: a reporting run of phase 11b
+# ----------------------------------------------------------------------
+
+class SnapAt:
+    """While active, copies out the slot of request ``rid`` of a paged
+    batched engine just before the step that starts at committed length
+    ``h0``: its pages gathered into a dense batch-1 cache of ``S``
+    columns (``cache.QuantizedKV`` over int8 pages)."""
+
+    def __init__(self, engine, rid, h0, S):
+        self.engine, self.rid, self.h0, self.S = engine, rid, h0, S
+        self.kv = None
+
+    def __enter__(self):
+        import torch
+
+        from samd_tpu_torch.cache import QuantizedKV
+        from samd_tpu_torch.ops.paged_attention import gather_pages
+
+        eng, step = self.engine, self.engine._step
+
+        def dense(side, table):
+            def cut(x):
+                g = torch.stack([gather_pages(x[l], table[None])
+                                 for l in range(x.shape[0])])
+                return g[:, :, :, :self.S].clone()
+            if side.scale is None:
+                return cut(side.pool)
+            return QuantizedKV(cut(side.pool), cut(side.scale))
+
+        def snap_step(hist_lens, *rest):
+            hl = hist_lens.cpu().numpy()
+            for b, rid in enumerate(eng._slot_req):
+                if rid == self.rid and int(hl[b]) == self.h0 \
+                        and self.kv is None:
+                    table = eng.page_reqs[b].table(eng.device)
+                    self.kv = (dense(eng.kv_k, table),
+                               dense(eng.kv_v, table))
+            return step(hist_lens, *rest)
+        eng._step = snap_step
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.__dict__.pop("_step", None)
+
+
+def chain_rows(cfg, params, kv, h0, tokens, M):
+    """``tokens`` re-verified as one chain of an M-wide block at committed
+    length ``h0`` over a copy of the dense batch-1 cache ``kv`` (the
+    verify kernel, its int8 mode for a ``QuantizedKV``): the logits rows of
+    the chain, [len(tokens), V]."""
+    import torch
+
+    from samd_tpu_torch.cache import QuantizedKV
+    from samd_tpu_torch.fused_sam import chain_tree_mask
+    from samd_tpu_torch.models import block_decode_mask, forward
+
+    k, v = (QuantizedKV(x.q.clone(), x.scale.clone())
+            if isinstance(x, QuantizedKV) else x.clone() for x in kv)
+    qcfg = dataclasses.replace(cfg, kv_quant=isinstance(k, QuantizedKV))
+    n = len(tokens)
+    block = torch.zeros((1, M), dtype=torch.int32, device="cuda")
+    block[0, :n] = torch.tensor(tokens, dtype=torch.int32)
+    off = torch.tensor(h0, dtype=torch.int32, device="cuda")
+    pos = (off + torch.arange(M, device="cuda"))[None]
+    mask = block_decode_mask(chain_tree_mask(
+        torch.tensor(n, device="cuda"), M), off, k.shape[3])
+    logits, _ = forward(params, qcfg, block, pos, k, v, off, mask)
+    return logits[0, :n].float()
+
+
+def isolate_11b(card: str) -> int:
+    """Phase 11b warmed along every path, reported, not judged into a
+    failure; at the first request whose first difference the judge
+    rejects by the fixed bf16 bound (tau 0.08, the rule before the int8
+    bound), the token there: (i) over bf16 pages, (ii) through the dense
+    int8 BatchedFusedHybridEngine, (iii) the step's accepted path
+    re-verified as a chain over the engine's own cache and (iv) over the
+    chain oracle's cache at that length; and how the two caches differ."""
+    import torch
+
+    import samd_tpu_torch.fused_hybrid as fh
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
+                                             PagedBatchedFusedHybridEngine)
+    from samd_tpu_torch.fused_sam import (FusedSamConfig,
+                                          PagedBatchedFusedSamEngine)
+
+    cfg, params = llama_7b_int4_params()
+    V = cfg.vocab_size
+    requests = phase6_requests(V)
+    oracle, o_rows, corpus, noise = chain_oracle_24(card, cfg, params,
+                                                    requests)
+    hy = server_hybrid_cfg()
+    M = hy.max_block
+    fixed = SimpleNamespace(**{**vars(noise), "int8": False})
+
+    def run(label, make):
+        eng = make()
+        warm_harvest(eng, np.random.default_rng(23),
+                     every_path(requests, oracle, o_rows, eng.B))
+        with FusedSteps(eng, fh) as rec:
+            outs, _, _ = serve_batched(eng, requests, V)
+        bad = []
+        for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs, oracle,
+                                                   o_rows)):
+            got = rec.per_rid[i]
+            verdict, reason = judge(p, rec.outputs(i, o), r, got["chains"],
+                                    rr, cfg, params, fixed, got["rows"])
+            print(f"isolate 11b ({label}) request {i}: "
+                  f"{verdict or 'REJECTED: ' + reason} [{card}]", flush=True)
+            if verdict is None:
+                bad.append(i)
+        deep = [a for r in rec.per_rid.values()
+                for c, a in zip(r["chains"], r["alens"]) if not c]
+        print(f"isolate 11b ({label}): {sum(a >= 3 for a in deep)} of "
+              f"{len(deep)} tree slot-steps accepted depth >= 2 [{card}]",
+              flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec, outs, bad
+
+    def paged(**kw):
+        return lambda: PagedBatchedFusedHybridEngine(
+            cfg, params, hy, corpus=corpus, **{**PAGED_KW, **kw})
+
+    rec, outs, bad = run("int8 pages", paged())
+    if not bad:
+        print("isolate 11b: no request rejected", flush=True)
+        return 0
+    i = bad[0]
+    p, out, ref = requests[i][0], outs[i], oracle[i]
+    j = next(n for n, (x, y) in enumerate(zip(out.output_ids,
+                                               ref.output_ids)) if x != y)
+    a, b = out.output_ids[j], ref.output_ids[j]
+    # the step whose path row chose token j: committed length h0, row k
+    alens, h0 = rec.per_rid[i]["alens"], len(p)
+    for s, n in enumerate(alens):
+        if h0 + n >= j:
+            break
+        h0 += n
+    k = j - h0 - 1
+    print(f"isolate 11b: request {i} differs at {j} (engine {a}, oracle "
+          f"{b}); the step from committed length {h0} (step {s}, "
+          f"{'chain' if rec.per_rid[i]['chains'][s] else 'tree'} draft, "
+          f"{alens[s]} committed) chose it at path row {k} [{card}]",
+          flush=True)
+    del rec
+
+    def gaps(rows, label):
+        r = rows[k]
+        print(f"isolate 11b ({label}): argmax {int(r.argmax())}, "
+              f"row[{a}] - row[{b}] = {float(r[a] - r[b]):.5f} [{card}]",
+              flush=True)
+
+    # (i) bf16 pages, (ii) the dense int8 engine: the token at j
+    dense = dict(batch_size=12, max_cache_len=1024, eos_token_id=-1,
+                 prefill_buckets=(128, 256))
+    for label, make in (
+            ("i bf16 pages", paged(quantized_kv=False)),
+            ("ii dense int8 KV", lambda: BatchedFusedHybridEngine(
+                dataclasses.replace(cfg, kv_quant=True), params, hy,
+                corpus=corpus, **dense))):
+        got = run(label, make)[1][i].output_ids
+        print(f"isolate 11b ({label}): request {i} token {j} = {got[j]} "
+              f"(prefix {'equal to' if got[:j] == out.output_ids[:j] else 'differs from'} "
+              f"the int8 engine's) [{card}]", flush=True)
+
+    # (iii) the engine's own cache, (iv) the chain oracle's, at length h0
+    tokens = out.output_ids[h0:h0 + k + 1]
+    eng = paged()()
+    warm_harvest(eng, np.random.default_rng(23),
+                 every_path(requests, oracle, o_rows, eng.B))
+    with SnapAt(eng, i, h0, 1024) as snap:
+        serve_batched(eng, requests, V)
+    kv_eng = snap.kv
+    del eng
+    gc.collect()
+    ora = PagedBatchedFusedSamEngine(
+        cfg, params, FusedSamConfig(n_predicts=23, steps_per_call=16,
+                                    alpha=0.0, corpus_capacity=4096),
+        **PAGED_KW)
+    with SnapAt(ora, i, h0, 1024) as snap:
+        serve_batched(ora, requests, V)
+    kv_ora = snap.kv
+    del ora
+    gc.collect()
+    gaps(chain_rows(cfg, params, kv_eng, h0, tokens, M),
+         "iii chain over the engine's cache")
+    gaps(chain_rows(cfg, params, kv_ora, h0, tokens, M),
+         "iv chain over the oracle's cache")
+    for side, (x, y) in zip("kv", zip(kv_eng, kv_ora)):
+        dq = (x.q[:, :, :, :h0] != y.q[:, :, :, :h0])
+        cols = dq.any(dim=-1).any(dim=0).any(dim=0).any(dim=0)
+        first = int(cols.nonzero()[0]) if cols.any() else -1
+        step = (x.q[:, :, :, :h0].int() - y.q[:, :, :, :h0].int()).abs()
+        print(f"isolate 11b: {side} cache of the engine against the "
+              f"oracle's over the first {h0} columns: {int(dq.sum())} int8 "
+              f"values differ (largest difference {int(step.max())} "
+              f"steps), in {int(cols.sum())} columns, the first at "
+              f"{first}; scales differ in "
+              f"{int((x.scale[..., :h0] != y.scale[..., :h0]).sum())} "
+              f"[{card}]", flush=True)
+    return 0
 
 
 def main_path_1b_fused(card: str) -> None:
@@ -3077,10 +3677,9 @@ def main_path_1b_fused(card: str) -> None:
             refs[name] = oracle.generate(p, gen)
             ref_rows[name] = rows.steps[n0:]
     del oracle
-    plain = noise_spread(cfg, params, [
+    noise = noise_spread(cfg, params, [
         (refs[n].output_ids, len(p), ref_rows[n])
         for n, p in prompts.items()])
-    spread = float(plain.max())
     a = prompts["a_random"]
     warm_harvest(tr, np.random.default_rng(32), [
         (0, refs["a_random"].output_ids[len(a):], ref_rows["a_random"])])
@@ -3103,10 +3702,10 @@ def main_path_1b_fused(card: str) -> None:
               f"{dt / out.decode_steps * 1e3:.3f} ms/step [{card}]",
               flush=True)
     counts = read_counts()                      # the path ends here
-    print(f"llama_1b fused Token Recycle: the plain prefill's bound "
-          f"{spread:.5f} [{card}]", flush=True)
+    print(f"llama_1b fused Token Recycle: {noise_line(noise)} [{card}]",
+          flush=True)
     judge_all(card, "llama_1b fused Token Recycle", cases, cfg, params,
-              spread)
+              noise)
     fail_if(counts["flash_block_attention"] != L * forwards
             or sum(counts.values()) != L * forwards,
             f"llama_1b fused Token Recycle: launch counts {counts}")
@@ -3135,10 +3734,9 @@ def main_path_1b_fused(card: str) -> None:
             oracle, _, _ = serve_batched(ora, requests, V)
         o_rows = [orows.per_rid[i] for i in range(len(requests))]
         del ora
-        plain = noise_spread(cfg, params, [
+        noise = noise_spread(cfg, params, [
             (o.output_ids, len(p), rr) for (p, _), o, rr in
             zip(requests[:2], oracle[:2], o_rows[:2])])
-        spread = float(plain.max())
         corpus = sum((o.output_ids + [0] for o in oracle[:2]), [])
         eng = hy_ctor(cfg, params, hy, corpus=corpus, **kw, **extra)
         warm_harvest(eng, np.random.default_rng(34), [
@@ -3153,7 +3751,7 @@ def main_path_1b_fused(card: str) -> None:
                   rr, rec.per_rid[i]["rows"])
                  for i, ((p, _), o, r, rr) in enumerate(zip(
                      requests, outs, oracle, o_rows))]
-        verdicts = judge_all(card, label, cases, cfg, params, spread)
+        verdicts = judge_all(card, label, cases, cfg, params, noise)
         deep_tree_steps(card, label, rec)
         del rec, cases
         n_equal = sum(v.startswith("equal") for v in verdicts)
@@ -3162,7 +3760,7 @@ def main_path_1b_fused(card: str) -> None:
               f"{wall / steps * 1e3:.3f} ms/step, {new_tok / wall:.2f} tok/s, "
               f"retrieval chains {eng.sam_steps_total} of {eng.steps_total} "
               f"slot-steps; {n_equal} equal to the chain oracle, "
-              f"{len(outs) - n_equal} near-ties (bound {spread:.5f}) "
+              f"{len(outs) - n_equal} near-ties (bound {noise.spread:.5f}) "
               f"[{card}]", flush=True)
         want = {"flash_block_attention": L * len(requests),
                 "flash_block_attention_int8kv": 0, "int4_matmul": 0,
@@ -3214,6 +3812,201 @@ def main_path_1b_fused(card: str) -> None:
         gc.collect()
 
 
+def main_path_1b_eagle(card: str) -> None:
+    """Phase 14: llama_1b bf16 through the EAGLE engines with a random
+    bf16 draft net (seed 7): FusedEagle2Engine (depth 5, top-8, 63 nodes)
+    against ArBaseline(block_size=64); SamdEngine at M = 64 with the
+    EAGLE-2 and EAGLE-1 tree drafters against the same oracle; the dense
+    BatchedFusedHybridEagleEngine at B = 4 with the server's block against
+    its chain-only engine at alpha = 0; and --engine
+    eagle2_hybrid_batched over 127.0.0.1 against the engine called
+    directly.  Every request through phase 9's judge."""
+    import torch
+
+    import samd_tpu_torch.eagle_fused as ef
+    import samd_tpu_torch.fused_hybrid as fh
+    from samd_tpu_torch.config import GenerationConfig, SamdConfig
+    from samd_tpu_torch.drafters import make_drafter
+    from samd_tpu_torch.drafters.eagle.net import (EagleNetConfig,
+                                                   init_eagle_params)
+    from samd_tpu_torch.eagle_fused import FusedEagle2Engine
+    from samd_tpu_torch.engine import ArBaseline, SamdEngine
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEagleEngine,
+                                             FusedHybridEagleConfig)
+    from samd_tpu_torch.fused_sam import BatchedFusedSamEngine, FusedSamConfig
+    from samd_tpu_torch.models import init_params, llama_1b
+    from samd_tpu_torch.server import build_server_engine
+    from samd_tpu_torch.server import serve as serve_http
+
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    gen_w.manual_seed(7)
+    net = init_eagle_params(EagleNetConfig.from_target(cfg), gen_w,
+                            device="cuda")
+    S, V, L, M = 2048, cfg.vocab_size, cfg.num_layers, 64
+    gen = GenerationConfig(max_new_tokens=96, max_cache_len=S)
+    rng = np.random.default_rng(41)
+    prompts = {"a_random": rng.integers(3, V, size=64).tolist(),
+               "b_repetitive": rng.integers(3, V, size=8).tolist() * 12}
+    oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
+                        block_size=M)
+    refs, ref_rows = {}, {}
+    with AcceptRows("oracle") as rows:
+        for name, p in prompts.items():
+            n0 = len(rows.steps)
+            refs[name] = oracle.generate(p, gen)
+            ref_rows[name] = rows.steps[n0:]
+    del oracle
+    noise = noise_spread(cfg, params, [
+        (refs[n].output_ids, len(p), ref_rows[n])
+        for n, p in prompts.items()])
+    print(f"llama_1b EAGLE: {noise_line(noise)} [{card}]", flush=True)
+
+    # FusedEagle2Engine
+    label = "llama_1b FusedEagle2Engine"
+    eng = FusedEagle2Engine(cfg, params, net_params=net, max_cache_len=S,
+                            eos_token_id=-1)
+    cases, forwards = [], 0
+    with FusedSteps(eng, ef) as rec:
+        reset_counts()                          # the path starts here
+        for name, p in prompts.items():
+            rec.next_request()
+            t0 = time.perf_counter()
+            out = eng.generate(p, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            r = rec.per_rid[rec.rid]
+            cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
+                          r["chains"], ref_rows[name], r["rows"]))
+            forwards += 1 + out.decode_steps
+            print(f"{label} request {name}: {out.decode_steps} steps of a "
+                  f"64-node tree, mean accept "
+                  f"{out.decode_tokens / out.decode_steps:.3f}, "
+                  f"{dt / out.decode_steps * 1e3:.3f} ms/step [{card}]",
+                  flush=True)
+        counts = read_counts()                  # the path ends here
+    judge_all(card, label, cases, cfg, params, noise)
+    tree_depths(label, card, rec)
+    fail_if(counts["flash_block_attention"] != L * forwards
+            or sum(counts.values()) != L * forwards,
+            f"{label}: launch counts {counts}, expected 22 x {forwards}")
+    del eng, rec, cases
+    gc.collect()
+
+    # SamdEngine with the EAGLE-2 and EAGLE-1 tree drafters
+    for method in ("eagle2", "eagle"):
+        label = f"llama_1b SamdEngine sam_hybrid {method}"
+        scfg = SamdConfig(draft_source="sam_hybrid", tree_method=method,
+                          max_predicts=M)
+        log = DraftLog(make_drafter(scfg, V, model_cfg=cfg, params=params,
+                                    eagle_net_params=net))
+        eng = SamdEngine(cfg, params, scfg, log, max_cache_len=S,
+                         eos_token_id=-1)
+        forwards = 0
+        reset_counts()                          # the path starts here
+        for name, p in prompts.items():
+            with AcceptRows("path") as rows:
+                out = eng.generate(p, gen)
+            forwards += 1 + out.decode_steps
+            verdict = oracle_verdict(f"{label} request {name}", p, out,
+                                     refs[name], log.chains, ref_rows[name],
+                                     cfg, params, noise, rows.steps)
+            print(f"{label} request {name}: {out.decode_steps} steps "
+                  f"({log.chains.count(False)} tree drafts of "
+                  f"{run_lengths(log.nodes)} nodes), mean accept by source: "
+                  f"{by_source(eng.stats)}; {verdict} [{card}]", flush=True)
+        counts = read_counts()                  # the path ends here
+        fail_if(counts["flash_block_attention"] != L * forwards
+                or sum(counts.values()) != L * forwards
+                or not eng.stats.source_counts.get(method),
+                f"{label}: launch counts {counts}, sources "
+                f"{eng.stats.source_counts}")
+        del eng, log
+        gc.collect()
+
+    # the dense batched SAM[EAGLE-2] at B = 4 with the server's block
+    label = "llama_1b dense SAM[EAGLE-2] B=4"
+    kw = dict(batch_size=4, max_cache_len=1024, eos_token_id=-1,
+              prefill_buckets=(128, 256))
+    rng = np.random.default_rng(43)
+    fresh = [(rng.integers(3, V, size=int(n)).tolist(), 64)
+             for n in rng.integers(40, 101, size=4)]
+    requests = fresh + fresh[:2]
+    hy = FusedHybridEagleConfig(steps_per_call=16, eagle_depth=4,
+                                eagle_topk=4, eagle_total=23, max_block=24,
+                                n_predicts=20, corpus_capacity=4096)
+    ora = BatchedFusedSamEngine(cfg, params, FusedSamConfig(
+        n_predicts=23, steps_per_call=16, alpha=0.0, corpus_capacity=4096),
+        **kw)
+    with ChainOracleRows(ora) as orows:
+        oracle, _, _ = serve_batched(ora, requests, V)
+    o_rows = [orows.per_rid[i] for i in range(len(requests))]
+    del ora
+    bnoise = noise_spread(cfg, params, [
+        (o.output_ids, len(p), rr) for (p, _), o, rr in
+        zip(requests[:2], oracle[:2], o_rows[:2])])
+    corpus = sum((o.output_ids + [0] for o in oracle[:2]), [])
+    eng = BatchedFusedHybridEagleEngine(cfg, params, hy, net_params=net,
+                                        corpus=corpus, **kw)
+    torch.cuda.synchronize()
+    with FusedSteps(eng, fh) as rec:
+        reset_counts()                          # the path starts here
+        outs, wall, steps = serve_batched(eng, requests, V)
+        counts = read_counts()                  # the path ends here
+    cases = [(str(i), p, rec.outputs(i, o), r, rec.per_rid[i]["chains"], rr,
+              rec.per_rid[i]["rows"])
+             for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
+                                                        oracle, o_rows))]
+    verdicts = judge_all(card, label, cases, cfg, params, bnoise)
+    tree_depths(label, card, rec)
+    n_equal = sum(v.startswith("equal") for v in verdicts)
+    new_tok = sum(o.decode_tokens for o in outs)
+    print(f"{label}: {new_tok} new tokens, {steps} steps of [4, 24], "
+          f"{wall / steps * 1e3:.3f} ms/step, {new_tok / wall:.2f} tok/s, "
+          f"retrieval chains {eng.sam_steps_total} of {eng.steps_total} "
+          f"slot-steps; {n_equal} equal to the chain oracle, "
+          f"{len(outs) - n_equal} near-ties [{card}]", flush=True)
+    want = {"flash_block_attention": L * len(requests),
+            "flash_block_attention_int8kv": 0, "int4_matmul": 0,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want or not steps,
+            f"{label}: launch counts {counts}, expected {want}")
+    del eng, rec, cases
+    gc.collect()
+
+    # --engine eagle2_hybrid_batched over 127.0.0.1
+    four = [p for p, _ in requests[:4]]
+    args = SimpleNamespace(model=None, random_model=True, tiny=False,
+                           engine="eagle2_hybrid_batched", batch_size=4,
+                           quantize=None, max_cache_len=1024, sam=None,
+                           cpu=False, inline_prefill=False)
+    eng = build_server_engine(args)
+    direct, _, _ = serve_batched(eng, [(p, 32) for p in four], V)
+    server, sched = serve_http(eng, port=0, block=False)
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        reset_counts()                          # the path starts here
+        replies = http_traffic(url, [{"input_ids": p, "max_new_tokens": 32}
+                                     for p in four], "eagle2_hybrid_batched")
+        counts = read_counts()                  # the path ends here
+    finally:
+        server.shutdown()
+        sched.close()
+    fail_if([r["output_ids"] for r in replies]
+            != [o.output_ids for o in direct],
+            "server --engine eagle2_hybrid_batched: replies differ from the "
+            "engine called directly")
+    fail_if(counts["flash_block_attention"] != L * len(four),
+            f"server --engine eagle2_hybrid_batched: launch counts {counts}")
+    print(f"server --engine eagle2_hybrid_batched: 4 greedy replies over "
+          f"HTTP equal to the engine called directly; launches {counts} "
+          f"[{card}]", flush=True)
+    del eng, params, net
+    gc.collect()
+
+
 def main() -> int:
     import torch
 
@@ -3257,6 +4050,9 @@ def main() -> int:
     for f, c in sorted(sass.items()):
         print(f"sass: {f} HMMA {c['HMMA']} FFMA {c['FFMA']}")
 
+    if sys.argv[1:] == ["--isolate-11b"]:
+        return isolate_11b(card)
+
     # phase 3: kernels against their plain versions
     rows = {"flash_block_attention": check_kernels(card),
             "flash_block_attention_int8kv": check_int8_attention(card),
@@ -3265,6 +4061,13 @@ def main() -> int:
     errs = check_hybrid_masks(card)
     for name, key in (("flash_block_attention", "pld"),
                       ("flash_block_attention", "tr"),
+                      ("flash_block_attention_int8kv", "int8")):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        errs[(key, torch.bfloat16)])
+    rows["paged_block_attention_int8kv"]["max_abs_err"] = max(
+        rows["paged_block_attention_int8kv"]["max_abs_err"], errs["k4"])
+    errs = check_eagle_masks(card)
+    for name, key in (("flash_block_attention", "k1"),
                       ("flash_block_attention_int8kv", "int8")):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         errs[(key, torch.bfloat16)])
@@ -3289,7 +4092,14 @@ def main() -> int:
     main_path_7b_host(card, cfg7, params7)
     gc.collect()
     torch.cuda.empty_cache()
-    main_path_7b_hybrid(card, cfg7, params7, requests7)
+    single7 = main_path_7b_hybrid(card, cfg7, params7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged7 = main_path_7b_paged_hybrid(card, cfg7, params7, requests7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_7b_eagle(card, cfg7, params7, single7, paged7, requests7)
+    del single7, paged7
     del params7
     gc.collect()
     torch.cuda.empty_cache()
@@ -3300,6 +4110,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_fused(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_1b_eagle(card)
     fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "
             f"{TOTALS}")
 

@@ -96,7 +96,9 @@ class BatchedSamdEngine(ProgressStreamMixin):
         probe = drafter_factory()
         if getattr(probe, "wants_hidden", False):
             raise NotImplementedError(
-                "hidden-state drafters (EAGLE) are ROADMAP queue 1 item 13")
+                "hidden-state drafters (EAGLE) run on SamdEngine and the "
+                "fused SAM[EAGLE-2] engines; the reference's batched host "
+                "engine carries no hidden states either")
         self.model_cfg = model_cfg
         self.params = params
         self.samd_cfg = samd_cfg

@@ -42,6 +42,27 @@ def _to_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
+def _leaf(node, device, dtype=None):
+    """One leaf: a quantized node's bytes and scales, or a plain array."""
+    kind = type(node).__name__
+    if kind == "QuantizedTensor":
+        return QuantizedTensor(_to_tensor(node.q, device),
+                               _to_tensor(node.scale, device))
+    if kind == "Int4Tensor":
+        return Int4Tensor(_to_tensor(node.packed, device),
+                          _to_tensor(node.scale, device))
+    return _to_tensor(node, device, dtype)
+
+
+def eagle_params_from_jax(net: Params, device: Union[str, torch.device]
+                          ) -> Params:
+    """The reference's EAGLE draft-net parameters (its
+    ``drafters.eagle.net`` dict, plain or through
+    ``quantize_eagle_params``) with numpy leaves → the port's
+    ``drafters.eagle.net`` parameters on ``device``, bytes unchanged."""
+    return {k: _leaf(v, device) for k, v in net.items()}
+
+
 def params_from_jax(tree: Params, device: Union[str, torch.device],
                     dtype: Optional[torch.dtype] = None) -> Params:
     """JAX parameter pytree with numpy leaves → the port's dict of tensors
@@ -54,13 +75,6 @@ def params_from_jax(tree: Params, device: Union[str, torch.device],
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        kind = type(node).__name__
-        if kind == "QuantizedTensor":
-            return QuantizedTensor(_to_tensor(node.q, device),
-                                   _to_tensor(node.scale, device))
-        if kind == "Int4Tensor":
-            return Int4Tensor(_to_tensor(node.packed, device),
-                              _to_tensor(node.scale, device))
-        return _to_tensor(node, device, dtype)
+        return _leaf(node, device, dtype)
 
     return conv(tree)

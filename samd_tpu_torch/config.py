@@ -1,8 +1,7 @@
 """Configuration dataclasses (counterpart of ``samd_tpu/config.py``).
 
 ``GenerationConfig`` is a copy.  ``SamdConfig`` holds the policy knobs the
-host engines and their drafters read (``samd_tpu/config.py:17-63``); the
-EAGLE knobs come with the EAGLE drafters (ROADMAP queue 1 item 13).
+host engines and their drafters read (``samd_tpu/config.py:17-63``).
 """
 
 from __future__ import annotations
@@ -18,7 +17,8 @@ class SamdConfig:
 
     draft_source:
       * "sam_hybrid" – SAM sequence drafts when the suffix match is long,
-        otherwise a model-based tree drafter (Token Recycle);
+        otherwise a model-based tree drafter (Token Recycle, EAGLE-1 or
+        EAGLE-2);
       * "sam_only"  – SAM drafts always: dynamic-SAM sequence draft vs
         static-SAM frequency tree by match-length comparison.
     """
@@ -32,13 +32,17 @@ class SamdConfig:
     # --- sam_hybrid knobs ---
     n_predicts: int = 40         # sequence-draft length for hybrid mode
     len_threshold: int = 5       # min match length to prefer SAM over the tree
-    # "eagle"/"eagle2" raise in make_drafter (ROADMAP queue 1 item 13)
     tree_method: Literal["token_recycle", "eagle", "eagle2"] = "token_recycle"
     tree_adjacency: Optional[list] = None   # static tree topology (BFS adjacency)
 
     # --- sam_only knobs ---
     alpha: float = 4.0           # adaptive draft length = 1 + match_len * alpha
     tree_topk: int = 8           # K: frequency-tree branching / per-depth cap
+
+    # --- EAGLE-2 knobs (tree_method "eagle2") ---
+    eagle_depth: int = 5
+    eagle_topk: int = 8
+    eagle_total_tokens: int = 63  # tree size = total_tokens + 1 (root)
 
     # --- verify shapes ---
     max_tree_paths: Optional[int] = None    # R; defaults to max_predicts

@@ -9,9 +9,10 @@ step.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Protocol, Sequence
+from typing import Optional, Protocol, Sequence, Union
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -19,10 +20,13 @@ class Draft:
     """A drafter's proposal for one verify step, in the packed layout:
     ``packed[0]`` = node tokens, ``packed[1]`` = parent indices (-1 for the
     root, self-parent for padding nodes).  The mask, positions and retrieval
-    paths are derived from it by ``ops.treeops.unpack_draft``."""
-    packed: np.ndarray  # [2, M] int32
+    paths are derived from it by ``ops.treeops.unpack_draft``; a draft
+    built on the device (a torch tensor, the EAGLE drafters') by
+    ``ops.treeops.unpack_draft_device``, over its ``depth`` levels."""
+    packed: Union[np.ndarray, torch.Tensor]  # [2, M] int32
     num_nodes: int
     source: str  # e.g. "ar", "sam_dyn", "sam_static", "token_recycle"
+    depth: Optional[int] = None   # a device draft's deepest real node
 
 
 class Drafter(Protocol):

@@ -53,6 +53,18 @@ class AdaptiveSelector:
         return (self.tree_drafter is not None
                 and getattr(self.tree_drafter, "wants_harvest", False))
 
+    @property
+    def wants_hidden(self) -> bool:
+        return (self.tree_drafter is not None
+                and getattr(self.tree_drafter, "wants_hidden", False))
+
+    def observe_prompt_hidden(self, tokens, hidden) -> None:
+        self.tree_drafter.observe_prompt_hidden(tokens, hidden)
+
+    def observe_step_hidden(self, accepted, path_hidden, accept_len) -> None:
+        self.tree_drafter.observe_step_hidden(accepted, path_hidden,
+                                              accept_len)
+
     # ------------------------------------------------------------------
     def reset(self) -> None:
         self.dyn.reset()

@@ -25,8 +25,14 @@ result while it travels to the host (``HostCopy``): ``generate`` waits for
 it at once, ``interleave.InterleavedSamdEngine`` serves other requests
 meanwhile, and both run the same code.
 
-Not ported yet: the hidden-state drafters (EAGLE, ROADMAP queue 1 item
-13), meshes (item 16), the profiler and ``stream_generate`` (item 15).
+A hidden-state drafter (``wants_hidden``: the EAGLE drafters) gets the
+target's hidden states of the prompt and of each step's accepted path on
+the device (``observe_prompt_hidden``, ``observe_step_hidden``), and hands
+out drafts built on the device, which ``ops.treeops.unpack_draft_device``
+unpacks there.
+
+Not ported yet: meshes (ROADMAP queue 1 item 16), the profiler and
+``stream_generate`` (item 15).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from .drafters.base import Draft
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.quant import tensors
-from .ops.treeops import pack_draft_host, unpack_draft
+from .ops.treeops import pack_draft_host, unpack_draft, unpack_draft_device
 from .verify import (draw_first_token, draw_tree_noise, greedy_accept,
                      make_accept_fn)
 
@@ -111,13 +117,19 @@ def check_request(ids: Sequence[int], gen: GenerationConfig,
                          f"{vocab_size}")
 
 
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k``: the ``k`` largest entries of each row of ``[..., N]``
+    and their indices, descending, ties toward the lower index
+    (``torch.topk`` promises no order among ties, so a stable descending
+    sort picks them)."""
+    values, order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], order[..., :k]
+
+
 def harvest_topk(logits: torch.Tensor, k: int) -> torch.Tensor:
     """The ``k`` most likely token ids of each row of ``[..., V]`` logits,
-    int32 ``[..., k]``, ties toward the lower id as ``lax.top_k`` breaks
-    them (``torch.topk`` promises no order among ties, so a stable
-    descending sort picks them)."""
-    order = torch.sort(logits, dim=-1, descending=True, stable=True).indices
-    return order[..., :k].to(torch.int32)
+    int32 ``[..., k]`` (``top_k``'s tie order)."""
+    return top_k(logits, k)[1].to(torch.int32)
 
 
 class HostCopy:
@@ -160,9 +172,6 @@ class SamdEngine:
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  device: Union[str, torch.device] = "cuda"):
         check_supported(model_cfg)
-        if getattr(drafter, "wants_hidden", False):
-            raise NotImplementedError(
-                "hidden-state drafters (EAGLE) are ROADMAP queue 1 item 13")
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.model_cfg = model_cfg
@@ -177,6 +186,7 @@ class SamdEngine:
         # the top-K harvest is computed (a sort over V) only when the
         # drafter consumes it
         self.wants_harvest = getattr(drafter, "wants_harvest", False)
+        self.wants_hidden = getattr(drafter, "wants_hidden", False)
         self.stats = StepStats()
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
@@ -187,43 +197,49 @@ class SamdEngine:
     def _prefill(self, input_ids: List[int]):
         """Forward the bucket-padded prompt at offset 0; returns the greedy
         next token (0-dim int32 on the device), the last prompt row's
-        logits [V] and, for a harvesting drafter, the prompt rows' top-K
-        [len, K] (else None)."""
+        logits [V], for a harvesting drafter the prompt rows' top-K [len, K]
+        (else None) and the hidden states [P, H]."""
         P = _bucket(len(input_ids), self.prefill_buckets)
         dev, S = self.device, self.max_cache_len
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(input_ids)] = torch.tensor(input_ids,
                                                   dtype=torch.int32)
-        logits, _ = forward(
+        logits, hidden = forward(
             self.params, self.model_cfg, padded.to(dev),
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, S, dev))
         last = logits[0, len(input_ids) - 1]
         topk = (harvest_topk(logits[0, :len(input_ids)], HARVEST_TOPK)
                 if self.wants_harvest else None)
-        return torch.argmax(last).to(torch.int32), last, topk
+        return torch.argmax(last).to(torch.int32), last, topk, hidden[0]
 
-    def _verify_core(self, cache_len: torch.Tensor, draft: np.ndarray):
-        """Draft buffers, mask and the verify forward.  The draft comes from
-        the host, so its tree buffers are derived there and uploaded."""
+    def _verify_core(self, cache_len: torch.Tensor, draft: Draft):
+        """Draft buffers, mask and the verify forward.  A draft from the
+        host has its tree buffers derived there and uploaded; one built on
+        the device is unpacked there."""
         cfg, S, dev = self.model_cfg, self.max_cache_len, self.device
         D = self.samd_cfg.max_tree_depth
-        tokens, tree_mask, depths, paths = (
-            t.to(dev) for t in unpack_draft(draft, D))
+        if isinstance(draft.packed, torch.Tensor):
+            tokens, tree_mask, depths, paths = (t[0] for t in (
+                unpack_draft_device(draft.packed[None], D, draft.depth)))
+        else:
+            tokens, tree_mask, depths, paths = (
+                t.to(dev) for t in unpack_draft(draft.packed, D))
         mask = block_decode_mask(tree_mask, cache_len, S)
         logits, hidden = forward(
             self.params, cfg, tokens[None], depths[None, :] + cache_len,
             self.kv_k, self.kv_v, cache_len, mask)
         return logits, hidden, tokens, paths
 
-    def _decode_step(self, cache_len: torch.Tensor, draft: np.ndarray,
+    def _decode_step(self, cache_len: torch.Tensor, draft: Draft,
                      accept=None, noise=None):
         """One verify step; greedy without ``accept``, else that tree rule
-        under this step's ``noise``.  Returns the packed ``[2 + D]`` result
-        and the block's top-K harvest (None unless the drafter wants it),
-        both on the device."""
+        under this step's ``noise``.  Returns the packed ``[2 + D]`` result,
+        the block's top-K harvest (None unless the drafter wants it) and the
+        target hidden states of the accepted path's nodes [D, H] (None
+        unless the drafter wants them), all on the device."""
         M = self.samd_cfg.max_predicts
-        logits, _, tokens, paths = self._verify_core(cache_len, draft)
+        logits, hidden, tokens, paths = self._verify_core(cache_len, draft)
         if accept is None:
             res = greedy_accept(logits[0], tokens, paths)
         else:
@@ -235,7 +251,9 @@ class SamdEngine:
                           res.accepted_tokens]).to(torch.int32)
         topk = (harvest_topk(logits[0], HARVEST_TOPK)
                 if self.wants_harvest else None)
-        return pack, topk
+        path_hidden = (hidden[0][torch.clamp(res.path_nodes, min=0).long()]
+                       if self.wants_hidden else None)
+        return pack, topk, path_hidden
 
     # ------------------------------------------------------------------
     # Generation loop
@@ -259,7 +277,7 @@ class SamdEngine:
         S = min(self.max_cache_len, gen.max_cache_len)
 
         self.drafter.reset()
-        first, last, topk = self._prefill(input_ids)
+        first, last, topk, hidden = self._prefill(input_ids)
         accept = rng = sig = None
         if not gen.greedy:
             sig = gen.sampling_signature
@@ -269,6 +287,8 @@ class SamdEngine:
             first = draw_first_token(rng, last, gen.temperature)
         first, topk = HostCopy([first, topk]).wait()
         self.drafter.observe_prompt(input_ids, topk)
+        if self.wants_hidden:
+            self.drafter.observe_prompt_hidden(input_ids, hidden)
 
         cache_len = len(input_ids)
         output = list(input_ids)
@@ -286,8 +306,9 @@ class SamdEngine:
                 noise = draw_tree_noise([rng], sig, M, M, D,
                                         self.model_cfg.vocab_size, dev)
                 noise = type(noise)(*(t[0] for t in noise))
-            pending = HostCopy(self._decode_step(offset, draft.packed,
-                                                 accept, noise))
+            pack, topk, path_hidden = self._decode_step(offset, draft,
+                                                        accept, noise)
+            pending = HostCopy([pack, topk])
             yield pending
             pack, topk = pending.wait()
             accept_len = int(pack[0])
@@ -299,6 +320,9 @@ class SamdEngine:
             if self.wants_harvest:
                 self.drafter.observe_verify(draft.packed[0], topk,
                                             draft.num_nodes)
+            if self.wants_hidden:
+                self.drafter.observe_step_hidden(accepted, path_hidden,
+                                                 len(accepted))
             self.stats.record(draft.source, len(accepted))
 
             output.extend(accepted)

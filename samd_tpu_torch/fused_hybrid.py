@@ -35,11 +35,14 @@ their own ``torch.Generator`` (``verify.TreeNoise``).
 
 The harvest's top-K is ``engine.harvest_topk`` (a stable sort: the
 reference's exact ``lax.top_k``, which its ``approx_max_k`` equals on the
-CPU); the reference's ``approx_harvest`` switch is not ported.  The
-reference's SAM[EAGLE-2] engines (``fused_hybrid.py:1026-1728``) are not
-ported yet (ROADMAP queue 1 item 13); they subclass the batched engine
-here through its drafter hooks (``_tree_draft``, ``_observe_block``,
-``_observe_prompt``, ``_prefill_slot``).
+CPU); the reference's ``approx_harvest`` switch is not ported.
+
+SAM[EAGLE-2] (``FusedHybridEagleEngine``, ``BatchedFusedHybridEagleEngine``,
+``PagedBatchedFusedHybridEagleEngine``, reference
+``fused_hybrid.py:1026-1728``) draws the tree from the EAGLE-2 draft net
+(``eagle_fused``) through the same engines' drafter hooks
+(``_tree_draft``, ``_buffers``, ``_observe_block``, ``_observe_prompt``,
+``_observe_accept``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 from .cache import compact_accepted, compact_accepted_batched
 from .config import GenerationConfig
 from .drafters.tree_topology import child_ranks, rank_probability_tree
+from .eagle_fused import EagleDraftNet
 from .engine import Outputs, harvest_topk
 from .fused_base import harvest_update
 from .fused_sam import BatchedFusedSamEngine, FusedSamEngine, \
@@ -189,7 +193,7 @@ class HarvestTables:
                        harvest_topk(logits, self.cfg.topk))
 
     def _observe_prompt(self, slot: int, tokens: torch.Tensor, true_len: int,
-                        logits: torch.Tensor) -> None:
+                        logits: torch.Tensor, hidden: torch.Tensor) -> None:
         V = self.model_cfg.vocab_size
         P = tokens.shape[0]
         rows = torch.where(torch.arange(P, device=tokens.device) < true_len,
@@ -224,10 +228,18 @@ class _HybridDraft(HarvestTables):
         self._init_harvest(slots)
 
     # -- drafter hooks (the SAM[EAGLE-2] engines override these) ---------
-    def _tree_draft(self, starts: torch.Tensor) -> torch.Tensor:
+    def _tree_draft(self, hist_lens: torch.Tensor,
+                    starts: torch.Tensor) -> torch.Tensor:
         """The model-side draft of every slot, [B, M] tokens (-1 where
         invalid) on the constant tree."""
         return self._tr_draft(self.harvests, self.seens, starts)
+
+    def _observe_accept(self, hidden, hist_lens, path_nodes, acc, alens,
+                        lives) -> None:
+        """After a step's accept: the block's hidden states [B, M, H], the
+        committed lengths before the step [B], the accepted path's nodes
+        and tokens [B, D], the accept lengths and live flags [B].  The
+        harvest has what it needs from ``_observe_block``."""
 
     def _accept_rule(self, sig: tuple):
         return make_accept_fn(sig)
@@ -252,7 +264,7 @@ class _HybridDraft(HarvestTables):
         keep = (pos >= 1) & (pos <= avail[:, None]) & (pos < hc.n_predicts)
         chain = torch.where(keep | (pos == 0), raw, -1)
         use_sam = match >= hc.len_threshold
-        tree = self._tree_draft(starts)
+        tree = self._tree_draft(hist_lens, starts)
         tokens = torch.where(use_sam[:, None], chain, tree)
         return use_sam, tokens, (~use_sam).to(torch.int64)
 
@@ -290,7 +302,7 @@ class FusedHybridEngine(_HybridDraft, FusedSamEngine):
         use_sam, draft, kind = self._hybrid_draft(
             history[None], hist_len[None], start[None])
         tree_mask, depths, paths = self._buffers(kind)
-        logits, _ = forward(
+        logits, hidden = forward(
             self.params, self.model_cfg, torch.clamp(draft, min=0),
             depths + hist_len, self.kv_k, self.kv_v, hist_len,
             block_decode_mask(tree_mask[0], hist_len, W))
@@ -308,6 +320,8 @@ class FusedHybridEngine(_HybridDraft, FusedSamEngine):
         any_eos = torch.any(is_eos)
         alen = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)) + 1,
                            res.accept_len).to(torch.int32)
+        self._observe_accept(hidden, hist_len[None], res.path_nodes[None],
+                             acc[None], alen[None], torch.ones_like(use_sam))
         history.index_copy_(0, (hist_len + self._chain_pos[:D]).long(), acc)
         self._sam_count += use_sam[0].to(torch.int32)
         budget = budget - alen
@@ -385,7 +399,7 @@ class BatchedFusedHybridEngine(_HybridDraft, BatchedFusedSamEngine):
                                         self.kv_k.page_size)
         else:
             mask = block_decode_mask(tree_mask, hist_lens, S)
-        logits, _ = forward(
+        logits, hidden = forward(
             self.params, self.model_cfg, torch.clamp(drafts, min=0),
             depths + hist_lens[:, None], self.kv_k, self.kv_v, hist_lens,
             mask, paged=paged)
@@ -429,6 +443,7 @@ class BatchedFusedHybridEngine(_HybridDraft, BatchedFusedSamEngine):
             any_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
             alens).to(torch.int32)
         alens = torch.where(lives, alens, 0)
+        self._observe_accept(hidden, hist_lens, path_nodes, acc, alens, lives)
         hist.scatter_(1, pos[:, :D].long(), acc)
         hist_lens = hist_lens + alens
         counted = lives
@@ -457,3 +472,128 @@ class PagedBatchedFusedHybridEngine(BatchedFusedHybridEngine,
         for side in (self.kv_k, self.kv_v):
             paged_compact_block(side, paged.tables, hist_lens, path_nodes,
                                 self.cfg.max_block, paged.scratch_page)
+
+
+# ----------------------------------------------------------------------
+# SAM[EAGLE-2]: retrieval chains or draft-net trees, on the device
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FusedHybridEagleConfig:
+    """SAM-Decoding[EAGLE-2], the reference's strongest configuration
+    (``samd_tpu/fused_hybrid.py:1026-1045``)."""
+    max_ngram: int = 8
+    ext: int = 56
+    n_predicts: int = 40
+    len_threshold: int = 5
+    len_bias: int = 5
+    eagle_depth: int = 5
+    eagle_topk: int = 8
+    eagle_total: int = 63
+    steps_per_call: int = 256
+    corpus_capacity: int = 1 << 15
+    max_block: int = 64
+    indexed: bool = False
+    index_grams: Tuple[int, ...] = (32, 16, 8, 7, 6, 5, 4, 3, 2, 1)
+    index_bucket_cap: int = 8
+    index_keep_latest: int = 0
+    cache_buckets: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.max_block < max(self.n_predicts, self.eagle_total + 1):
+            raise ValueError("max_block must cover n_predicts and "
+                             "eagle_total + 1")
+
+    @property
+    def block(self) -> int:
+        return self.max_block
+
+
+class _EagleHybrid(EagleDraftNet):
+    """The hybrid's drafter hooks with an EAGLE-2 tree in place of the
+    Token-Recycle one: the chain's constant buffers, and per step every
+    slot's expanded tree, unpacked on the device; the draft net's KV
+    extends with every step's accepted (token, target hidden) pairs,
+    whichever source drafted, and a prefill fills it from the prompt.
+    The net and its state are ``eagle_fused.EagleDraftNet``'s."""
+
+    def _init_hybrid(self, slots: int) -> None:
+        hc, M = self.cfg, self.cfg.max_block
+        chain = np.concatenate([np.arange(-1, hc.n_predicts - 1),
+                                np.arange(hc.n_predicts, M)])
+        self._chain_bufs = tuple(t.to(self.device)[None]
+                                 for t in constant_buffers(chain, M))
+        self._init_eagle(self.net_params, slots, depth=hc.eagle_depth,
+                         topk=hc.eagle_topk, total=hc.eagle_total, M=M)
+
+    def _tree_draft(self, hist_lens, starts):
+        packed, self._tree_bufs = self._eagle_tree(hist_lens, starts)
+        return packed[:, 0]
+
+    def _buffers(self, kind):
+        chain = kind == 0
+        return tuple(torch.where(chain.reshape((-1,) + (1,) * (t.dim() - 1)),
+                                 c, t)
+                     for c, t in zip(self._chain_bufs, self._tree_bufs))
+
+    def _observe_block(self, logits, drafts, lives) -> None:
+        pass
+
+    def _observe_prompt(self, slot, tokens, true_len, logits, hidden):
+        self._net_prefill(slot, tokens, true_len, hidden)
+
+    def _observe_accept(self, hidden, hist_lens, path_nodes, acc, alens,
+                        lives) -> None:
+        self._net_extend(hidden, hist_lens, path_nodes, acc, alens, lives)
+
+
+class FusedHybridEagleEngine(_EagleHybrid, FusedHybridEngine):
+    """SAM[EAGLE-2] over one batch-1 cache (reference
+    ``samd_tpu/fused_hybrid.py:1048-1278``): per step a retrieval chain
+    when the suffix match reaches ``len_threshold``, else an EAGLE-2 tree.
+    ``net_params=None`` draws a random net from a generator seeded 7;
+    keyword arguments are ``fused_sam.SingleStreamEngine``'s."""
+
+    def __init__(self, model_cfg: ModelConfig, params: Params,
+                 hy_cfg: Optional[FusedHybridEagleConfig] = None, *,
+                 net_params=None, corpus: Optional[Sequence[int]] = None,
+                 **kwargs):
+        self.net_params = net_params
+        super().__init__(model_cfg, params,
+                         hy_cfg or FusedHybridEagleConfig(), corpus=corpus,
+                         **kwargs)
+
+
+class BatchedFusedHybridEagleEngine(_EagleHybrid, BatchedFusedHybridEngine):
+    """B request slots of SAM[EAGLE-2] under continuous batching (reference
+    ``samd_tpu/fused_hybrid.py:1280-1631``): the scheduler, sampling and
+    compaction of ``BatchedFusedHybridEngine``; the per-slot state is the
+    draft net's KV and the target's last hidden state, not harvest tables,
+    and the expansion runs over the slot axis.  Admission takes the
+    one-shot prefill only (the net's pairs sit one position behind the
+    target KV, so an inline first block has no pair to start from)."""
+
+    def __init__(self, model_cfg: ModelConfig, params: Params,
+                 hy_cfg: Optional[FusedHybridEagleConfig] = None, *,
+                 net_params=None, corpus: Optional[Sequence[int]] = None,
+                 **kwargs):
+        if kwargs.pop("inline_prefill", False):
+            raise ValueError("the SAM[EAGLE-2] engines prefill in one shot")
+        self.net_params = net_params
+        super().__init__(model_cfg, params,
+                         hy_cfg or FusedHybridEagleConfig(steps_per_call=16),
+                         corpus=corpus, **kwargs)
+
+    def _alloc_limits(self) -> np.ndarray:
+        # a slot also stops where its tree scratch would pass S
+        return np.minimum(super()._alloc_limits(),
+                          self.S + self.cfg.block - self.tree_slots)
+
+
+class PagedBatchedFusedHybridEagleEngine(BatchedFusedHybridEagleEngine,
+                                         PagedBatchedFusedHybridEngine):
+    """``BatchedFusedHybridEagleEngine`` with the target KV on a shared page
+    pool, of q's type or int8 (reference
+    ``samd_tpu/fused_hybrid.py:1633-1728``): the page lifecycle and
+    ``paged_kv.paged_compact_block`` of ``PagedBatchedFusedHybridEngine``.
+    The draft net's KV stays dense per slot (one layer)."""

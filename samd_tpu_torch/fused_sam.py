@@ -322,9 +322,15 @@ class _DraftRules:
                                 self.model_cfg.vocab_size, self.device)
 
     def _observe_prompt(self, slot: int, tokens: torch.Tensor, true_len: int,
-                        logits: torch.Tensor) -> None:
-        """The prefill's bucket-padded tokens [P] and logits [P, V] for
-        ``slot`` (0 for one stream); rows from ``true_len`` are padding."""
+                        logits: torch.Tensor, hidden: torch.Tensor) -> None:
+        """The prefill's bucket-padded tokens [P], logits [P, V] and hidden
+        states [P, H] for ``slot`` (0 for one stream); rows from
+        ``true_len`` are padding."""
+
+    def _last_start(self, W: int) -> int:
+        """The longest committed length a step may start from in a cache
+        of W slots: its block must fit."""
+        return W - self.cfg.block
 
 
 class SingleStreamEngine(_DraftRules):
@@ -376,11 +382,12 @@ class SingleStreamEngine(_DraftRules):
         padded[0, :len(input_ids)] = torch.tensor(input_ids,
                                                   dtype=torch.int32)
         padded = padded.to(dev)
-        logits, _ = forward(
+        logits, hidden = forward(
             self.params, self.model_cfg, padded,
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
             prefill_mask(1, P, W, dev))
-        self._observe_prompt(0, padded[0], len(input_ids), logits[0])
+        self._observe_prompt(0, padded[0], len(input_ids), logits[0],
+                             hidden[0])
         last = logits[0, len(input_ids) - 1]
         return torch.argmax(last).to(torch.int32), last
 
@@ -422,7 +429,8 @@ class SingleStreamEngine(_DraftRules):
         eos = torch.tensor(self.eos_token_id, dtype=torch.int32, device=dev)
         hl, left, done = len(input_ids), gen.max_new_tokens, False
         decode_steps = 0
-        while not done and left > 0 and hl + M <= W:
+        last_start = self._last_start(W)
+        while not done and left > 0 and hl <= last_start:
             noise = None if rng is None else self._draw_noise([rng], sig)
             hist_len, start, budget, done_t = self._step(
                 W, history, hist_len, start, budget, eos, accept, noise)
@@ -674,10 +682,11 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
         padded = padded.to(dev)
-        logits, _ = forward(self.params, self.model_cfg, padded,
-                            torch.arange(P, device=dev)[None, :], fk, fv, 0,
-                            prefill_mask(1, P, W, dev))
-        self._observe_prompt(slot, padded[0], len(ids), logits[0])
+        logits, hidden = forward(self.params, self.model_cfg, padded,
+                                 torch.arange(P, device=dev)[None, :], fk,
+                                 fv, 0, prefill_mask(1, P, W, dev))
+        self._observe_prompt(slot, padded[0], len(ids), logits[0],
+                             hidden[0])
         last = logits[0, len(ids) - 1]
         return torch.argmax(last).to(torch.int32), last
 

@@ -46,6 +46,11 @@ class InterleavedSamdEngine:
                  *, lanes: int = 2, **engine_kwargs):
         if lanes < 1:
             raise ValueError("lanes must be >= 1")
+        if getattr(drafter_factory(), "wants_hidden", False):
+            raise NotImplementedError(
+                "interleaving serves host drafters only; hidden-state "
+                "drafters (EAGLE) run on SamdEngine (ROADMAP queue 1 "
+                "weighs deleting interleaving)")
         self.n_lanes = lanes
         self._engines: List[SamdEngine] = [
             SamdEngine(model_cfg, params, samd_cfg, drafter_factory(),

@@ -16,8 +16,7 @@ type: ``Int4Tensor`` under ``int4_impl="kernel"`` goes to
 else to ``qmatmul``, the pre-dequant form.  Layers of a stacked tensor are
 taken with ``layer(l)``, which returns views.
 
-``quantize_eagle_params`` comes with the EAGLE drafter (ROADMAP queue 1
-item 13).
+``quantize_eagle_params`` quantizes the EAGLE draft net's matrices.
 """
 
 from __future__ import annotations
@@ -274,6 +273,20 @@ def int4_from_int8_params(params: Dict) -> Dict:
     out["layers"] = layers
     if "lm_head" in params:
         out["lm_head"] = _requant4(params["lm_head"])
+    return out
+
+
+def quantize_eagle_params(params: Dict, *, dtype=torch.int8) -> Dict:
+    """Quantize an EAGLE draft-net parameter dict
+    (``drafters.eagle.net``): its eight matrices, per output channel, to
+    int8, fp8 or (``dtype=INT4``) packed int4; ``fc_b`` and ``mlp_norm``
+    keep their type.  The expansion runs the net ``depth`` times a step,
+    so its weight bytes are paid depth-fold (reference
+    ``samd_tpu/ops/quant.py:408-419``)."""
+    out = dict(params)
+    for name in ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        out[name] = (quantize_weight4(params[name]) if dtype == INT4
+                     else quantize_weight(params[name], dtype=dtype))
     return out
 
 

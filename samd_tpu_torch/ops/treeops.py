@@ -6,7 +6,9 @@ A draft is two int32 vectors, ``tokens`` and ``parents``, packed as
 root→node paths are derived from it on the host, where the host drafters
 build it: the reference's ``lax.scan`` loops over M become one numpy pass
 over the nodes, and the results come back as CPU tensors for one upload
-each.  Their integers equal the reference's.
+each.  A draft built on the device (the EAGLE drafters') is unpacked there
+by ``unpack_draft_device``, with no host read.  Their integers equal the
+reference's.
 
 Padding convention: padding node *i* has ``parents[i] == i`` (self-parent)
 and sits after all real nodes; real nodes obey ``parents[i] < i`` and
@@ -85,6 +87,35 @@ def unpack_draft(draft, max_depth: int
             torch.from_numpy(mask.reshape(lead + (M, M))),
             torch.from_numpy(depth.reshape(lead + (M,))),
             torch.from_numpy(paths.reshape(lead + (M, max_depth))))
+
+
+def unpack_draft_device(draft: torch.Tensor, max_depth: int, levels: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``unpack_draft`` of drafts [B, 2, M] on their own device, the same
+    integers (``_unpack_parents``'s, padding included).  Real nodes sit at
+    depth <= ``levels`` (< ``max_depth``): the ancestors k = 0 .. levels
+    of every node come from ``levels`` batched gathers of the parents, and
+    the mask, depths and paths from them, not from a loop over M.  A
+    self-parented padding node is its own ancestor at every k, so it sees
+    only itself, gets depth 1 and the path [i, i]."""
+    tokens = draft[:, 0].to(torch.int32)
+    parents = draft[:, 1].long()
+    B, M = parents.shape
+    idx = torch.arange(M, device=parents.device)
+    anc = [idx.expand(B, M)]                  # anc[k][b, i]: k-th ancestor
+    for _ in range(levels):
+        prev = anc[-1]
+        up = torch.gather(parents, 1, torch.clamp(prev, min=0))
+        anc.append(torch.where(prev >= 0, up, -1))
+    anc = torch.stack(anc)                                     # [k, B, M]
+    depths = torch.where(parents == idx, 1, (anc[1:] >= 0).sum(0))
+    mask = (anc[..., None] == idx).any(0)                      # [B, M, M]
+    dist = depths[..., None] - torch.arange(max_depth, device=idx.device)
+    rows = torch.gather(anc.permute(1, 2, 0), 2,
+                        torch.clamp(dist, 0, levels))          # [B, M, D]
+    paths = torch.where(dist >= 0, rows, -1)
+    return (tokens, mask, depths.to(torch.int32), paths.to(torch.int32))
 
 
 def pack_draft_host(tokens, parents, max_nodes: int) -> np.ndarray:

@@ -425,11 +425,6 @@ def serve(engine, *, host: str = "127.0.0.1", port: int = 8089,
     return server, scheduler
 
 
-# engines of the reference's server that the port does not have yet, with
-# the ROADMAP queue 1 item that ports each (item 13's SAM[EAGLE-2] half)
-_NOT_PORTED = {"eagle2_hybrid_batched": 13}
-
-
 def build_server_engine(args):
     """A batched serving engine from the command line's arguments:
     ``--random-model`` (llama_1b, or with ``--tiny`` a tiny config of 256
@@ -439,7 +434,10 @@ def build_server_engine(args):
     ``sam_only`` host drafters; ``fused_hybrid_batched`` and
     ``paged_fused_hybrid`` the SAM[Token Recycle] engines of
     ``fused_hybrid`` with the batch-tuned block (M 24, a 23-node tree,
-    chains of 20, 16 steps per segment); ``--sam FILE`` loads a static
+    chains of 20, 16 steps per segment), and ``eagle2_hybrid_batched`` the
+    SAM[EAGLE-2] engine with the same block (an EAGLE-2 tree of 23 nodes,
+    depth 4, top-4; a random draft net from a generator seeded 7);
+    ``--sam FILE`` loads a static
     corpus SAM (``sam.load_sam(FILE, topk=8)``), which the host drafters
     share through one ``sam.SamCursor`` per request and whose text is the
     fused engines' corpus."""
@@ -450,10 +448,6 @@ def build_server_engine(args):
     from .models import init_params, llama_1b, tiny_config
     from .ops.quant import INT4, quantize_llama_params
 
-    if args.engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP queue 1 "
-            f"item {_NOT_PORTED[args.engine]})")
     if not args.random_model:
         raise NotImplementedError(
             "--model (checkpoint loading) is not ported yet (ROADMAP queue "
@@ -504,6 +498,16 @@ def build_server_engine(args):
                 else BatchedFusedHybridEngine)
         return ctor(cfg, params, hy_cfg, corpus=corpus,
                     inline_prefill=inline, **kw)
+    if args.engine == "eagle2_hybrid_batched":
+        from .fused_hybrid import (BatchedFusedHybridEagleEngine,
+                                   FusedHybridEagleConfig)
+
+        hy_cfg = FusedHybridEagleConfig(
+            steps_per_call=16, eagle_depth=4, eagle_topk=4, eagle_total=23,
+            max_block=24, n_predicts=20)
+        return BatchedFusedHybridEagleEngine(cfg, params, hy_cfg,
+                                             corpus=corpus,
+                                             inline_prefill=inline, **kw)
     # the batch-tuned block M = 16; steps_per_call sets admission latency
     fs_cfg = FusedSamConfig(steps_per_call=16, n_predicts=15)
     if args.engine == "paged_fused_sam":
@@ -525,7 +529,7 @@ def main(argv=None):
     p.add_argument("--engine", default="fused_sam_batched",
                    choices=["fused_sam_batched", "paged_fused_sam",
                             "fused_hybrid_batched", "paged_fused_hybrid",
-                            "batched", *_NOT_PORTED])
+                            "eagle2_hybrid_batched", "batched"])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--quantize", choices=["int8", "fp8", "int4"])
     p.add_argument("--max-cache-len", type=int, default=1024)
@@ -534,7 +538,7 @@ def main(argv=None):
     p.add_argument("--inline-prefill", action="store_true",
                    help="greedy prompts stream through the decode steps "
                         "as forced-accept chains (fused_sam_batched, "
-                        "the hybrid engines)")
+                        "the SAM[Token Recycle] hybrid engines)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8089)
     p.add_argument("--cpu", action="store_true",

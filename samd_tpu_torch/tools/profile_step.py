@@ -25,6 +25,12 @@ int8 pages of 128, its harvest tables warm as a long-served engine's
 draft has its 23 nodes); the line adds the retrieval-chain share of the
 slot-steps and the time of the harvest's top-8 over one step's [12, 24,
 32000] logits by CUDA events.
+``--model llama_7b_int4_paged_eagle``: the same weights and prompts through
+``PagedBatchedFusedHybridEagleEngine`` with the server's block (M 24, an
+EAGLE-2 tree of 23 nodes, depth 4, top-4, chains of 20) over 64 int8 pages
+and a random draft net drawn from seed 7, quantized to int8; the line adds
+the device time and the launches of the draft net's expansion and extension
+(``torch.profiler.record_function`` ranges) per step.
 ``--model llama_7b_int4_tree``: the same single-stream llama_7b (int4
 weights, int8 KV, 1024 slots) through the host-automaton
 ``engine.SamdEngine`` with ``SamdConfig(draft_source="sam_hybrid",
@@ -52,6 +58,9 @@ import sys
 import time
 from collections import defaultdict
 
+# the record_function ranges around the paged SAM[EAGLE-2]'s expansion and
+# extension
+EAGLE_RANGES = ("eagle_expand", "eagle_extend")
 # substrings of the port's own kernels' names in a profiler trace
 OWN_KERNELS = {"int4_matmul": "int4_matmul_",
                "verify_attention": "flash_block_attention_kernel",
@@ -96,6 +105,16 @@ def build(model: str):
                                        dtype=torch.int8, device="cuda")
     params = int4_from_int8_params(base)
     del base
+    if model == "llama_7b_int4_paged_eagle":
+        from samd_tpu_torch.fused_hybrid import FusedHybridEagleConfig
+
+        return ("llama_7b int4 kernel, paged SAM[EAGLE-2] B=12 M=24 tree 23 "
+                "(depth 4, top-4), int8 draft net, 64 int8 pages of 128",
+                cfg, params,
+                FusedHybridEagleConfig(steps_per_call=16, eagle_depth=4,
+                                       eagle_topk=4, eagle_total=23,
+                                       max_block=24, n_predicts=20,
+                                       corpus_capacity=4096), 1024)
     if model == "llama_7b_int4_paged_hybrid":
         from samd_tpu_torch.fused_hybrid import FusedHybridConfig
 
@@ -114,11 +133,22 @@ def build(model: str):
                            cache_buckets=(256, 384, 512, 768)), 1024)
 
 
-def summarize(prof, wall_us: float, steps: int, top_n: int) -> dict:
-    """Per-step figures of a profiled window of ``steps`` decode steps."""
+def device_kernels(prof, ranges=()) -> list:
+    """The profile's device kernels: the CUDA events, less the device-side
+    spans the profiler records for ``record_function`` ranges named in
+    ``ranges``."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in ranges]
+
+
+def summarize(prof, wall_us: float, steps: int, top_n: int,
+              ranges=()) -> dict:
+    """Per-step figures of a profiled window of ``steps`` decode steps
+    (the spans of the ``record_function`` ranges in ``ranges`` are not
+    kernels)."""
+    kernels = device_kernels(prof, ranges)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
@@ -180,24 +210,66 @@ def harvest_topk_ms(V: int, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ranges_device(prof, names, steps: int) -> dict:
+    """Per step, the device ms and the kernels of the work inside each
+    ``record_function`` range of ``names``: the kernels that start within
+    the range's device-side spans (one stream runs them in order)."""
+    from torch.autograd import DeviceType
+
+    kernels = device_kernels(prof, names)
+    out = {}
+    for name in names:
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name == name]
+        inside = [k for k in kernels if any(
+            s <= k.time_range.start < t for s, t in spans)]
+        out[name] = {
+            "device_ms_per_step": sum(k.time_range.elapsed_us()
+                                      for k in inside) / steps / 1e3,
+            "kernels_per_step": len(inside) / steps,
+            "device_spans_found": len(spans)}
+    return out
+
+
 def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
     """Profile the second segment of a B = 12 paged batched run (the
-    hybrid engine for a ``FusedHybridConfig``)."""
+    hybrid engine for a ``FusedHybridConfig``, SAM[EAGLE-2] for a
+    ``FusedHybridEagleConfig``)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from samd_tpu_torch.config import GenerationConfig
-    from samd_tpu_torch.fused_hybrid import (FusedHybridConfig,
-                                             PagedBatchedFusedHybridEngine)
+    from samd_tpu_torch.fused_hybrid import (
+        FusedHybridConfig, FusedHybridEagleConfig,
+        PagedBatchedFusedHybridEagleEngine, PagedBatchedFusedHybridEngine)
     from samd_tpu_torch.fused_sam import PagedBatchedFusedSamEngine
 
     hybrid = isinstance(fc, FusedHybridConfig)
-    eng = (PagedBatchedFusedHybridEngine if hybrid
-           else PagedBatchedFusedSamEngine)(
-        cfg, params, fc, batch_size=12, max_cache_len=S, eos_token_id=-1,
-        prefill_buckets=(128, 256), n_pages=64 if hybrid else 52,
-        page_size=128, quantized_kv=True)
+    eagle = isinstance(fc, FusedHybridEagleConfig)
+    kw = dict(batch_size=12, max_cache_len=S, eos_token_id=-1,
+              prefill_buckets=(128, 256), n_pages=64 if hybrid or eagle
+              else 52, page_size=128, quantized_kv=True)
+    if eagle:
+        from samd_tpu_torch.drafters.eagle.net import (EagleNetConfig,
+                                                       init_eagle_params)
+        from samd_tpu_torch.ops.quant import quantize_eagle_params
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        net = quantize_eagle_params(init_eagle_params(
+            EagleNetConfig.from_target(cfg), gen, device="cuda"))
+        eng = PagedBatchedFusedHybridEagleEngine(cfg, params, fc,
+                                                 net_params=net, **kw)
+        for name in ("_eagle_tree", "_net_extend"):
+            def ranged(*a, _f=getattr(eng, name), _n=name, **k):
+                with record_function(EAGLE_RANGES[name == "_net_extend"]):
+                    return _f(*a, **k)
+            setattr(eng, name, ranged)
+    else:
+        eng = (PagedBatchedFusedHybridEngine if hybrid
+               else PagedBatchedFusedSamEngine)(cfg, params, fc, **kw)
     if hybrid:
         warm_harvest(eng.harvests, eng.seens, np.random.default_rng(0))
     rng = np.random.default_rng(0)
@@ -226,6 +298,13 @@ def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
     outs = eng.run()
     prof, wall_us, steps = seen["result"]
     extra = {}
+    if eagle:
+        extra = {"retrieval_chain_share": eng.sam_steps_total
+                 / max(eng.steps_total, 1),
+                 "mean_accept_whole_run": sum(
+                     o.decode_tokens for o in outs.values())
+                 / max(eng.steps_total, 1),
+                 "draft_net": ranges_device(prof, EAGLE_RANGES, steps)}
     if hybrid:
         extra = {"retrieval_chain_share": eng.sam_steps_total
                  / max(eng.steps_total, 1),
@@ -238,7 +317,7 @@ def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
                     f"segment; per-step figures are per [12, {fc.block}] "
                     "forward",
             "peak_pages": eng.peak_pages, **extra,
-            **summarize(prof, wall_us, steps, top_n)}
+            **summarize(prof, wall_us, steps, top_n, EAGLE_RANGES)}
 
 
 def main(argv=None) -> int:
@@ -246,6 +325,7 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=("llama_1b", "llama_7b_int4",
                                         "llama_7b_int4_paged",
                                         "llama_7b_int4_paged_hybrid",
+                                        "llama_7b_int4_paged_eagle",
                                         "llama_7b_int4_tree"),
                     default="llama_1b")
     ap.add_argument("--new-tokens", type=int, default=128)

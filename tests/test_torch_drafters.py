@@ -147,8 +147,10 @@ def test_adaptive_selector_matches_jax(kwargs, with_corpus, native):
 
 
 def test_make_drafter_refuses_eagle():
+    """The EAGLE draft nets share the target's embedding and head: without
+    the target they are refused."""
     for method in ("eagle", "eagle2"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="needs model_cfg and params"):
             make_drafter(SamdConfig(draft_source="sam_hybrid",
                                     tree_method=method), V)
     with pytest.raises(ValueError, match="tree_drafter"):

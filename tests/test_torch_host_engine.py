@@ -173,11 +173,18 @@ def test_eos_truncation(tiny_model, port_ar):
 
 
 def test_hidden_state_drafters_refused(tiny_model):
+    """SamdEngine serves hidden-state drafters (tests/test_torch_eagle.py);
+    the batched host engine and interleaving refuse them, as the
+    reference's batched engine has no hidden states."""
+    from samd_tpu_torch.batching import BatchedSamdEngine
+    from samd_tpu_torch.interleave import InterleavedSamdEngine
+
     class Hidden:
         wants_hidden = True
     _, _, tcfg, tp = tiny_model
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SamdEngine(tcfg, tp, SamdConfig(), Hidden(), device="cpu")
+    for ctor in (BatchedSamdEngine, InterleavedSamdEngine):
+        with pytest.raises(NotImplementedError, match="SamdEngine"):
+            ctor(tcfg, tp, SamdConfig(), Hidden, device="cpu")
 
 
 # ----------------------------------------------------------------------

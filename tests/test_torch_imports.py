@@ -32,7 +32,9 @@ def test_port_files_found():
                 "ops/ngram_index.py", "batching.py", "interleave.py",
                 "sam/automaton.py", "sam/native.py",
                 "drafters/sam_drafter.py", "drafters/token_recycle.py",
-                "pld.py", "token_recycle_fused.py", "fused_hybrid.py"):
+                "pld.py", "token_recycle_fused.py", "fused_hybrid.py",
+                "eagle_fused.py", "drafters/eagle/net.py",
+                "drafters/eagle/drafter.py", "drafters/eagle/eagle1.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 
@@ -67,10 +69,12 @@ def test_tf32_is_refused_on_cuda_and_left_alone():
 def test_engines_without_device_raise_when_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
+    from samd_tpu_torch.eagle_fused import FusedEagle2Engine
     from samd_tpu_torch.engine import ArBaseline
-    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
-                                             FusedHybridEngine,
-                                             PagedBatchedFusedHybridEngine)
+    from samd_tpu_torch.fused_hybrid import (
+        BatchedFusedHybridEagleEngine, BatchedFusedHybridEngine,
+        FusedHybridEagleEngine, FusedHybridEngine,
+        PagedBatchedFusedHybridEagleEngine, PagedBatchedFusedHybridEngine)
     from samd_tpu_torch.fused_sam import FusedSamEngine
     from samd_tpu_torch.models import tiny_config
     from samd_tpu_torch.pld import PldEngine
@@ -84,6 +88,10 @@ def test_engines_without_device_raise_when_no_cuda():
                  lambda: FusedTokenRecycleEngine(cfg, params),
                  lambda: FusedHybridEngine(cfg, params),
                  lambda: BatchedFusedHybridEngine(cfg, params),
-                 lambda: PagedBatchedFusedHybridEngine(cfg, params)):
+                 lambda: PagedBatchedFusedHybridEngine(cfg, params),
+                 lambda: FusedEagle2Engine(cfg, params),
+                 lambda: FusedHybridEagleEngine(cfg, params),
+                 lambda: BatchedFusedHybridEagleEngine(cfg, params),
+                 lambda: PagedBatchedFusedHybridEagleEngine(cfg, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -418,16 +418,18 @@ def args_for(**kw):
     ("fused_sam_batched", None), ("paged_fused_sam", None),
     ("fused_sam_batched", "int8"), ("fused_sam_batched", "fp8"),
     ("paged_fused_sam", "int4"), ("fused_hybrid_batched", None),
-    ("paged_fused_hybrid", "int4")])
+    ("paged_fused_hybrid", "int4"), ("eagle2_hybrid_batched", "int8")])
 def test_build_server_engine_ported(name, quant):
-    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEngine,
+    from samd_tpu_torch.fused_hybrid import (BatchedFusedHybridEagleEngine,
+                                             BatchedFusedHybridEngine,
                                              PagedBatchedFusedHybridEngine)
 
     eng = build_server_engine(args_for(engine=name, quantize=quant))
     want = {"fused_sam_batched": BatchedFusedSamEngine,
             "paged_fused_sam": PagedBatchedFusedSamEngine,
             "fused_hybrid_batched": BatchedFusedHybridEngine,
-            "paged_fused_hybrid": PagedBatchedFusedHybridEngine}[name]
+            "paged_fused_hybrid": PagedBatchedFusedHybridEngine,
+            "eagle2_hybrid_batched": BatchedFusedHybridEagleEngine}[name]
     assert type(eng) is want and eng.device.type == "cpu"
     rid = eng.add_request([5, 6, 7, 8], GenerationConfig(
         max_new_tokens=4, max_cache_len=256))
@@ -435,7 +437,6 @@ def test_build_server_engine_ported(name, quant):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="eagle2_hybrid_batched"), "item 13"),
     (dict(random_model=False, model="ckpt"), "item 15")])
 def test_build_server_engine_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -514,13 +515,14 @@ def test_sam_file_is_the_fused_corpus(sam_file):
 
 
 @pytest.mark.parametrize("name", ["fused_hybrid_batched",
-                                  "paged_fused_hybrid"])
+                                  "paged_fused_hybrid",
+                                  "eagle2_hybrid_batched"])
 def test_hybrid_engines_over_http(name):
-    """``--engine fused_hybrid_batched`` / ``paged_fused_hybrid`` on the CPU
-    (``--tiny --cpu``): greedy replies over HTTP from concurrent clients
-    each equal the same engine called directly (the harvest tables persist
-    across requests, so each side starts from a fresh engine and sends the
-    prompts in one batch)."""
+    """``--engine fused_hybrid_batched`` / ``paged_fused_hybrid`` /
+    ``eagle2_hybrid_batched`` on the CPU (``--tiny --cpu``): greedy replies
+    over HTTP from concurrent clients each equal the same engine called
+    directly (the harvest tables persist across requests, so each side
+    starts from a fresh engine and sends the prompts in one batch)."""
     args = args_for(engine=name, batch_size=4)
     direct = build_server_engine(args)
     gen = GenerationConfig(max_new_tokens=12, max_cache_len=256)
