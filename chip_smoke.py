@@ -200,6 +200,31 @@ Phases, in order; any failure exits non-zero:
      B = 4 with the server's block against its chain engine at alpha = 0;
      --engine eagle2_hybrid_batched over 127.0.0.1, four greedy replies
      equal to the same engine called directly; all judged.
+ 15. llama_1b from disk (after 14): an HF directory at TinyLlama's widths
+     (bf16 weights from torch.Generator seed 0, two safetensors shards
+     written by ``write_safetensors`` with HF's index) loaded by
+     ``models.loader.load_llama``, every leaf bitwise equal to what was
+     written; ``models.checkpoint`` round trips of those weights, plain
+     and int4, bitwise; ``python3 -m samd_tpu_torch.cli --model DIR``
+     with stdin piped for --engine fused_sam, fused_sam --quantize int4
+     --kv-quant and samd: two token-id turns, ``!!regen`` (the same
+     reply), ``!!save``/``!!reset``/``!!load`` and a third turn over the
+     restored history, each reply equal to the same engine's generate in
+     this process (``cli.build_engine``) and to ArBaseline(block_size=60)
+     bit for bit; ``python3 -m samd_tpu_torch.server --model DIR --engine
+     paged_fused_sam`` over 127.0.0.1, four greedy replies equal to the
+     engine called directly;
+ 16. training and evaluation (after 15): ``evaluation.accept_demo.run``
+     at the reference bench's sizes (400 steps, vocabulary 64, 48 new
+     tokens): the LM loss falls below half its first value and the
+     trained EAGLE-2 net accepts more than a random one, each drafter's
+     mean accept printed beside the reference's published lengths;
+     ``evaluation.specbench_demo.run`` (300 steps, 2 questions per task,
+     64 new tokens): every engine equal to its block oracle, no errors;
+     ``training.train_eagle`` against phase 15's llama_1b for 30 steps of
+     batch 8 by 64 tokens over a Markov corpus of its 32000 tokens at lr
+     5e-4 (the tiny models' 3e-3 diverges at this width): the last loss
+     below the first, every net parameter a finite gradient.
 ``--isolate-11b`` reports phase 11b (every path warm) without failing on
 the judge and, at the first rejected request, the diverging token (i)
 over bf16 pages, (ii) through the dense int8 BatchedFusedHybridEngine,
@@ -217,8 +242,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -348,12 +377,24 @@ def check_kernels(card: str) -> dict:
     # the paged engine's prefill: a bf16 batch-1 cache of P = 128 slots
     cases.append(("llama_7b T=128 prefill S=128 (KH>=8)", 128, 32, 32, 128,
                   128, 0, True))
+    # f32 only: the trained tiny models of phase 16 (NH 4, KH 2, D 16):
+    # the host block 40, the fused block 60, the prefill buckets 32 and
+    # 64 and the block-1 baseline, over the demos' caches of 256 and 512
+    tiny = [(f"tiny T={T} S={S} cache_len={cl}", T, 4, 2, 16, S, cl, pre)
+            for T, S, cls, pre in ((40, 512, (0, 100, 472), False),
+                                   (60, 512, (0, 250, 452), False),
+                                   (60, 256, (37, 196), False),
+                                   (1, 512, (300,), False),
+                                   (32, 256, (0,), True),
+                                   (64, 512, (0,), True))
+            for cl in cls]
     main_label = "llama_1b T=60 cache_len=160"
     row = None
     max_err_main = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for i, (label, T, NH, KH, D, S, cl, pre) in enumerate(cases):
+        for i, (label, T, NH, KH, D, S, cl, pre) in enumerate(
+                cases + (tiny if dtype == torch.float32 else [])):
             q, k, v, mask, lim = attention_case(T, NH, KH, D, S, cl, dtype,
                                                 seed=i, prefill=pre)
             got = flash_block_attention(q, k, v, mask, lim)
@@ -383,9 +424,10 @@ def check_kernels(card: str) -> dict:
                   f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})"
                   f"{s_note} [{card}]", flush=True)
-            if dname == "bfloat16" and (label.startswith("llama_1b")
-                                        or "S=128" in label):   # on paths
-                max_err_main = max(max_err_main, err)
+            if label.startswith("tiny") or (
+                    dname == "bfloat16" and (label.startswith("llama_1b")
+                                             or "S=128" in label)):
+                max_err_main = max(max_err_main, err)   # on paths
             if dname == "bfloat16" and label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms)
@@ -4007,6 +4049,504 @@ def main_path_1b_eagle(card: str) -> None:
     gc.collect()
 
 
+# the HF widths of the repo's llama_1b (TinyLlama 1.1B), eos 2 as its own
+LLAMA_1B_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+               "vocab_size": 32000, "hidden_size": 2048,
+               "intermediate_size": 5632, "num_hidden_layers": 22,
+               "num_attention_heads": 32, "num_key_value_heads": 4,
+               "head_dim": 64, "max_position_embeddings": 2048,
+               "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+               "rope_scaling": None, "tie_word_embeddings": False,
+               "torch_dtype": "bfloat16", "bos_token_id": 1,
+               "eos_token_id": 2}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def write_safetensors(path: str, named: list) -> int:
+    """Write (name, bf16 tensor) pairs as one safetensors file: an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, the
+    raw bytes; returns the bytes of tensor data."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in named:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for _, t in named:
+            t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy() \
+                .tofile(f)
+    return offset
+
+
+def hf_state(params, cfg) -> list:
+    """The port's llama parameters as HF's (name, [out, in] tensor)
+    pairs, in HF's order."""
+    out = [("model.embed_tokens.weight", params["embed"])]
+    lay = params["layers"]
+    proj = (("self_attn.q_proj", "wq"), ("self_attn.k_proj", "wk"),
+            ("self_attn.v_proj", "wv"), ("self_attn.o_proj", "wo"),
+            ("mlp.gate_proj", "w_gate"), ("mlp.up_proj", "w_up"),
+            ("mlp.down_proj", "w_down"))
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        out.append((p + "input_layernorm.weight", lay["attn_norm"][i]))
+        out.append((p + "post_attention_layernorm.weight",
+                    lay["mlp_norm"][i]))
+        out += [(f"{p}{hf}.weight", lay[key][i].T) for hf, key in proj]
+    out.append(("model.norm.weight", params["final_norm"]))
+    out.append(("lm_head.weight", params["lm_head"].T))
+    return out
+
+
+def write_hf_dir(d: str, params, cfg) -> float:
+    """An HF directory of ``params``: config.json, two shards and
+    model.safetensors.index.json; returns the GB written."""
+    named = hf_state(params, cfg)
+    half = len(named) // 2
+    shards = {"model-00001-of-00002.safetensors": named[:half],
+              "model-00002-of-00002.safetensors": named[half:]}
+    total = 0
+    weight_map = {}
+    for fname, part in shards.items():
+        total += write_safetensors(os.path.join(d, fname), part)
+        weight_map.update({name: fname for name, _ in part})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(LLAMA_1B_HF, f)
+    return total / 1e9
+
+
+def same_tree(label, got, want) -> None:
+    """Fail unless two parameter trees hold the same leaves bit for bit."""
+    import torch
+
+    from samd_tpu_torch.ops.quant import tensors
+
+    def flat(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from flat(tree[k], prefix + k + ".")
+            else:
+                yield prefix + k, tree[k]
+
+    g, w = dict(flat(got)), dict(flat(want))
+    fail_if(g.keys() != w.keys(), f"{label}: leaves {sorted(g)} against "
+            f"{sorted(w)}")
+    for k in g:
+        fail_if(type(g[k]) is not type(w[k]), f"{label}: {k} kind differs")
+        for a, b in zip(tensors(g[k]), tensors(w[k])):
+            fail_if(a.dtype != b.dtype or a.shape != b.shape
+                    or not torch.equal(a.view(torch.uint8) if
+                                       a.element_size() == 1 else a,
+                                       b.view(torch.uint8) if
+                                       b.element_size() == 1 else b),
+                    f"{label}: {k} differs")
+
+
+def cli_session(model_dir: str, flags: list, turns: list, save: str):
+    """Drive ``python3 -m samd_tpu_torch.cli --model DIR`` with stdin
+    piped: two turns, ``!!regen``, ``!!save``, ``!!reset``, ``!!load``,
+    a third turn, ``!!exit``; returns (the four replies, stderr, wall s)."""
+    script = (" ".join(map(str, turns[0])) + "\n"
+              + " ".join(map(str, turns[1])) + "\n!!regen\n"
+              f"!!save {save}\n!!reset\n!!load {save}\n"
+              + " ".join(map(str, turns[2])) + "\n!!exit\n")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "samd_tpu_torch.cli", "--model", model_dir,
+         "--max-new-tokens", "48", "--max-cache-len", "1024", *flags],
+        input=script, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    fail_if(r.returncode != 0, f"cli {flags}: exit {r.returncode}: "
+            f"{r.stderr[-3000:]}")
+    replies = [[int(t) for t in ln.split("ASSISTANT>")[1].split("USER>")[0]
+                .split()] for ln in r.stdout.splitlines()
+               if "ASSISTANT>" in ln]
+    fail_if(len(replies) != 4, f"cli {flags}: {len(replies)} replies, "
+            f"expected 4: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    return replies, r.stderr, wall
+
+
+def main_path_1b_disk(card: str, d: str):
+    """Phase 15: llama_1b from an HF directory on disk through the loader,
+    the checkpoint format, the CLI and the server; returns the loaded
+    (cfg, params) for phase 16."""
+    import torch
+
+    from samd_tpu_torch import cli
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.models import init_params, llama_1b
+    from samd_tpu_torch.models.checkpoint import load_params, save_params
+    from samd_tpu_torch.models.loader import load_llama
+    from samd_tpu_torch.ops.quant import INT4, quantize_llama_params
+    from samd_tpu_torch.server import build_server_engine
+
+    # (a) write the directory
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    written = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    model_dir = os.path.join(d, "llama_1b_hf")
+    os.makedirs(model_dir)
+    t0 = time.perf_counter()
+    gb = write_hf_dir(model_dir, written, cfg)
+    t_write = time.perf_counter() - t0
+    # (b) load it
+    t0 = time.perf_counter()
+    lcfg, params = load_llama(model_dir, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    fail_if(lcfg != cfg, f"load_llama: config {lcfg} against {cfg}")
+    same_tree("load_llama", params, written)
+    del written
+    print(f"llama_1b HF directory: {gb:.3f} GB of bf16 in two safetensors "
+          f"shards written in {t_write:.2f} s, loaded by load_llama in "
+          f"{t_load:.2f} s, every leaf bitwise equal to what was written "
+          f"[{card}]", flush=True)
+    # (c) the port's checkpoint format, plain and int4
+    for label, tree in (("plain", params),
+                        ("int4", quantize_llama_params(params, dtype=INT4))):
+        path = os.path.join(d, f"ckpt_{label}")
+        t0 = time.perf_counter()
+        save_params(path, tree, lcfg)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ccfg, back = load_params(path, device="cuda")
+        torch.cuda.synchronize()
+        t_back = time.perf_counter() - t0
+        fail_if(ccfg != lcfg, f"checkpoint {label}: config differs")
+        same_tree(f"checkpoint {label}", back, tree)
+        print(f"checkpoint round trip ({label}): saved in {t_save:.2f} s, "
+              f"loaded in {t_back:.2f} s, bitwise equal [{card}]",
+              flush=True)
+        del back, tree
+        shutil.rmtree(path)
+        gc.collect()
+
+    # (d) the CLI, as a subprocess, against the same engine in process
+    rng = np.random.default_rng(151)
+    V = cfg.vocab_size
+    turns = [rng.integers(3, V, size=n).tolist() for n in (64, 32, 24)]
+    gen = GenerationConfig(max_new_tokens=48, max_cache_len=1024)
+    for flags in (["--engine", "fused_sam"],
+                  ["--engine", "fused_sam", "--quantize", "int4",
+                   "--kv-quant"],
+                  ["--engine", "samd"]):
+        label = "cli " + " ".join(flags)
+        save = os.path.join(d, "conversation.json")
+        replies, err, wall = cli_session(model_dir, flags, turns, save)
+        fail_if(replies[1] != replies[2], f"{label}: !!regen gave "
+                "another reply")
+        fail_if("loaded 2 turns" not in err or "holds no tokenizer"
+                not in err, f"{label}: stderr {err[-2000:]}")
+        with open(save) as f:
+            fail_if(json.load(f) != [[turns[0], replies[0]],
+                                     [turns[1], replies[1]]],
+                    f"{label}: the saved conversation differs")
+        args = cli.parse_args(["--model", model_dir, "--max-new-tokens",
+                               "48", "--max-cache-len", "1024", *flags])
+        engine, _, eos = cli.build_engine(args)
+        fail_if(eos != 2, f"{label}: end token {eos}, config.json says 2")
+        M = engine.samd_cfg.max_predicts if flags[1] == "samd" \
+            else engine.cfg.block
+        oracle = ArBaseline(engine.model_cfg, engine.params,
+                            max_cache_len=1024, eos_token_id=eos,
+                            block_size=M)
+        prompts = [turns[0], turns[0] + replies[0] + turns[1],
+                   turns[0] + replies[0] + turns[1] + replies[1] + turns[2]]
+        want = [replies[0], replies[1], replies[3]]
+        reset_counts()                          # the path starts here
+        t0 = time.perf_counter()
+        outs = [engine.generate(p, gen) for p in prompts]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()                  # the path ends here
+        refs = [oracle.generate(p, gen) for p in prompts]
+        for i, (p, o, r, w) in enumerate(zip(prompts, outs, refs, want)):
+            fail_if(o.output_ids[len(p):] != w, f"{label} turn {i}: the "
+                    "CLI's reply differs from the engine's generate")
+            fail_if(o.output_ids != r.output_ids, f"{label} turn {i}: "
+                    f"differs from ArBaseline(block_size={M})")
+        steps = sum(o.decode_steps for o in outs)
+        print(f"{label}: 4 replies (regen equal, save/load round trip) in "
+              f"{wall:.2f} s of subprocess; the same engine in process "
+              f"{steps} steps, {dt / steps * 1e3:.3f} ms/step, each reply "
+              f"equal to it and to ArBaseline(block_size={M}) bit for bit; "
+              f"launches {counts} [{card}]", flush=True)
+        want_k = ("flash_block_attention_int8kv", "int4_matmul") \
+            if "--quantize" in flags else ("flash_block_attention",)
+        fail_if(any(counts[k] == 0 for k in want_k),
+                f"{label}: launch counts {counts}")
+        del engine, oracle, outs, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the server, as a subprocess, against the engine called directly
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    four = [rng.integers(3, V, size=int(n)).tolist()
+            for n in rng.integers(40, 101, size=4)]
+    t0 = time.perf_counter()
+    log_path = os.path.join(d, "server.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "samd_tpu_torch.server", "--model", model_dir,
+         "--engine", "paged_fused_sam", "--batch-size", "4",
+         "--max-cache-len", "1024", "--port", str(port)],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    raise SystemExit(f"server --model: exited "
+                                     f"{proc.returncode}: {f.read()[-3000:]}")
+            fail_if(time.monotonic() > deadline, "server --model: no "
+                    "/health within 300 s")
+            try:
+                with urllib.request.urlopen(f"{url}/health", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        replies = http_traffic(url, [{"input_ids": p, "max_new_tokens": 32}
+                                     for p in four], "--model")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    args = SimpleNamespace(model=model_dir, random_model=False, tiny=False,
+                           engine="paged_fused_sam", batch_size=4,
+                           quantize=None, max_cache_len=1024, sam=None,
+                           cpu=False, inline_prefill=False)
+    eng = build_server_engine(args)
+    fail_if(eng.eos_token_id != 2, "server --model: end token "
+            f"{eng.eos_token_id}, config.json says 2")
+    reset_counts()                              # the path starts here
+    ids = [eng.add_request(p, GenerationConfig(max_new_tokens=32,
+                                               max_cache_len=1024))
+           for p in four]
+    res = eng.run()
+    torch.cuda.synchronize()
+    counts = read_counts()                      # the path ends here
+    direct = [res[i].output_ids for i in ids]
+    fail_if([r["output_ids"] for r in replies] != direct,
+            "server --model: replies differ from the engine called directly")
+    fail_if(any(not 0 <= t < V for o in direct for t in o),
+            "server --model: token ids outside the vocabulary")
+    fail_if(counts["paged_block_attention"] == 0,
+            f"server --model: launch counts {counts}")
+    print(f"server --model --engine paged_fused_sam: up in {t_up:.2f} s, 4 "
+          f"greedy replies over HTTP equal to the engine called directly; "
+          f"launches {counts} [{card}]", flush=True)
+    del eng
+    gc.collect()
+    return lcfg, params
+
+
+class CaptureAttention:
+    """Inside the block, the model's verify attention
+    (``models.llama.flash_block_attention``) keeps the inputs and the
+    output of its 1st, 2nd, 4th, 8th, ... call at each shape, so that
+    after the path every shape it gave the kernel, over cache lengths
+    from the first step to late ones, is held against the plain version
+    (``hold``).  Keeping them launches nothing that is counted."""
+
+    def __init__(self):
+        self.calls = {}     # (q shape, k shape, dtype, int8) -> calls
+        self.kept = []      # (key, arguments, the path's output)
+
+    def __enter__(self):
+        import samd_tpu_torch.models.llama as llama
+
+        self._orig = orig = llama.flash_block_attention
+
+        def rec(*args):
+            out = orig(*args)
+            key = (tuple(args[0].shape), tuple(args[1].shape),
+                   str(args[0].dtype).split(".")[1],
+                   len(args) > 5 and args[5] is not None)
+            n = self.calls[key] = self.calls.get(key, 0) + 1
+            if n & (n - 1) == 0:
+                self.kept.append((key, [a.clone() if a is not None
+                                        else None for a in args],
+                                  out.clone()))
+            return out
+        llama.flash_block_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        import samd_tpu_torch.models.llama as llama
+
+        llama.flash_block_attention = self._orig
+
+    def hold(self, card: str, label: str) -> dict:
+        """Fail unless every kept output is finite and within
+        ``kernel_tolerance`` of the plain version on its inputs; returns
+        the largest error per kernel row."""
+        import torch
+
+        from samd_tpu_torch.ops.flash_attention import (
+            flash_block_attention_ref, kernel_tolerance)
+
+        fail_if(not self.kept, f"{label}: the verify attention was never "
+                "called")
+        worst = {}
+        for key, args, out in self.kept:
+            ref = flash_block_attention_ref(*args)
+            err, _ = check_close(f"{label} q {key[0]} k {key[1]} {key[2]}",
+                                 out, ref, kernel_tolerance(ref))
+            name = ("flash_block_attention_int8kv" if key[3]
+                    else "flash_block_attention")
+            worst[name] = max(worst.get(name, 0.0), err)
+        torch.cuda.synchronize()
+        shapes = ", ".join(f"T {q[1]} S {k[2]} D {q[3]} {dt}"
+                           f"{' int8' if i8 else ''} x{n}"
+                           for (q, k, dt, i8), n in sorted(
+                               self.calls.items()))
+        print(f"{label}: the path's verify attention at {len(self.calls)} "
+              f"shapes ({shapes}); {len(self.kept)} of its "
+              f"{sum(self.calls.values())} outputs held against the plain "
+              f"version, max_abs_err {worst} [{card}]", flush=True)
+        return worst
+
+
+def main_path_training(card: str, cfg, params) -> dict:
+    """Phase 16: the accept demo, the Spec-Bench demo and full-width EAGLE
+    distillation on the card; each part's verify-attention outputs held
+    against the plain version (``CaptureAttention``).  Returns the
+    largest error per kernel row."""
+    import torch
+
+    from samd_tpu_torch.evaluation import accept_demo, specbench_demo
+    from samd_tpu_torch.training import markov_corpus, train_eagle
+
+    # (a) the accept demo at the reference bench's sizes
+    worst = {}
+
+    def hold(cap, label):
+        for name, err in cap.hold(card, label).items():
+            worst[name] = max(worst.get(name, 0.0), err)
+
+    reset_counts()                              # the path starts here
+    t0 = time.perf_counter()
+    with CaptureAttention() as cap:
+        demo = accept_demo.run(steps=400, vocab=64, new_tokens=48)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()                      # the path ends here
+    hold(cap, "accept demo")
+    acc = demo["accept"]
+    ref = demo["reference_targets"]
+    print(f"accept demo ({dt:.1f} s): LM loss {demo['lm_loss_first']} -> "
+          f"{demo['lm_loss']}, distill loss {demo['eagle_loss']}; mean "
+          f"accept: EAGLE-2 trained {acc['eagle2_trained']} (random net "
+          f"{acc['eagle2_random_net']}; the reference's published "
+          f"{ref['eagle2_mean_accept']}), batched "
+          f"{acc['eagle2_trained_batched']}, SAM[EAGLE-2] "
+          f"{acc['sam_eagle2_trained']}, Token Recycle "
+          f"order-1 {acc['token_recycle_trained_order1']} (the reference's "
+          f"{ref['token_recycle_mean_accept']}), order-2 "
+          f"{acc['token_recycle_trained']}, sam_only corpus "
+          f"{acc['sam_only_trained']}, dynamic {acc['sam_only_dyn_trained']}"
+          f"; launches {counts} [{card}]", flush=True)
+    fail_if(not demo["lm_loss"] < 0.5 * demo["lm_loss_first"],
+            f"accept demo: LM loss {demo['lm_loss_first']} -> "
+            f"{demo['lm_loss']}, not below half")
+    fail_if(not acc["eagle2_trained"] > acc["eagle2_random_net"],
+            "accept demo: the trained EAGLE-2 net accepts no more than the "
+            "random one")
+    fail_if(counts["flash_block_attention"] == 0,
+            f"accept demo: launch counts {counts}")
+
+    # (b) the Spec-Bench pipeline
+    reset_counts()                              # the path starts here
+    t0 = time.perf_counter()
+    with CaptureAttention() as cap:
+        sb = specbench_demo.run(steps=300, vocab=64, per_task=2,
+                                new_tokens=64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()                      # the path ends here
+    hold(cap, "spec-bench")
+    for name, row in sb["engines"].items():
+        print(f"spec-bench {name}: speedup {row['speedup']}, mean accept "
+              f"{row['mean_accept']}, {row['tokens_per_s']} tok/s "
+              f"(baseline {sb['baseline_tokens_per_s']}), equal to its "
+              f"block oracle {row['outputs_equal_vs_block_oracle']}, errors "
+              f"{row['errors']} [{card}]", flush=True)
+        fail_if(not row["outputs_equal_vs_block_oracle"] or row["errors"],
+                f"spec-bench {name}: mismatches {row['mismatch_qids']}, "
+                f"errors {row['errors']}")
+    print(f"spec-bench pipeline: {sb['n_questions']} questions, LM loss "
+          f"{sb['lm_loss']}, {dt:.1f} s; launches {counts} [{card}]",
+          flush=True)
+    fail_if(counts["flash_block_attention"] == 0,
+            f"spec-bench: launch counts {counts}")
+
+    # (c) EAGLE distillation against the full-width llama_1b
+    corpus = markov_corpus(cfg.vocab_size, 20000, seed=0)
+    losses, times, bad = [], [], []
+
+    def on_step(i, loss, leaves):
+        times.append(time.perf_counter())
+        losses.append(loss)
+        bad.extend(j for j, t in enumerate(leaves)
+                   if t.grad is None or not torch.isfinite(t.grad).all())
+
+    reset_counts()                              # the path starts here
+    t0 = time.perf_counter()
+    with CaptureAttention() as cap:
+        net, _ = train_eagle(cfg, params, corpus, steps=30, batch=8,
+                             seq_len=64, lr=5e-4, seed=0, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = read_counts()                      # the path ends here
+    if cap.calls:
+        hold(cap, "train_eagle")
+    per_step = np.diff([t0] + times) * 1e3
+    n_params = sum(t.numel() for t in net.values())
+    print(f"train_eagle llama_1b (bf16, a {n_params / 1e6:.1f}M-parameter "
+          f"net, batch 8 x 64): losses {[round(x, 4) for x in losses]}; "
+          f"{np.median(per_step[1:]):.3f} ms/step median (first step "
+          f"{per_step[0]:.3f}); launches {counts} [{card}]", flush=True)
+    fail_if(not losses[-1] < losses[0], f"train_eagle: loss {losses[0]} -> "
+            f"{losses[-1]}")
+    fail_if(bool(bad), f"train_eagle: parameters {sorted(set(bad))} without "
+            "a finite gradient")
+    del net
+    return worst
+
+
+LAPS = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Print the wall seconds since the previous lap (each phase's time)."""
+    now = time.perf_counter()
+    print(f"wall: {label} {now - LAPS[-1]:.1f} s ({now - LAPS[0]:.1f} s "
+          "in all)", flush=True)
+    LAPS.append(now)
+
+
 def main() -> int:
     import torch
 
@@ -4050,6 +4590,7 @@ def main() -> int:
     for f, c in sorted(sass.items()):
         print(f"sass: {f} HMMA {c['HMMA']} FFMA {c['FFMA']}")
 
+    lap("phases 1-2")
     if sys.argv[1:] == ["--isolate-11b"]:
         return isolate_11b(card)
 
@@ -4074,45 +4615,71 @@ def main() -> int:
     rows["paged_block_attention_int8kv"]["max_abs_err"] = max(
         rows["paged_block_attention_int8kv"]["max_abs_err"], errs["k4"])
 
-    # phases 4 to 12: the paths, each with its counts read on its own and
+    lap("phase 3")
+    # phases 4 to 16: the paths, each with its counts read on its own and
     # summed into TOTALS
     main_path_1b(card)
+    lap("phase 4")
     gc.collect()
     torch.cuda.empty_cache()
     cfg7, params7 = llama_7b_int4_params()
     main_path_7b(card, cfg7, params7)
+    lap("phase 5")
     gc.collect()
     torch.cuda.empty_cache()
     _, requests7, oracle7 = main_path_7b_paged(card, cfg7, params7)
+    lap("phase 6")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_server(card, cfg7, params7, requests7, oracle7)
+    lap("phase 8")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_7b_host(card, cfg7, params7)
+    lap("phase 9")
     gc.collect()
     torch.cuda.empty_cache()
     single7 = main_path_7b_hybrid(card, cfg7, params7)
+    lap("phase 11a")
     gc.collect()
     torch.cuda.empty_cache()
     paged7 = main_path_7b_paged_hybrid(card, cfg7, params7, requests7)
+    lap("phase 11b")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_7b_eagle(card, cfg7, params7, single7, paged7, requests7)
+    lap("phase 13")
     del single7, paged7
     del params7
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_batched(card)
+    lap("phase 7")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_host(card)
+    lap("phase 10")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_fused(card)
+    lap("phase 12")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_eagle(card)
+    lap("phase 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=ROOT)
+    try:
+        cfg1, params1 = main_path_1b_disk(card, d)
+        lap("phase 15")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, err in main_path_training(card, cfg1, params1).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        lap("phase 16")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "
             f"{TOTALS}")
 

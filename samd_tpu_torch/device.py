@@ -32,3 +32,19 @@ def require_full_f32(device: torch.device) -> None:
         raise RuntimeError(
             "TF32 matmuls are on; set torch.backends.cuda.matmul.allow_tf32 "
             "= False so the port's f32 products run in full f32")
+
+
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raise if grad mode is on and an input requires grad.  The kernels
+    launch through ctypes and have no backward, so their outputs carry no
+    ``grad_fn``: a training forward through one would leave every
+    parameter before it without a gradient, and the optimizer would skip
+    them without a word.  Each kernel wrapper calls this on the card; on
+    the CPU the plain version runs, and autograd sees through it."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad while grad mode is on, and "
+            "the kernel has no backward; train with "
+            "attention_impl='xla' and plain weights, or run under "
+            "torch.no_grad()")

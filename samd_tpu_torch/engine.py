@@ -31,12 +31,16 @@ the device (``observe_prompt_hidden``, ``observe_step_hidden``), and hands
 out drafts built on the device, which ``ops.treeops.unpack_draft_device``
 unpacks there.
 
-Not ported yet: meshes (ROADMAP queue 1 item 16), the profiler and
-``stream_generate`` (item 15).
+``stream_generate`` yields each step's committed tokens from the same
+generator, and a ``profiling.PhaseTimer`` set as ``engine.profiler``
+times the host draft, the device step and the host update of every step.
+
+Not ported yet: meshes (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import time
 from collections import namedtuple
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Union
@@ -188,6 +192,7 @@ class SamdEngine:
         self.wants_harvest = getattr(drafter, "wants_harvest", False)
         self.wants_hidden = getattr(drafter, "wants_hidden", False)
         self.stats = StepStats()
+        self.profiler = None        # a profiling.PhaseTimer, when set
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
 
@@ -265,10 +270,12 @@ class SamdEngine:
         return accepted, False
 
     def _steps(self, input_ids: Sequence[int],
-               gen: Optional[GenerationConfig] = None):
+               gen: Optional[GenerationConfig] = None,
+               committed: Optional[List[List[int]]] = None):
         """The loop of ``generate`` as a generator: each step yields its
         ``HostCopy`` once dispatched and reads it when resumed; returns the
-        Outputs (``StopIteration.value``)."""
+        Outputs (``StopIteration.value``).  Each step's committed tokens
+        are appended to ``committed`` when it is given."""
         gen = gen or GenerationConfig()
         input_ids = list(input_ids)
         check_request(input_ids, gen, self.model_cfg.vocab_size)
@@ -296,10 +303,15 @@ class SamdEngine:
         decode_steps = 0
         accept_lens: List[int] = []
         start_token = int(first)
+        prof = self.profiler
         for _ in range(gen.max_steps):
             if cache_len + M > S:
                 break
+            if prof:
+                t0 = time.perf_counter()
             draft = self.drafter.lookup(start_token)
+            if prof:
+                t0 = prof.lap("draft_lookup", t0)
             offset = torch.tensor(cache_len, dtype=torch.int32, device=dev)
             noise = None
             if rng is not None:
@@ -311,6 +323,8 @@ class SamdEngine:
             pending = HostCopy([pack, topk])
             yield pending
             pack, topk = pending.wait()
+            if prof:    # dispatch and wait (and, interleaved, other lanes)
+                t0 = prof.lap("device_step", t0)
             accept_len = int(pack[0])
             next_start = int(pack[1])
             accepted = pack[2:2 + accept_len].tolist()
@@ -324,6 +338,10 @@ class SamdEngine:
                 self.drafter.observe_step_hidden(accepted, path_hidden,
                                                  len(accepted))
             self.stats.record(draft.source, len(accepted))
+            if prof:
+                prof.lap("host_update", t0)
+            if committed is not None:
+                committed.append(accepted)
 
             output.extend(accepted)
             cache_len += accept_len  # cache holds the full accepted path
@@ -345,6 +363,28 @@ class SamdEngine:
                 next(steps)
             except StopIteration as fin:
                 return fin.value
+
+    def stream_generate(self, input_ids: Sequence[int],
+                        gen_config: Optional[GenerationConfig] = None):
+        """Yield accepted-token chunks as they commit (the CLI's
+        streaming).  They come from ``_steps``, the loop ``generate``
+        runs, cut to ``max_new_tokens`` as ``generate`` cuts its output, so
+        joined they equal ``generate(...).output_ids[len(input_ids):]``."""
+        gen = gen_config or GenerationConfig()
+        committed: List[List[int]] = []
+        steps = self._steps(input_ids, gen, committed)
+        left = gen.max_new_tokens
+        running = True
+        while running:
+            try:
+                next(steps)
+            except StopIteration:
+                running = False
+            while committed:
+                chunk = committed.pop(0)[:left]
+                left -= len(chunk)
+                if chunk:
+                    yield chunk
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,7 @@
 from .configs import (
     ModelConfig,
     check_supported,
+    from_hf_config,
     llama3_8b,
     llama_13b,
     llama_1b,
@@ -19,8 +20,8 @@ from .llama import (
 )
 
 __all__ = [
-    "ModelConfig", "check_supported", "llama3_8b", "llama_1b", "llama_7b",
-    "llama_13b", "qwen2_7b", "mixtral_8x7b", "tiny_config",
+    "ModelConfig", "check_supported", "from_hf_config", "llama3_8b",
+    "llama_1b", "llama_7b", "llama_13b", "qwen2_7b", "mixtral_8x7b", "tiny_config",
     "tiny_qwen2_config", "tiny_moe_config", "forward", "init_params",
     "prefill_mask", "block_decode_mask",
 ]

@@ -169,3 +169,43 @@ def tiny_moe_config(vocab_size: int = 256, *, num_experts: int = 4,
     """Mixtral-family tiny config (its MoE MLP is not ported yet)."""
     return replace(tiny_config(vocab_size, dtype=dtype),
                    num_experts=num_experts, num_experts_per_tok=2)
+
+
+def from_hf_config(hf_config, dtype=torch.bfloat16) -> ModelConfig:
+    """A ModelConfig from an HF ``config.json`` (the parsed dict, or a
+    transformers config object) of the Llama, Qwen2 or Mixtral families
+    (counterpart of ``samd_tpu/models/configs.py:183-209``).
+
+    A ``rope_scaling`` other than the default rope raises: the port
+    implements plain RoPE only (the reference ignores the field and would
+    serve such a checkpoint with the wrong positions)."""
+    if isinstance(hf_config, dict):
+        get = hf_config.get
+    else:
+        def get(key, default=None):
+            return getattr(hf_config, key, default)
+    scaling = get("rope_scaling")
+    if scaling and scaling.get("rope_type", scaling.get("type")) not in (
+            None, "default"):
+        raise NotImplementedError(
+            f"rope_scaling {scaling!r}: the port implements plain RoPE only")
+    model_type = get("model_type", "llama")
+    num_heads = get("num_attention_heads")
+    return ModelConfig(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_layers=get("num_hidden_layers"),
+        num_heads=num_heads,
+        num_kv_heads=get("num_key_value_heads") or num_heads,
+        head_dim=get("head_dim") or get("hidden_size") // num_heads,
+        rope_theta=get("rope_theta", 10000.0),
+        rms_eps=get("rms_norm_eps"),
+        max_position_embeddings=get("max_position_embeddings"),
+        tie_embeddings=bool(get("tie_word_embeddings", False)),
+        attn_bias=model_type == "qwen2" or bool(get("attention_bias", False)),
+        num_experts=(get("num_local_experts", 0)
+                     if model_type == "mixtral" else 0),
+        num_experts_per_tok=get("num_experts_per_tok", 2),
+        dtype=dtype,
+    )

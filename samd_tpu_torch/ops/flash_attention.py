@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 
 NEG_INF = -1e30
@@ -315,6 +316,7 @@ def flash_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("flash_block_attention", q, k, v, k_scale, v_scale)
     _, T, NH, D = q.shape
     _, KH, S, _ = k.shape
     if D not in KERNEL_HEAD_DIMS:

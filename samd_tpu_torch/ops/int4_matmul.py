@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..device import refuse_grad
 from . import _build
 from .quant import unpack4
 
@@ -225,6 +226,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         return int4_matmul_ref(x, packed, scale, layer, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_grad("int4_matmul", x, packed, scale)
     if OUTH % 4 or packed.data_ptr() % 4:
         raise ValueError(f"the kernel reads 4 packed bytes at a time: out/2 "
                          f"= {OUTH} must be a multiple of 4 and packed "

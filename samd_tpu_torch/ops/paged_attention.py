@@ -31,6 +31,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..device import refuse_grad
 from . import flash_attention as fa
 
 KERNEL_PAGE_MULTIPLE = 64     # the kernel's KV tile: a tile lies in one page
@@ -202,6 +203,7 @@ def paged_block_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                          kv_limits, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("paged_block_attention", q, k_pool, v_pool, k_scale, v_scale)
     B, T, NH, D = q.shape
     _, KH, page, _ = k_pool.shape
     if T > fa.MAX_T:

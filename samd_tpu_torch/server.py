@@ -427,9 +427,9 @@ def serve(engine, *, host: str = "127.0.0.1", port: int = 8089,
 
 def build_server_engine(args):
     """A batched serving engine from the command line's arguments:
-    ``--random-model`` (llama_1b, or with ``--tiny`` a tiny config of 256
-    tokens, random weights from a seeded ``torch.Generator``), optional
-    int8/fp8/int4 weights, on the card or with ``--cpu`` on the CPU.
+    ``--model DIR`` or ``--random-model`` (``--tiny``, ``--family``) with
+    optional int8/fp8/int4 weights through ``models.loader.build_params``,
+    the CLI's way to a model, on the card or with ``--cpu`` on the CPU.
     ``--engine batched`` serves ``batching.BatchedSamdEngine`` with the
     ``sam_only`` host drafters; ``fused_hybrid_batched`` and
     ``paged_fused_hybrid`` the SAM[Token Recycle] engines of
@@ -441,32 +441,17 @@ def build_server_engine(args):
     corpus SAM (``sam.load_sam(FILE, topk=8)``), which the host drafters
     share through one ``sam.SamCursor`` per request and whose text is the
     fused engines' corpus."""
-    import torch
-
     from .fused_sam import (BatchedFusedSamEngine, FusedSamConfig,
                             PagedBatchedFusedSamEngine)
-    from .models import init_params, llama_1b, tiny_config
-    from .ops.quant import INT4, quantize_llama_params
+    from .models.loader import build_params
 
-    if not args.random_model:
-        raise NotImplementedError(
-            "--model (checkpoint loading) is not ported yet (ROADMAP queue "
-            "1 item 15); use --random-model")
     static_sam = None
     if getattr(args, "sam", None):
         from .sam import load_sam
 
         static_sam = load_sam(args.sam, topk=8)
     device = "cpu" if getattr(args, "cpu", False) else "cuda"
-    cfg = tiny_config(vocab_size=256) if args.tiny else llama_1b()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen, device=device)
-    if args.quantize:
-        qdtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
-                  "int4": INT4}[args.quantize]
-        params = quantize_llama_params(params, dtype=qdtype)
-    eos = -1                          # random weights: no end token
+    cfg, params, eos, _ = build_params(args, device)
     kw = dict(batch_size=args.batch_size, max_cache_len=args.max_cache_len,
               eos_token_id=eos, device=device)
     if args.engine == "batched":
@@ -522,10 +507,14 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description="samd_tpu_torch serving front "
                                 "end")
-    p.add_argument("--model", help="checkpoint dir (not ported yet)")
+    p.add_argument("--model", help="local HF model directory")
     p.add_argument("--random-model", action="store_true")
     p.add_argument("--tiny", action="store_true",
                    help="with --random-model: a tiny config (smoke tests)")
+    p.add_argument("--family", default="llama",
+                   choices=("llama", "qwen2", "moe"),
+                   help="with --random-model: the model family (a "
+                        "checkpoint's follows its config.json)")
     p.add_argument("--engine", default="fused_sam_batched",
                    choices=["fused_sam_batched", "paged_fused_sam",
                             "fused_hybrid_batched", "paged_fused_hybrid",

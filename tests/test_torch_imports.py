@@ -34,7 +34,14 @@ def test_port_files_found():
                 "drafters/sam_drafter.py", "drafters/token_recycle.py",
                 "pld.py", "token_recycle_fused.py", "fused_hybrid.py",
                 "eagle_fused.py", "drafters/eagle/net.py",
-                "drafters/eagle/drafter.py", "drafters/eagle/eagle1.py"):
+                "drafters/eagle/drafter.py", "drafters/eagle/eagle1.py",
+                "cli.py", "training.py", "profiling.py", "models/loader.py",
+                "models/checkpoint.py", "evaluation/__init__.py",
+                "evaluation/runner.py", "evaluation/codecs.py",
+                "evaluation/equal.py", "evaluation/speed.py",
+                "evaluation/synthetic.py", "evaluation/accept_demo.py",
+                "evaluation/specbench_demo.py", "evaluation/neartie.py",
+                "evaluation/profile_run.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 

@@ -570,3 +570,58 @@ def test_int4_kernel_fused_blocks_rows_equal_r16(cuda_device, IN, OUT, R):
             small = k3.int4_matmul(x[a:a + 16].contiguous(), packed, scale,
                                    layer, out_dtype=out_dtype)
             assert torch.equal(small, big[a:a + 16]), (out_dtype, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "flash_int8", "paged", "int4"])
+def test_kernels_refuse_inputs_that_require_grad(cuda_device, kernel):
+    """No kernel has a backward: on the card each wrapper raises on an
+    input that requires grad while grad mode is on, launches nothing, and
+    runs as before under no_grad."""
+    T, NH, KH, D, S = 4, 4, 2, 64, 128
+    if kernel.startswith("flash"):
+        q, k, v, mask, lim = make_case(T, NH, KH, D, S, 20, torch.float32,
+                                       cuda_device)
+        args = [q, k, v, mask, lim]
+        if kernel == "flash_int8":
+            kq, ks = quantize_kv_block(k)
+            vq, vs = quantize_kv_block(v)
+            args = [q, kq, vq, mask, lim, ks, vs]
+
+        def call():
+            return flash_block_attention(*args)
+    elif kernel == "paged":
+        page = 64
+        q = torch.randn(1, T, NH, D, device=cuda_device)
+        kp = torch.randn(4, KH, page, D, device=cuda_device)
+        vp = torch.randn(4, KH, page, D, device=cuda_device)
+        tables = torch.tensor([[2, 0]], dtype=torch.int32,
+                              device=cuda_device)
+        lims = torch.tensor([70], dtype=torch.int32, device=cuda_device)
+        tree = torch.tril(torch.ones(T, T, dtype=torch.bool,
+                                     device=cuda_device))
+        win = boundary_mask_window(tree[None], lims - T, page).contiguous()
+        args = [q, kp, vp, tables, win, lims]
+
+        def call():
+            return paged_block_attention(*args)
+    else:
+        x, packed, scale = int4_case(1, 128, 256, 16, cuda_device, seed=0)
+        args = [x, packed, scale, 0]
+
+        def call():
+            return k3.int4_matmul(*args)
+    with torch.no_grad():
+        want = call()
+    args[0] = args[0].clone().requires_grad_(True)
+    counts = (flash_block_attention.launches,
+              flash_block_attention.launches_int8,
+              paged_block_attention.launches, k3.int4_matmul.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert counts == (flash_block_attention.launches,
+                      flash_block_attention.launches_int8,
+                      paged_block_attention.launches,
+                      k3.int4_matmul.launches)
+    with torch.no_grad():
+        assert torch.equal(call(), want)

@@ -82,3 +82,88 @@ def test_rejects_the_planted_fault_drifts(drift):
         _, why = near_tie_rule(oracle, plain, (0.01, 0.01 - drift, 0.01),
                                spread, int8)
         assert why is not None and "plain prefill" in why
+
+
+# ---------------------------------------------------------------------------
+# evaluation.neartie: the auditor against samd_tpu's (tests/test_neartie.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def auditors():
+    """The reference tests' tiny model in both packages, an oracle output
+    of the port's ArBaseline, and both auditors."""
+    import jax
+
+    from samd_tpu.evaluation.neartie import NearTieAuditor as JaxAuditor
+    from samd_tpu.models import init_params, tiny_config
+    from samd_tpu_torch.bridge import params_from_jax
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.evaluation.neartie import NearTieAuditor
+    from test_torch_model import port_config
+
+    jcfg = tiny_config(vocab_size=128)
+    jp = init_params(jcfg, jax.random.PRNGKey(0), scale=0.4)
+    cfg = port_config(jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    prompt = np.random.default_rng(3).integers(3, 128, size=16).tolist()
+    out = ArBaseline(cfg, params, max_cache_len=128, eos_token_id=-1,
+                     prefill_buckets=(32,), device="cpu").generate(
+        prompt, GenerationConfig(max_new_tokens=24, max_cache_len=128))
+    return (NearTieAuditor(cfg, params, max_cache_len=128),
+            JaxAuditor(jcfg, jp, max_cache_len=128), out.output_ids,
+            len(prompt))
+
+
+def test_first_divergence():
+    from samd_tpu_torch.evaluation.neartie import first_divergence
+
+    assert first_divergence([1, 2, 3], [1, 2, 3]) == -1
+    assert first_divergence([1, 2, 3], [1, 9, 3]) == 1
+    assert first_divergence([1, 2], [1, 2, 3]) == -1
+
+
+def test_audit_equal_outputs_clean(auditors):
+    auditor, _, oracle, _ = auditors
+    r = auditor.audit([oracle], [list(oracle)])
+    assert r == {"misses": 0, "near_tie_confirmed": True, "details": []}
+
+
+def test_probe_logits_equal_jax(auditors):
+    """The canonical-column probe's logits and top two equal JAX's probe
+    within f32 tolerance, at prefixes of three bucket sizes."""
+    auditor, jax_auditor, oracle, plen = auditors
+    for j in (5, plen + 7, plen + 20):
+        last, top2v, top2i = auditor.logits_at(oracle[:j])
+        jl, jv, ji = jax_auditor.logits_at(oracle[:j])
+        np.testing.assert_allclose(last, np.asarray(jl), atol=1e-4)
+        np.testing.assert_allclose(top2v, np.asarray(jv), atol=1e-4)
+        assert top2i.tolist() == np.asarray(ji).tolist()
+
+
+def test_runner_up_divergence_measured(auditors):
+    """The engine committed the runner-up: the gap equals the canonical
+    top-2 gap, and tau decides the verdict (as JAX's auditor does)."""
+    auditor, jax_auditor, oracle, plen = auditors
+    j = plen + 7
+    _, top2v, top2i = auditor.logits_at(oracle[:j])
+    assert int(top2i[0]) == oracle[j]
+    engine = list(oracle)
+    engine[j] = int(top2i[1])
+    d = auditor.audit([oracle], [engine], tau=1e9)["details"][0]
+    assert d["pos"] == j and d["near_tie"] is True
+    assert d["gap"] == pytest.approx(d["canonical_top2_gap"], abs=1e-4)
+    jd = jax_auditor.audit([oracle], [engine], tau=1e9)["details"][0]
+    assert d["gap"] == pytest.approx(jd["gap"], abs=1e-4)
+    assert auditor.audit([oracle], [engine], tau=1e-9)[
+        "near_tie_confirmed"] is False
+
+
+def test_garbage_token_flagged_as_bug(auditors):
+    auditor, _, oracle, plen = auditors
+    engine = list(oracle)
+    j = plen + 3
+    engine[j] = (oracle[j] + 7) % 128
+    r = auditor.audit([oracle], [engine])
+    assert r["misses"] == 1 and r["near_tie_confirmed"] is False
+    assert abs(r["details"][0]["gap"]) > 0.08
