@@ -21,8 +21,10 @@ Phases, in order; any failure exits non-zero:
         prefix in a cache cut to max(256, kv_limit rounded up to 64)
         columns must give the same bits;
      b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
-        shape, and one llama_1b shape; int8 bytes of 127 and scales of 1e30
-        past kv_limit change nothing; the same cut-cache check;
+        shape, one llama_1b shape, and mixtral_8x7b's (KH 8 under NH 32, G
+        4, D 128: T = 16 at cache_len 0, 200 and 700, and the T = 128
+        prefill); int8 bytes of 127 and scales of 1e30 past kv_limit change
+        nothing; the same cut-cache check;
      c. the int4 matmul at every llama_7b projection and head shape, at
         16, 60, 64, 128, 192, 256 and 288 rows (decode, the host engines'
         and the hybrid's blocks, the prefill buckets 128 and 256, and B * M
@@ -33,6 +35,8 @@ Phases, in order; any failure exits non-zero:
         and 200 (w_gate, head) and an f32 x (the CUDA-core body) within
         the bound; a model of the tensor-core kernel's order and rounding
         falls inside the bound, and two planted faults in it outside;
+        and mixtral_8x7b's wk/wv (4096 -> 1024) at R = 16, 128 and 192
+        with the same checks (its wq/wo and head are llama_7b's shapes);
      d. the paged verify attention (K4) over a page pool with shuffled
         tables and inactive slots: llama_7b B = 12 over int8 pages and
         llama_1b B = 4 over pages of q's type, bf16 and f32 q; each active
@@ -225,6 +229,34 @@ Phases, in order; any failure exits non-zero:
      batch 8 by 64 tokens over a Markov corpus of its 32000 tokens at lr
      5e-4 (the tiny models' 3e-3 diverges at this width): the last loss
      below the first, every net parameter a finite gradient.
+ 17. mixtral_8x7b at full width (after 16, the earlier weights freed):
+     each layer's bf16 leaves drawn on the card from torch.Generator seed
+     0 with init_params's distribution, quantized to packed int4 by
+     quantize_weight4 and freed before the next (about 23.6 GB; the embed
+     bf16, the router bf16); FusedSamEngine at M 16 over int8 KV, cache
+     buckets 256-768 over 1024 slots, with the oracle's own outputs as
+     its corpus, serves phase 5's three prompts with 64 new tokens each,
+     every request equal to ArBaseline(block_size=16) bit for bit; K3 129
+     launches per forward (wq/wk/wv/wo and the head: the expert products
+     stay plain matmuls over dequantized stacks, as in JAX), the int8 mode
+     32 per forward of T <= 128, the path's verify outputs held against
+     the plain version (``PathProbe``); prints ms/step, tok/s, mean
+     accept, the peak allocated memory, how often each expert is selected
+     and, at cache_len 200 and 700, one T = 16 forward's device time split
+     by CUDA events between the expert side (dequantization, products)
+     and the rest (K3, the int8 mode and its share), beside the bytes
+     bound from the weights' measured bytes;
+ 18. item 15's corpus tooling on phase 15's directory (after 17):
+     ``tools.gen_corpus --model-dir`` over 4 token-row instructions, 32 new
+     tokens at batch 4 (each row its prompt and 32 tokens);
+     ``tools.build_sam`` of its output; ``python3 -m samd_tpu_torch.cli
+     --engine samd --sam`` with one reply equal to
+     ArBaseline(block_size=60); ``evaluation.parity`` over a 2^20-token
+     corpus on the card, windowed (match and end agreement 1.0) and
+     indexed (never a longer match), its agreement rates printed;
+     ``python3 -m samd_tpu_torch.evaluation.launch --num-workers 2`` on
+     the card, the merged answers sorted and each equal to the engine
+     called in this process.
 ``--isolate-11b`` reports phase 11b (every path warm) without failing on
 the judge and, at the first rejected request, the diverging token (i)
 over bf16 pages, (ii) through the dense int8 BatchedFusedHybridEngine,
@@ -451,6 +483,11 @@ def check_int8_attention(card: str) -> dict:
     cases.append(("llama_7b T=128 prefill", 128, 32, 32, 128, 1024, 0, True))
     cases.append(("llama_1b T=60 cache_len=700", 60, 32, 4, 64, 2048, 700,
                   False))
+    # mixtral_8x7b (phase 17): 8 KV heads of 128 under 32 query heads (G 4)
+    cases += [(f"mixtral_8x7b T=16 cache_len={cl}", 16, 32, 8, 128, 1024,
+               cl, False) for cl in (0, 200, 700)]
+    cases.append(("mixtral_8x7b T=128 prefill", 128, 32, 8, 128, 1024, 0,
+                  True))
     main_label = "llama_7b T=16 cache_len=200"
     row, max_err = None, 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -494,7 +531,8 @@ def check_int8_attention(card: str) -> dict:
                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} (SDPA, dequantized live KV) bound_ms "
                   f"{bound_ms:.5f} ({bound_by}){s_note} [{card}]", flush=True)
-            if dname == "bfloat16" and label.startswith("llama_7b"):
+            if dname == "bfloat16" and label.startswith(("llama_7b",
+                                                         "mixtral")):
                 max_err = max(max_err, err)
             if dname == "bfloat16" and label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -556,15 +594,20 @@ def check_int4(card: str) -> dict:
                                                 mma_order_sum)
     from samd_tpu_torch.ops.quant import Int4Tensor, dequant, unpack4
 
-    shapes = [("wq/wk/wv/wo", 4096, 4096, torch.bfloat16),
-              ("w_gate/w_up", 4096, 11008, torch.bfloat16),
-              ("w_down", 11008, 4096, torch.bfloat16),
-              ("lm_head", 4096, 32000, torch.float32)]
+    every_r = (16, 60, 64, 128, 192, 256, 288)
+    # the llama_7b shapes (mixtral_8x7b's wq/wo and head are the same), and
+    # mixtral_8x7b's wk/wv at its block and prefill rows (and R 192 for the
+    # row checks)
+    shapes = [("wq/wk/wv/wo", 4096, 4096, torch.bfloat16, every_r),
+              ("w_gate/w_up", 4096, 11008, torch.bfloat16, every_r),
+              ("w_down", 11008, 4096, torch.bfloat16, every_r),
+              ("lm_head", 4096, 32000, torch.float32, every_r),
+              ("mixtral wk/wv", 4096, 1024, torch.bfloat16, (16, 128, 192))]
     main_label = "w_gate/w_up R=16"
     row, max_err = None, 0.0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    for name, IN, OUT, out_dtype in shapes:
+    for name, IN, OUT, out_dtype, rows in shapes:
         layer_bytes = IN * OUT // 2
         L = max(2, math.ceil(2 * L2_BYTES / layer_bytes))
         packed = torch.randint(0, 256, (L, IN, OUT // 2), generator=gen,
@@ -577,7 +620,7 @@ def check_int4(card: str) -> dict:
         # the head also drafts: 8 rows a level in one stream (top-8), and
         # at B = 12 (top-4) 12 root and 48 level rows
         draft_rows = (8, 12, 48) if name == "lm_head" else ()
-        for R in (16, 60, 64, 128, 192, 256, 288) + draft_rows:
+        for R in rows + draft_rows:
             label = f"{name} R={R}"
             x = torch.randn((R, IN), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -4363,41 +4406,81 @@ def main_path_1b_disk(card: str, d: str):
     return lcfg, params
 
 
-class CaptureAttention:
-    """Inside the block, the model's verify attention
-    (``models.llama.flash_block_attention``) keeps the inputs and the
-    output of its 1st, 2nd, 4th, 8th, ... call at each shape, so that
-    after the path every shape it gave the kernel, over cache lengths
-    from the first step to late ones, is held against the plain version
-    (``hold``).  Keeping them launches nothing that is counted."""
+class PathProbe:
+    """Inside the block, functions of ``models.llama`` that ``forward``
+    looks up are each wrapped once; the wrappers launch no counted kernel.
 
-    def __init__(self):
+    - The verify attention (``flash_block_attention``), while ``capture``
+      is set, keeps the inputs and the output of its 1st, 2nd, 4th, 8th,
+      ... call at each shape, so that after the path every shape it gave
+      the kernel, over cache lengths from the first step to late ones, is
+      held against the plain version (``hold``).
+    - With ``experts``, ``moe_route`` adds each expert's selections over
+      every row to ``selected``, and while ``timing`` is set, CUDA events
+      are recorded around each call of ``_moe_mlp``, ``_expert_stack``
+      (a stack's dequantization), ``int4_matmul`` (K3) and the verify
+      attention, kept per function in ``spans``."""
+
+    TIMED = ("_moe_mlp", "_expert_stack", "int4_matmul",
+             "flash_block_attention")
+
+    def __init__(self, experts: int = 0, capture: bool = True):
         self.calls = {}     # (q shape, k shape, dtype, int8) -> calls
         self.kept = []      # (key, arguments, the path's output)
+        self.capture, self.timing, self.experts = capture, False, experts
+        self.spans = {n: [] for n in self.TIMED}
+        if experts:
+            import torch
+
+            self.selected = torch.zeros(experts, dtype=torch.int64,
+                                        device="cuda")
 
     def __enter__(self):
         import samd_tpu_torch.models.llama as llama
 
-        self._orig = orig = llama.flash_block_attention
-
-        def rec(*args):
-            out = orig(*args)
-            key = (tuple(args[0].shape), tuple(args[1].shape),
-                   str(args[0].dtype).split(".")[1],
-                   len(args) > 5 and args[5] is not None)
-            n = self.calls[key] = self.calls.get(key, 0) + 1
-            if n & (n - 1) == 0:
-                self.kept.append((key, [a.clone() if a is not None
-                                        else None for a in args],
-                                  out.clone()))
-            return out
-        llama.flash_block_attention = rec
+        names = ["flash_block_attention"]
+        if self.experts:
+            names += ["moe_route", "_moe_mlp", "_expert_stack",
+                      "int4_matmul"]
+        self._orig = {n: getattr(llama, n) for n in names}
+        for n, fn in self._orig.items():
+            setattr(llama, n, self._wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
         import samd_tpu_torch.models.llama as llama
 
-        llama.flash_block_attention = self._orig
+        for n, fn in self._orig.items():
+            setattr(llama, n, fn)
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args, **kw):
+            if not (self.timing and name in self.TIMED):
+                out = fn(*args, **kw)
+            else:
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = fn(*args, **kw)
+                ev[1].record()
+                self.spans[name].append(ev)
+            if name == "moe_route":
+                self.selected += (out > 0).sum(dim=(0, 1))
+            elif name == "flash_block_attention" and self.capture:
+                self._keep(args, out)
+            return out
+        return call
+
+    def _keep(self, args, out):
+        key = (tuple(args[0].shape), tuple(args[1].shape),
+               str(args[0].dtype).split(".")[1],
+               len(args) > 5 and args[5] is not None)
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if n & (n - 1) == 0:
+            self.kept.append((key, [a.clone() if a is not None else None
+                                    for a in args], out.clone()))
 
     def hold(self, card: str, label: str) -> dict:
         """Fail unless every kept output is finite and within
@@ -4433,7 +4516,7 @@ class CaptureAttention:
 def main_path_training(card: str, cfg, params) -> dict:
     """Phase 16: the accept demo, the Spec-Bench demo and full-width EAGLE
     distillation on the card; each part's verify-attention outputs held
-    against the plain version (``CaptureAttention``).  Returns the
+    against the plain version (``PathProbe``).  Returns the
     largest error per kernel row."""
     import torch
 
@@ -4449,7 +4532,7 @@ def main_path_training(card: str, cfg, params) -> dict:
 
     reset_counts()                              # the path starts here
     t0 = time.perf_counter()
-    with CaptureAttention() as cap:
+    with PathProbe() as cap:
         demo = accept_demo.run(steps=400, vocab=64, new_tokens=48)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -4481,7 +4564,7 @@ def main_path_training(card: str, cfg, params) -> dict:
     # (b) the Spec-Bench pipeline
     reset_counts()                              # the path starts here
     t0 = time.perf_counter()
-    with CaptureAttention() as cap:
+    with PathProbe() as cap:
         sb = specbench_demo.run(steps=300, vocab=64, per_task=2,
                                 new_tokens=64)
     torch.cuda.synchronize()
@@ -4515,7 +4598,7 @@ def main_path_training(card: str, cfg, params) -> dict:
 
     reset_counts()                              # the path starts here
     t0 = time.perf_counter()
-    with CaptureAttention() as cap:
+    with PathProbe() as cap:
         net, _ = train_eagle(cfg, params, corpus, steps=30, batch=8,
                              seq_len=64, lr=5e-4, seed=0, on_step=on_step)
     torch.cuda.synchronize()
@@ -4534,6 +4617,376 @@ def main_path_training(card: str, cfg, params) -> dict:
             "a finite gradient")
     del net
     return worst
+
+
+def mixtral_int4_params():
+    """mixtral_8x7b at full width in the single-card serving form: each
+    layer's bf16 leaves drawn on the card from a generator seeded 0 with
+    ``init_params``'s distribution (normal · 0.02, norms ones), quantized
+    to packed int4 with ``quantize_weight4`` as ``quantize_llama_params``
+    does (the expert stacks per [E, in, out] along -2; router and norms
+    bf16), and freed before the next layer, so the 93 GB bf16 tree never
+    exists.  The embed stays bf16, the head is int4."""
+    import torch
+
+    from samd_tpu_torch.models import mixtral_8x7b
+    from samd_tpu_torch.ops.quant import (Int4Tensor, quantize_weight4,
+                                          quantized_bytes)
+
+    cfg = mixtral_8x7b()
+    fail_if(cfg.int4_impl != "kernel" or cfg.attention_impl != "flash",
+            "mixtral_8x7b: the kernels are not the default routes")
+    t0 = time.perf_counter()
+    L, H, I, E = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_experts)
+    NH, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def norm(*shape):
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device="cuda")
+        return (x * 0.02).to(cfg.dtype)
+
+    shapes = {"wq": (H, NH * D), "wk": (H, KH * D), "wv": (H, KH * D),
+              "wo": (NH * D, H), "w_gate": (E, H, I), "w_up": (E, H, I),
+              "w_down": (E, I, H)}
+    layers = {n: Int4Tensor(
+        torch.empty((L, *s[:-1], s[-1] // 2), dtype=torch.uint8,
+                    device="cuda"),
+        torch.empty((L, *s[:-2], s[-1]), dtype=torch.float32,
+                    device="cuda")) for n, s in shapes.items()}
+    router = torch.empty((L, H, E), dtype=cfg.dtype, device="cuda")
+    for l in range(L):
+        for n, s in shapes.items():
+            w = norm(*s)
+            q = quantize_weight4(w)
+            layers[n].packed[l].copy_(q.packed)
+            layers[n].scale[l].copy_(q.scale)
+            del w, q
+        router[l] = norm(H, E)
+    ones = torch.ones((L, H), dtype=cfg.dtype, device="cuda")
+    params = {"embed": norm(cfg.vocab_size, H),
+              "layers": {**layers, "router": router, "attn_norm": ones,
+                         "mlp_norm": ones.clone()},
+              "final_norm": torch.ones(H, dtype=cfg.dtype, device="cuda"),
+              "lm_head": quantize_weight4(norm(H, cfg.vocab_size))}
+    torch.cuda.synchronize()
+    gb = quantized_bytes(params) / 1e9
+    experts = sum(quantized_bytes(layers[n])
+                  for n in ("w_gate", "w_up", "w_down")) / 1e9
+    print(f"mixtral_8x7b weights: drawn layer by layer on the card and "
+          f"quantized to packed int4 in {time.perf_counter() - t0:.1f} s; "
+          f"{gb:.3f} GB ({experts:.3f} GB of expert stacks); peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"[{nvidia_smi()}]", flush=True)
+    fail_if(not 23.0 < gb < 24.2, f"mixtral_8x7b: {gb:.3f} GB of weights, "
+            "expected about 23.6")
+    return cfg, params
+
+
+def mixtral_forward_split(card, cfg, params, probe, cache_len, S, T=16
+                          ) -> None:
+    """Device time of one forward of the engine's block (T rows at
+    cache_len over an int8 cache of S slots) by CUDA events, split into
+    the expert side (each layer's MoE MLP: the stacks' dequantization
+    plus the products, routing and combine) and the rest (K3 on
+    wq/wk/wv/wo and the head, the int8-mode attention, norms, rope);
+    median of three after a warm-up.  Beside it the bytes bound: every
+    weight read once (of the bf16 embed table only the T rows looked up),
+    the live int8 KV prefix read and the T new rows written (values and
+    f32 scales), the f32 logits written, over HBM_BYTES_PER_S."""
+    import torch
+
+    from samd_tpu_torch.cache import init_kv_cache
+    from samd_tpu_torch.models import block_decode_mask, forward
+    from samd_tpu_torch.ops.quant import quantized_bytes
+
+    L, H, KH, D = (cfg.num_layers, cfg.hidden_size, cfg.num_kv_heads,
+                   cfg.head_dim)
+    embed = params["embed"]
+    moved = (quantized_bytes(params)
+             - embed.numel() * embed.element_size()
+             + T * H * embed.element_size()
+             + (cache_len + T) * L * 2 * KH * (D + 4)
+             + T * cfg.vocab_size * 4)
+    kv = init_kv_cache(cfg, 1, S, "cuda")
+    toks = torch.randint(3, cfg.vocab_size, (1, T), device="cuda")
+    pos = torch.arange(cache_len, cache_len + T, device="cuda")[None]
+    tree = torch.tril(torch.ones((T, T), dtype=torch.bool, device="cuda"))
+    mask = block_decode_mask(tree, cache_len, S)
+    off = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
+    logs = [probe.spans[n] for n in probe.TIMED]
+    rows = []
+    for i in range(4):
+        for log in logs:
+            log.clear()
+        probe.timing = True
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        forward(params, cfg, toks, pos, *kv, off, mask)
+        ev[1].record()
+        probe.timing = False
+        torch.cuda.synchronize()
+        rows.append([ev[0].elapsed_time(ev[1])] + [
+            sum(a.elapsed_time(b) for a, b in log) for log in logs])
+    total, moe, deq, k3, attn = sorted(rows[1:])[1]
+    pairs = [len(log) for log in logs]
+    fail_if(pairs != [L, 3 * L, 4 * L + 1, L],
+            f"mixtral split: event pairs {pairs}")
+    print(f"mixtral_8x7b forward device split (T {T}, cache_len "
+          f"{cache_len}, int8 KV over {S} slots, median of 3 by CUDA "
+          f"events): total {total:.3f} ms; expert side {moe:.3f} ms "
+          f"({moe / total:.1%}: dequantization {deq:.3f} ms, products, "
+          f"routing and combine {moe - deq:.3f} ms); attention side "
+          f"{k3 + attn:.3f} ms (K3 on wq/wk/wv/wo and the head {k3:.3f} ms "
+          f"in {4 * L + 1} calls, the int8-mode attention {attn:.3f} ms in "
+          f"{L}, {attn / total:.1%} of the forward); the rest (embed, "
+          f"norms, rope, the int8 KV writes) {total - moe - k3 - attn:.3f} "
+          f"ms; the bytes bound {moved / 1e9:.3f} GB / "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{moved / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]", flush=True)
+
+
+def main_path_mixtral(card: str) -> None:
+    """Phase 17: mixtral_8x7b at full width, int4 weights and int8 KV,
+    through FusedSamEngine against ArBaseline(block_size=16)."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+    from samd_tpu_torch.ops.quant import dequant, unpack4
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = mixtral_int4_params()
+    cfg = dataclasses.replace(cfg, kv_quant=True)
+    fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
+                        cache_buckets=(256, 384, 512, 768))
+    M, S, new = fc.block, 1024, 64
+    gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
+    rng = np.random.default_rng(7)       # phase 5's three prompts
+    prompts = {
+        "a_random_200": rng.integers(3, cfg.vocab_size, size=200).tolist(),
+        "b_own_corpus": rng.integers(3, cfg.vocab_size, size=96).tolist(),
+        "c_repetitive": rng.integers(3, cfg.vocab_size, size=8).tolist() * 12,
+    }
+    stack = params["layers"]["w_gate"].layer(0)
+
+    def unpack4_form(i):
+        return unpack4(stack.packed).to(cfg.dtype) \
+            * stack.scale[:, None, :].to(cfg.dtype)
+
+    fail_if(not torch.equal(dequant(stack, cfg.dtype), unpack4_form(0)),
+            "mixtral_8x7b: dequant of layer 0's w_gate stack differs from "
+            "unpack4's form")
+    print(f"mixtral_8x7b dequant of one {list(stack.shape)} expert stack: "
+          f"{cuda_ms(lambda i: dequant(stack, cfg.dtype), 5, 1):.3f} ms, "
+          f"bitwise equal to unpack4's int32 form, "
+          f"{cuda_ms(unpack4_form, 5, 1):.3f} ms [{card}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = PathProbe(cfg.num_experts, capture=False)
+    with probe:
+        oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
+                            block_size=M)
+        oracle.generate(prompts["c_repetitive"][:16],
+                        GenerationConfig(max_new_tokens=2))    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = {name: oracle.generate(p, gen)
+                for name, p in prompts.items()}
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        print(f"mixtral_8x7b oracle ArBaseline(block_size={M}): "
+              f"{3 * new} tokens in {oracle_s:.1f} s, "
+              f"{oracle_s / (3 * new) * 1e3:.1f} ms per token (one "
+              f"forward each, prefills included) [{card}]", flush=True)
+        corpus = []          # the oracle's own outputs (bench.py:1900-1906)
+        for r in refs.values():
+            corpus += r.output_ids + [0]
+        engine = FusedSamEngine(cfg, params, fc, corpus=corpus,
+                                max_cache_len=S, eos_token_id=-1)
+        engine.generate(prompts["c_repetitive"][:16],
+                        GenerationConfig(max_new_tokens=4))    # warm-up
+        torch.cuda.synchronize()
+        probe.selected.zero_()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                          # the path starts here
+        probe.capture = True
+        done = serve(card, "mixtral_8x7b int4 int8-KV",
+                     {n: engine for n in prompts}, prompts, refs, gen,
+                     cfg.vocab_size)
+        probe.capture = False
+        counts = read_counts()                  # the path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        selected = probe.selected.tolist()
+        for cache_len, slots in ((200, 256), (700, 768)):
+            mixtral_forward_split(card, cfg, params, probe, cache_len,
+                                  slots)
+    worst = probe.hold(card, "mixtral_8x7b path")
+    forwards = sum(1 + steps for _, steps in done)
+    short = sum(steps + (n <= 128) for n, steps in done)
+    want = {"flash_block_attention": 0,
+            "flash_block_attention_int8kv": cfg.num_layers * short,
+            "int4_matmul": (4 * cfg.num_layers + 1) * forwards,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want or not counts["int4_matmul"]
+            or not counts["flash_block_attention_int8kv"],
+            f"mixtral_8x7b: launch counts {counts}, expected {want} (129 "
+            "int4 launches per forward, 32 int8-KV verify launches per "
+            "forward of T <= 128)")
+    total = sum(selected)
+    print(f"mixtral_8x7b path: int4_matmul launches {counts['int4_matmul']}"
+          f" = {4 * cfg.num_layers + 1} x {forwards} forwards; int8-KV "
+          f"verify launches {counts['flash_block_attention_int8kv']} = "
+          f"{cfg.num_layers} x {short} forwards of T <= 128; experts "
+          f"selected (rows x layers, top-2) {selected}, shares "
+          f"{[round(c / total, 4) for c in selected]}; peak allocated while "
+          f"serving {peak:.3f} GB; kept verify outputs {worst} [{card}]",
+          flush=True)
+    return worst
+
+
+def main_path_tools(card: str, d: str) -> None:
+    """Phase 18: item 15's corpus tooling on phase 15's llama_1b HF
+    directory: gen_corpus, build_sam, the CLI over the corpus SAM, parity
+    at corpus scale and the two-worker evaluation fan-out."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.evaluation import launch, parity
+    from samd_tpu_torch.models.loader import load_llama
+    from samd_tpu_torch.sam import load_sam
+    from samd_tpu_torch.tools import build_sam, gen_corpus
+
+    model_dir = os.path.join(d, "llama_1b_hf")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(3, 32000, size=n).tolist()
+               for n in (40, 24, 56, 32)]
+    instr = os.path.join(d, "instructions.jsonl")
+    corpus = os.path.join(d, "corpus.jsonl")
+    sam_path = os.path.join(d, "corpus_sam.npz")
+    with open(instr, "w") as f:
+        f.writelines(json.dumps({"tokens": p}) + "\n" for p in prompts)
+    new = 32
+
+    # (a) responses from the batched fused engine, greedy, batch 4
+    t0 = time.perf_counter()
+    reset_counts()
+    gen_corpus.main(["--input", instr, "--output", corpus, "--model-dir",
+                     model_dir, "--max-new-tokens", str(new),
+                     "--max-cache-len", "1024", "--batch", "4",
+                     "--temperature", "0", "--eos-token-id", "-1"])
+    counts = read_counts()
+    with open(corpus) as f:
+        rows = [json.loads(ln)["tokens"] for ln in f if ln.strip()]
+    fail_if([r[:len(p)] for r, p in zip(rows, prompts)] != prompts
+            or [len(r) - len(p) for r, p in zip(rows, prompts)]
+            != [new] * len(prompts), "gen_corpus: malformed rows")
+    print(f"gen_corpus --model-dir: {len(rows)} token rows of {new} new "
+          f"tokens at batch 4 in {time.perf_counter() - t0:.2f} s; launches "
+          f"{counts} [{card}]", flush=True)
+
+    # (b) the corpus SAM
+    stats = build_sam.main(["--input", corpus, "--output", sam_path,
+                            "--eos-token", "2"])
+    sam = load_sam(sam_path)
+    fail_if(len(sam.text) != sum(len(r) + 1 for r in rows)
+            or sam.num_states != stats["states"],
+            f"build_sam: {len(sam.text)} tokens, {sam.num_states} states "
+            f"against {stats}")
+    print(f"build_sam: {stats} -> {os.path.basename(sam_path)}", flush=True)
+
+    # (c) the CLI's host engine drafting from that SAM
+    prompt = prompts[0]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "samd_tpu_torch.cli", "--model", model_dir,
+         "--engine", "samd", "--sam", sam_path, "--max-new-tokens", str(new),
+         "--max-cache-len", "1024"],
+        input=" ".join(map(str, prompt)) + "\n!!exit\n", capture_output=True,
+        text=True, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    fail_if(r.returncode != 0, f"cli --sam: exit {r.returncode}: "
+            f"{r.stderr[-3000:]}")
+    replies = [[int(t) for t in ln.split("ASSISTANT>")[1].split("USER>")[0]
+                .split()] for ln in r.stdout.splitlines()
+               if "ASSISTANT>" in ln]
+    cfg, params = load_llama(model_dir, device="cuda")
+    oracle = ArBaseline(cfg, params, max_cache_len=1024, eos_token_id=2,
+                        block_size=60)
+    ref = oracle.generate(prompt, GenerationConfig(max_new_tokens=new,
+                                                   max_cache_len=1024))
+    fail_if(replies != [ref.output_ids[len(prompt):]],
+            f"cli --engine samd --sam: reply {replies} differs from "
+            "ArBaseline(block_size=60)")
+    print(f"cli --engine samd --sam: one reply of {len(replies[0])} tokens "
+          f"in {wall:.2f} s of subprocess, equal to ArBaseline(block_size="
+          f"60) bit for bit [{card}]", flush=True)
+    del oracle, params
+
+    # (d) retrieval parity over a 2^20-token corpus, on the card
+    for extra in ([], ["--indexed"]):
+        t0 = time.perf_counter()
+        rep = parity.main(["--corpus-size", str(1 << 20), "--steps", "400",
+                           *extra])
+        mode = rep["mode"]
+        fail_if(rep["device"] != "cuda" or rep["mean_match_delta_capped"] < 0
+                or (mode == "windowed"
+                    and rep["match_and_end_agreement"] != 1.0),
+                f"parity {mode}: {rep}")
+        print(f"parity {mode} over {rep['corpus_size']} tokens, "
+              f"{rep['steps']} steps: match agreement "
+              f"{rep['match_agreement']}, match and end "
+              f"{rep['match_and_end_agreement']}, mean draft-length delta "
+              f"{rep['mean_draft_len_delta']} in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+
+    # (e) two workers on the card, their merged answers against the engine
+    # called in this process
+    qfile = os.path.join(d, "questions.jsonl")
+    out = os.path.join(d, "answers.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps({"question_id": i, "category": "tools",
+                                 "turns": [p]}) + "\n"
+                     for i, p in enumerate(prompts))
+    argv = ["--question-file", qfile, "--out", out, "--engine", "sam_only",
+            "--model-dir", model_dir, "--sam", sam_path, "--max-new-tokens",
+            str(new), "--max-cache-len", "1024", "--eos-token-id", "2",
+            "--warmup", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "samd_tpu_torch.evaluation.launch", *argv,
+         "--num-workers", "2"], capture_output=True, text=True, timeout=600,
+        cwd=ROOT)
+    wall = time.perf_counter() - t0
+    fail_if(r.returncode != 0, f"launch: exit {r.returncode}: "
+            f"{r.stderr[-3000:]}")
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(out) as f:
+        answers = [json.loads(ln) for ln in f if ln.strip()]
+    fail_if([a["question_id"] for a in answers] != list(range(len(prompts))),
+            f"launch: merged question ids "
+            f"{[a['question_id'] for a in answers]}")
+    engine = launch.build_engine(launch.parse_args(argv))
+    gen = GenerationConfig(max_new_tokens=new, max_cache_len=1024)
+    reset_counts()
+    outs = [engine.generate(p, gen) for p in prompts]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for a, p, o in zip(answers, prompts, outs):
+        fail_if(a["choices"][0]["turns"][0] != o.output_ids[len(p):],
+                f"launch: question {a['question_id']}'s merged answer "
+                "differs from the engine called in this process")
+    steps = sum(o.decode_steps for o in outs)
+    print(f"launch --num-workers 2: {len(answers)} merged answers in "
+          f"{wall:.2f} s, sorted and each equal to the engine in this "
+          f"process ({steps} steps, mean accept "
+          f"{sum(o.decode_tokens for o in outs) / steps:.3f} from the "
+          f"corpus SAM); worker tok/s {report['per_worker_tokens_per_s']}; "
+          f"launches in process {counts} [{card}]", flush=True)
 
 
 LAPS = [time.perf_counter()]
@@ -4678,6 +5131,16 @@ def main() -> int:
         for name, err in main_path_training(card, cfg1, params1).items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
         lap("phase 16")
+        del cfg1, params1
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, err in main_path_mixtral(card).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        lap("phase 17")
+        gc.collect()
+        torch.cuda.empty_cache()
+        main_path_tools(card, d)
+        lap("phase 18")
     finally:
         shutil.rmtree(d, ignore_errors=True)
     fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "

@@ -67,10 +67,9 @@ def params_from_jax(tree: Params, device: Union[str, torch.device],
                     dtype: Optional[torch.dtype] = None) -> Params:
     """JAX parameter pytree with numpy leaves → the port's dict of tensors
     on ``device``.  ``dtype=None`` keeps each leaf's own type; otherwise
-    plain leaves are cast to ``dtype`` and quantized leaves keep theirs."""
-    if "router" in tree.get("layers", {}):
-        raise NotImplementedError(
-            "MoE parameter trees are not ported yet (ROADMAP queue 1 item 14)")
+    plain leaves are cast to ``dtype`` and quantized leaves keep theirs.
+    A Mixtral tree's ``router`` and ``[L, E, in, out]`` expert stacks cross
+    like any other leaf."""
 
     def conv(node):
         if isinstance(node, dict):

@@ -1,8 +1,7 @@
 """Model architecture configs (counterpart of ``samd_tpu/models/configs.py``).
 
 The fields and presets are the reference's, with ``dtype`` a torch dtype.
-The port runs a subset of them so far; ``check_supported`` raises for the
-rest and names the ROADMAP item that ports each.
+``check_supported`` raises for a setting the port does not run.
 """
 
 from __future__ import annotations
@@ -69,8 +68,8 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting the port does not run
-    yet, naming the ROADMAP queue 1 item that ports it."""
+    """Raise for a setting the port does not run, naming what covers
+    it."""
     if cfg.kv_layout != "sd":
         raise NotImplementedError(
             f"kv_layout={cfg.kv_layout!r}: the port keeps the 'sd' cache, "
@@ -79,9 +78,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.int4_impl not in ("kernel", "xla"):
         raise ValueError(
             f"int4_impl={cfg.int4_impl!r}; the port takes 'kernel' or 'xla'")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "num_experts > 0: the MoE MLP is ROADMAP queue 1 item 14")
+    if cfg.num_experts and not 0 < cfg.num_experts_per_tok <= \
+            cfg.num_experts:
+        raise ValueError(
+            f"num_experts_per_tok={cfg.num_experts_per_tok} must be in "
+            f"[1, num_experts={cfg.num_experts}]")
     if cfg.attention_impl not in ("xla", "flash"):
         raise ValueError(
             f"attention_impl={cfg.attention_impl!r}; the port takes 'xla' "
@@ -137,7 +138,7 @@ def qwen2_7b() -> ModelConfig:
 
 
 def mixtral_8x7b() -> ModelConfig:
-    """Mixtral-8x7B shape (its MoE MLP is not ported yet)."""
+    """Mixtral-8x7B shape (the reference's vendored Mixtral family)."""
     return ModelConfig(
         vocab_size=32000, hidden_size=4096, intermediate_size=14336,
         num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
@@ -166,7 +167,7 @@ def tiny_qwen2_config(vocab_size: int = 256, *, dtype=torch.float32
 
 def tiny_moe_config(vocab_size: int = 256, *, num_experts: int = 4,
                     dtype=torch.float32) -> ModelConfig:
-    """Mixtral-family tiny config (its MoE MLP is not ported yet)."""
+    """Mixtral-family tiny config (top-2 of num_experts) for tests."""
     return replace(tiny_config(vocab_size, dtype=dtype),
                    num_experts=num_experts, num_experts_per_tok=2)
 

@@ -26,7 +26,10 @@ as the reference does; with ``paged=PagedAux(...)`` the cache is a pair of
 attention reads the pool through the page tables (``ops.paged_attention``,
 the K4 kernel on a CUDA pool).
 
-Not ported yet: the MoE MLP (ROADMAP queue 1 item 14).
+Mixtral (``cfg.num_experts``): the MLP is ``_moe_mlp``, the reference's
+dense-over-experts form; its expert stacks ``[L, E, in, out]`` stay off the
+int4 kernel, as in JAX, which serves the attention projections and the
+head only.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     def ones(*shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
+    E = cfg.num_experts
     layers = {
         "attn_norm": ones(L, H),
         "wq": norm(L, H, NH * D),
@@ -78,10 +82,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         "wv": norm(L, H, KH * D),
         "wo": norm(L, NH * D, H),
         "mlp_norm": ones(L, H),
-        "w_gate": norm(L, H, I),
-        "w_up": norm(L, H, I),
-        "w_down": norm(L, I, H),
     }
+    if E:       # the reference's MoE leaves (samd_tpu/models/llama.py:47-52)
+        layers.update(router=norm(L, H, E), w_gate=norm(L, E, H, I),
+                      w_up=norm(L, E, H, I), w_down=norm(L, E, I, H))
+    else:
+        layers.update(w_gate=norm(L, H, I), w_up=norm(L, H, I),
+                      w_down=norm(L, I, H))
     if cfg.attn_bias:
         layers["bq"] = norm(L, NH * D)
         layers["bk"] = norm(L, KH * D)
@@ -158,6 +165,52 @@ def _mm(x: torch.Tensor, w: Weight, l: int, cfg: ModelConfig
     if isinstance(w, QuantizedTensor):
         return qmatmul(x, w.layer(l))
     return x @ w[l]
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int
+              ) -> torch.Tensor:
+    """Mixtral routing weights [B, T, E] in f32: f32 router logits of the
+    f32 ``x`` [B, T, H], a softmax over all experts, the top ``k``,
+    renormalized (HF's semantics, the reference's ``_moe_mlp``).  The top
+    k come from a stable descending sort, so among equal probabilities the
+    lower expert index wins, as under ``jax.lax.top_k``; ``torch.topk``
+    leaves that order unspecified."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter_(-1, topi, topv)
+
+
+def _expert_stack(w: Weight, l: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``l`` of an ``[L, E, in, out]`` expert stack, dequantized to
+    ``dtype`` (a view when the stack is plain)."""
+    if isinstance(w, (Int4Tensor, QuantizedTensor)):
+        return dequant(w.layer(l), dtype)
+    return w[l]
+
+
+def _moe_mlp(x: torch.Tensor, layers: Params, l: int, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """Layer ``l``'s Mixtral MoE MLP on x [B, T, H], computed densely over
+    the expert axis as the reference does (``samd_tpu/models/llama.py:
+    143-175``): every expert's gate, up and down products over every row,
+    against the layer's dequantized stacks, then the combine over experts
+    with the routing weights in x's type.  The expert products are plain
+    matmuls, as in JAX, where they run outside the Pallas kernels; one
+    stack is dequantized at a time, so the transient is one layer's
+    ``[E, in, out]`` in x's type."""
+    B, T, H = x.shape
+    wts = moe_route(x, layers["router"][l], cfg.num_experts_per_tok)
+    xs = x.reshape(1, B * T, H)
+    g = xs @ _expert_stack(layers["w_gate"], l, x.dtype)     # [E, BT, I]
+    u = xs @ _expert_stack(layers["w_up"], l, x.dtype)
+    d = (F.silu(g) * u) @ _expert_stack(layers["w_down"], l, x.dtype)
+    del g, u
+    # [E, BT, H] x [BT, E] -> [BT, H], summed over e in f32, rounded once
+    return torch.einsum("eth,te->th", d.float(),
+                        wts.reshape(B * T, -1).to(x.dtype).float()
+                        ).to(x.dtype).reshape(B, T, H)
 
 
 def _head(h: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -313,9 +366,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         ctx = attend(q, k_cache, v_cache)
         h = h + _mm(ctx, layers["wo"], l, cfg)
         x = rms_norm(h, layers["mlp_norm"][l], cfg.rms_eps)
-        gated = F.silu(_mm(x, layers["w_gate"], l, cfg)) \
-            * _mm(x, layers["w_up"], l, cfg)
-        h = h + _mm(gated, layers["w_down"], l, cfg)
+        if cfg.num_experts:
+            h = h + _moe_mlp(x, layers, l, cfg)
+        else:
+            gated = F.silu(_mm(x, layers["w_gate"], l, cfg)) \
+                * _mm(x, layers["w_up"], l, cfg)
+            h = h + _mm(gated, layers["w_down"], l, cfg)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return _head(h, params, cfg), h
 

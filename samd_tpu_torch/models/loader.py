@@ -9,8 +9,9 @@ the format (an 8-byte little-endian header length, a JSON header of
 package beyond torch is needed.  Weights are converted once into the
 stacked-layer layout of ``models.llama`` (HF's ``[out, in]`` linear
 weights transposed to ``[in, out]``) in the serving dtype, on the serving
-device, one file in host memory at a time.  A Mixtral checkpoint raises:
-the MoE MLP is ROADMAP queue 1 item 14.
+device, one file in host memory at a time.  A Mixtral directory's
+``block_sparse_moe`` tensors become the router and the ``[L, E, in, out]``
+expert stacks of the reference's layout.
 
 ``build_params`` is the front ends' one way to a model: ``--model DIR``,
 or ``--random-model`` (llama_1b, a tiny config with ``--tiny``, the
@@ -102,12 +103,7 @@ def load_llama(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     """(config, parameters on ``device`` in ``dtype``) of a local HF
     directory; the family follows ``config.json``'s ``model_type``."""
     dev = resolve_device(device)
-    hf_cfg = read_hf_config(model_dir)
-    if hf_cfg.get("model_type") == "mixtral":
-        raise NotImplementedError(
-            "Mixtral checkpoints: the MoE MLP is not ported yet (ROADMAP "
-            "queue 1 item 14)")
-    cfg = from_hf_config(hf_cfg, dtype=dtype)
+    cfg = from_hf_config(read_hf_config(model_dir), dtype=dtype)
     return cfg, convert_state_dict(_iter_checkpoint_tensors(model_dir), cfg,
                                    dev)
 
@@ -124,10 +120,14 @@ LAYER_LEAVES = (
     ("wk", "self_attn.k_proj.weight", True),
     ("wv", "self_attn.v_proj.weight", True),
     ("wo", "self_attn.o_proj.weight", True),
-    ("mlp_norm", "post_attention_layernorm.weight", False),
-    ("w_gate", "mlp.gate_proj.weight", True),
-    ("w_up", "mlp.up_proj.weight", True),
-    ("w_down", "mlp.down_proj.weight", True))
+    ("mlp_norm", "post_attention_layernorm.weight", False))
+MLP_LEAVES = (("w_gate", "mlp.gate_proj.weight", True),
+              ("w_up", "mlp.up_proj.weight", True),
+              ("w_down", "mlp.down_proj.weight", True))
+# Mixtral (samd_tpu/models/loader.py:101-113): the router, and expert e's
+# w1/w3/w2 into slot e of the [L, E, in, out] gate/up/down stacks
+MOE_LEAVES = (("router", "block_sparse_moe.gate.weight", True),)
+EXPERT_LEAVES = (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2"))
 BIAS_LEAVES = (("bq", "self_attn.q_proj.bias", False),
                ("bk", "self_attn.k_proj.bias", False),
                ("bv", "self_attn.v_proj.bias", False))
@@ -143,22 +143,25 @@ def convert_state_dict(sd: Union[Dict[str, torch.Tensor],
                        device: Union[str, torch.device] = "cuda") -> Params:
     """An HF state dict (a dict of torch tensors, or (name, tensor)
     pairs) → the port's stacked-layer parameters on ``device`` in
-    ``cfg.dtype``.  Qwen2 adds the q/k/v biases (``cfg.attn_bias``).  A
+    ``cfg.dtype``.  Qwen2 adds the q/k/v biases (``cfg.attn_bias``);
+    Mixtral (``cfg.num_experts``) has a router and expert stacks in place
+    of the MLP.  A
     tensor of another dtype is cast through f32, as the reference casts
     it; one already in ``cfg.dtype`` keeps its bits.
 
     Each tensor goes to the device as it arrives and is copied into its
     slot of a stacked ``[L, ...]`` leaf, so no second copy of a stacked
     leaf is made.  A tensor the conversion does not use (an ``o_proj``
-    or MLP bias, a layer past ``num_layers``) raises, as does a missing
-    one: no weight is dropped in silence."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE checkpoints: the MoE MLP is not ported yet (ROADMAP queue 1 "
-            "item 14)")
-    L = cfg.num_layers
-    per_layer = {hf: (key, tr) for key, hf, tr in
-                 LAYER_LEAVES + (BIAS_LEAVES if cfg.attn_bias else ())}
+    or MLP bias, a layer or expert past the config's) raises, as does a
+    missing one: no weight is dropped in silence."""
+    L, E = cfg.num_layers, cfg.num_experts
+    # HF's name under the layer → (leaf, transposed, expert slot or None)
+    per_layer = {hf: (key, tr, None) for key, hf, tr in
+                 LAYER_LEAVES + (BIAS_LEAVES if cfg.attn_bias else ())
+                 + (MOE_LEAVES if E else MLP_LEAVES)}
+    per_layer.update({f"block_sparse_moe.experts.{e}.{w}.weight":
+                      (key, True, e)
+                      for e in range(E) for key, w in EXPERT_LEAVES})
     layers: Dict[str, torch.Tensor] = {}
     filled = set()
     top: Params = {}
@@ -168,7 +171,7 @@ def convert_state_dict(sd: Union[Dict[str, torch.Tensor],
         if (len(parts) == 4 and parts[:2] == ["model", "layers"]
                 and parts[2].isdigit() and int(parts[2]) < L
                 and parts[3] in per_layer):
-            key, tr = per_layer[parts[3]]
+            key, tr, e = per_layer[parts[3]]
         elif name in TOP_LEAVES and not (name == "lm_head.weight"
                                          and cfg.tie_embeddings):
             key, tr = TOP_LEAVES[name]
@@ -185,17 +188,19 @@ def convert_state_dict(sd: Union[Dict[str, torch.Tensor],
         if name in TOP_LEAVES:
             top[key] = t.contiguous()
             continue
+        slot = (int(parts[2]),) if e is None else (int(parts[2]), e)
         if key not in layers:
-            layers[key] = torch.empty((L, *t.shape), dtype=t.dtype,
+            stack = (L,) if e is None else (L, E)
+            layers[key] = torch.empty((*stack, *t.shape), dtype=t.dtype,
                                       device=t.device)
-        layers[key][int(parts[2])].copy_(t)
-        filled.add((key, int(parts[2])))
+        layers[key][slot].copy_(t)
+        filled.add((parts[3], int(parts[2])))
     if unused:
         raise ValueError(
             f"the checkpoint holds {len(unused)} tensors the port does not "
             f"use (first: {sorted(unused)[:4]}); refusing to drop weights")
-    missing = [f"model.layers.{i}.{hf}" for hf, (key, _) in per_layer.items()
-               for i in range(L) if (key, i) not in filled]
+    missing = [f"model.layers.{i}.{hf}" for hf in per_layer
+               for i in range(L) if (hf, i) not in filled]
     missing += [n for n, (key, _) in TOP_LEAVES.items()
                 if key in ("embed", "final_norm") and key not in top]
     if missing:
@@ -203,7 +208,7 @@ def convert_state_dict(sd: Union[Dict[str, torch.Tensor],
                        f"(first: {missing[:4]})")
     params: Params = {"embed": top["embed"],
                       "layers": {key: layers[key]
-                                 for key, _ in per_layer.values()},
+                                 for key, _, _ in per_layer.values()},
                       "final_norm": top["final_norm"]}
     if not cfg.tie_embeddings:
         params["lm_head"] = (top["lm_head"] if "lm_head" in top
@@ -247,24 +252,33 @@ def quant_dtype(name: Optional[str]):
             "int4": INT4}[name]
 
 
-def random_model(family: str, tiny: bool, device):
-    """(config, random parameters from a generator seeded 0): llama_1b,
-    or with ``tiny`` a tiny config of 256 tokens, of the family
-    ``llama`` or ``qwen2``; ``moe`` raises (ROADMAP queue 1 item 14)."""
-    from . import init_params, llama_1b, tiny_config, tiny_qwen2_config
+def random_config(family: str, tiny: bool) -> ModelConfig:
+    """``--random-model``'s config: llama_1b, or with ``tiny`` a tiny
+    config of 256 tokens, of the family ``llama``, ``qwen2`` or ``moe``
+    (the reference CLI's shapes, ``samd_tpu/cli.py:35-52``)."""
+    from . import llama_1b, tiny_config, tiny_moe_config, tiny_qwen2_config
 
-    if family == "moe":
-        raise NotImplementedError(
-            "--family moe: the MoE MLP is not ported yet (ROADMAP queue 1 "
-            "item 14)")
     if tiny:
-        cfg = {"llama": tiny_config,
-               "qwen2": tiny_qwen2_config}[family](vocab_size=256)
+        cfg = {"llama": tiny_config, "qwen2": tiny_qwen2_config,
+               "moe": tiny_moe_config}[family](vocab_size=256)
     elif family == "qwen2":
         # a 1B-class Qwen2-family shape (qkv biases, 1e6 rope)
         cfg = replace(llama_1b(), attn_bias=True, rope_theta=1e6)
+    elif family == "moe":
+        # 8 experts at half the trunk's FFN width, top-2
+        cfg = replace(llama_1b(), intermediate_size=2816, num_experts=8,
+                      num_experts_per_tok=2)
     else:
         cfg = llama_1b()
+    return cfg
+
+
+def random_model(family: str, tiny: bool, device):
+    """(``random_config(family, tiny)``, random parameters from a
+    generator seeded 0 on ``device``)."""
+    from . import init_params
+
+    cfg = random_config(family, tiny)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     return cfg, init_params(cfg, gen, device=device)

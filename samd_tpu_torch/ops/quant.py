@@ -120,8 +120,23 @@ def unpack4(packed: torch.Tensor) -> torch.Tensor:
 
 def _deq4(w: Int4Tensor, dtype) -> torch.Tensor:
     """Pre-dequant form of an ``Int4Tensor``: ``(nibble − 8) · scale`` in
-    ``dtype`` (the product rounds in ``dtype``, as the reference's)."""
-    return unpack4(w.packed).to(dtype) * w.scale[..., None, :].to(dtype)
+    ``dtype`` (the product rounds in ``dtype``, as the reference's).
+
+    The values and the one rounding are ``unpack4``'s, but each half is
+    unpacked in uint8 (``nibble − 8`` mod 256 read as int8) and multiplied
+    by its scales straight into its half of the output, with no int32
+    intermediate.  Mixtral's expert stacks are dequantized on every
+    forward, and this form takes a third of the int32 form's time there
+    (``PERF.md`` §6)."""
+    half = w.packed.shape[-1]
+    out = torch.empty(w.packed.shape[:-1] + (2 * half,), dtype=dtype,
+                      device=w.packed.device)
+    scale = w.scale.to(dtype)[..., None, :]
+    for j, nibble in enumerate((w.packed & 15, w.packed >> 4)):
+        cols = slice(j * half, (j + 1) * half)
+        torch.mul(nibble.sub_(8).view(torch.int8), scale[..., cols],
+                  out=out[..., cols])
+    return out
 
 
 def qmatmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
@@ -147,8 +162,10 @@ def dequant(w: Weight, dtype) -> torch.Tensor:
 def quantize_llama_params(params: Dict, *, dtype=torch.int8) -> Dict:
     """Quantize the projections and ``lm_head`` of a Llama parameter dict
     (stacked ``[L, in, out]`` layers; scales become ``[L, out]``); embed,
-    norms and biases stay as they are.  ``dtype``: int8, an fp8 type, or
-    ``INT4``."""
+    norms and biases stay as they are.  A Mixtral dict's expert stacks
+    ``[L, E, in, out]`` quantize along the same -2 axis (scales ``[L, E,
+    out]``) and its router stays as it is (``samd_tpu/ops/quant.py:
+    184-191``).  ``dtype``: int8, an fp8 type, or ``INT4``."""
     def quant(w):
         if dtype == INT4:
             return quantize_weight4(w, axis=-2)

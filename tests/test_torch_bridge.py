@@ -81,8 +81,9 @@ def test_quantized_round_trip_exact(qdtype):
 
 
 def test_quantized_and_moe_trees_raise():
-    """A quantized tree now crosses (``test_quantized_round_trip_exact``
-    holds its bytes); an MoE tree still raises."""
+    """Quantized and MoE trees, which the first slices refused, now cross
+    (``test_quantized_round_trip_exact`` holds a quantized tree's bytes):
+    an MoE tree's router and [L, E, in, out] stacks arrive bit for bit."""
     cfg = tiny_config(vocab_size=64)
     jp = init_params(cfg, jax.random.PRNGKey(0))
     q8 = jax.tree.map(np.asarray, quantize_llama_params(jp))
@@ -90,8 +91,11 @@ def test_quantized_and_moe_trees_raise():
                       QuantizedTensor)
     moe = jax.tree.map(np.asarray, init_params(tiny_moe_config(vocab_size=64),
                                                jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        params_from_jax(moe, "cpu")
+    tp = params_from_jax(moe, "cpu")
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        want = moe["layers"][name]
+        assert tp["layers"][name].shape == want.shape
+        np.testing.assert_array_equal(tp["layers"][name].numpy(), want)
 
 
 def test_unsupported_config_settings_raise():
@@ -102,12 +106,13 @@ def test_unsupported_config_settings_raise():
     check_supported(base)
     assert base.int4_impl == "kernel" and not base.kv_quant
     for change in ({"kv_quant": True}, {"int4_impl": "xla"},
-                   {"kv_quant": True, "int4_impl": "kernel"}):
+                   {"kv_quant": True, "int4_impl": "kernel"},
+                   {"num_experts": 4}):
         check_supported(dataclasses.replace(base, **change))
     for change, exc, match in [({"kv_layout": "ds"}, NotImplementedError,
                                 "'sd'"),
-                               ({"num_experts": 4}, NotImplementedError,
-                                "item 14"),
+                               ({"num_experts": 4, "num_experts_per_tok": 5},
+                                ValueError, "num_experts_per_tok"),
                                ({"int4_impl": "kernel_interpret"},
                                 ValueError, "'kernel' or 'xla'")]:
         with pytest.raises(exc, match=match):

@@ -41,7 +41,9 @@ def test_port_files_found():
                 "evaluation/equal.py", "evaluation/speed.py",
                 "evaluation/synthetic.py", "evaluation/accept_demo.py",
                 "evaluation/specbench_demo.py", "evaluation/neartie.py",
-                "evaluation/profile_run.py"):
+                "evaluation/profile_run.py", "evaluation/parity.py",
+                "evaluation/launch.py", "tools/build_sam.py",
+                "tools/gen_corpus.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 

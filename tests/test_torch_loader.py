@@ -2,8 +2,9 @@
 the hand-written safetensors reader against the safetensors package, the
 HF loader against JAX's ``load_llama`` on the same ``save_pretrained``
 directory (Llama, Qwen2 with its biases, a sharded directory, ``.bin``
-files, f16 weights), bitwise in f32 and bf16; Mixtral and an unported
-``rope_scaling`` raise.  The port's checkpoint format round-trips plain,
+files, f16 weights), bitwise in f32 and bf16; an unported
+``rope_scaling`` raises, and a Mixtral config is read (its directories are
+held in ``test_torch_model_families.py``).  The port's checkpoint format round-trips plain,
 int8, fp8 and int4 parameters bit for bit, and ``server --model`` serves a
 loaded directory.  Mirrors ``tests/test_checkpoint_and_loaders.py``."""
 
@@ -152,15 +153,18 @@ def write_config(d, **kw):
     return str(d)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(model_type="mixtral", num_local_experts=4), "item 14"),
+@pytest.mark.parametrize("kw,exc,match", [
+    # a Mixtral config is read now; a directory without weights raises
+    (dict(model_type="mixtral", num_local_experts=4), FileNotFoundError,
+     "no weights"),
     (dict(rope_scaling={"rope_type": "llama3", "factor": 8.0}),
-     "rope_scaling"),
-    (dict(rope_scaling={"type": "linear", "factor": 2.0}), "rope_scaling")],
+     NotImplementedError, "rope_scaling"),
+    (dict(rope_scaling={"type": "linear", "factor": 2.0}),
+     NotImplementedError, "rope_scaling")],
     ids=["mixtral", "llama3-rope", "linear-rope"])
-def test_loader_refuses(tmp_path, kw, match):
+def test_loader_refuses(tmp_path, kw, exc, match):
     d = write_config(tmp_path / "hf", **kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         load_llama(d, device="cpu")
 
 

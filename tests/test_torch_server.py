@@ -34,6 +34,7 @@ from samd_tpu_torch.server import (Scheduler, _gen_from_json,
                                    build_server_engine, serve)
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
+from torch_mixtral_dir import write_mixtral
 
 FSC = dict(n_predicts=15, steps_per_call=6, corpus_capacity=256)
 KW = dict(max_cache_len=256, eos_token_id=-1, prefill_buckets=(32,))
@@ -436,18 +437,18 @@ def test_build_server_engine_ported(name, quant):
     assert eng.run()[rid].decode_tokens == 4
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(random_model=False, model="mixtral"), "item 14")])
-def test_build_server_engine_not_ported(kw, item, tmp_path):
-    """``--model`` loads a local HF directory; a Mixtral one still
-    raises, naming the ROADMAP item that ports its MoE MLP."""
-    import json
-
-    d = tmp_path / kw["model"]
-    d.mkdir()
-    (d / "config.json").write_text(json.dumps({"model_type": "mixtral"}))
-    with pytest.raises(NotImplementedError, match=item):
-        build_server_engine(args_for(**{**kw, "model": str(d)}))
+@pytest.mark.parametrize("kw,experts", [
+    (dict(random_model=False, model="mixtral"), 4)])
+def test_build_server_engine_not_ported(kw, experts, tmp_path):
+    """``--model`` loads a local HF directory; a Mixtral one, which the
+    port refused before its MoE MLP was ported, now builds and serves."""
+    d = write_mixtral(tmp_path / kw["model"])
+    eng = build_server_engine(args_for(**{**kw, "model": d}))
+    assert eng.model_cfg.num_experts == experts
+    assert eng.params["layers"]["w_gate"].shape[:2] == (2, experts)
+    rid = eng.add_request([5, 6, 7, 8], GenerationConfig(
+        max_new_tokens=4, max_cache_len=256))
+    assert eng.run()[rid].decode_tokens == 4
 
 
 SAM_PROMPTS = [[5, 6, 7, 8, 9], list(range(20, 34)), [9, 10, 11],
