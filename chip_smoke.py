@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --isolate-11b   (phases 1-2, then ``isolate_11b``)
+    python3 chip_smoke.py --mesh-rank RANK PORT DIR   (one of phase 19's
+        two ranks, started by the script itself)
 
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit, torch and CUDA versions, TF32 flags;
@@ -17,9 +19,12 @@ Phases, in order; any failure exits non-zero:
      a. the verify attention, k/v of q's type, at llama_1b and llama_7b
         shapes (T = 16 at G = 1: the kernel's column-quarter layout), and
         llama_7b's bf16 T = 128 prefill into the paged engine's 128-slot
-        cache; poison past kv_limit must change nothing, and the same live
-        prefix in a cache cut to max(256, kv_limit rounded up to 64)
-        columns must give the same bits;
+        cache, and phase 19's shapes over 1024-slot caches: llama_1b at
+        T = 16 (KH 4 under NH 32), a tp-2 rank's heads of llama_1b (KH 2
+        under NH 16) and of llama_7b (KH 16 under NH 16) at T = 16 and in
+        the T = 128 prefill bucket; poison past kv_limit must change nothing, and
+        the same live prefix in a cache cut to max(256, kv_limit rounded
+        up to 64) columns must give the same bits;
      b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
         shape, one llama_1b shape, and mixtral_8x7b's (KH 8 under NH 32, G
         4, D 128: T = 16 at cache_len 0, 200 and 700, and the T = 128
@@ -36,7 +41,9 @@ Phases, in order; any failure exits non-zero:
         the bound; a model of the tensor-core kernel's order and rounding
         falls inside the bound, and two planted faults in it outside;
         and mixtral_8x7b's wk/wv (4096 -> 1024) at R = 16, 128 and 192
-        with the same checks (its wq/wo and head are llama_7b's shapes);
+        with the same checks (its wq/wo and head are llama_7b's shapes),
+        and a tp-2 rank's slab of w_gate under int4_matmul_tp (4096 ->
+        5504, out/2 2752) at R = 16 and 192;
      d. the paged verify attention (K4) over a page pool with shuffled
         tables and inactive slots: llama_7b B = 12 over int8 pages and
         llama_1b B = 4 over pages of q's type, bf16 and f32 q; each active
@@ -127,7 +134,7 @@ Phases, in order; any failure exits non-zero:
      the host-automaton SamdEngine at max_predicts 60 over 1024 slots:
      (a) sam_hybrid with the Token-Recycle tree drafter, its cache warm
      (every token holds a harvest, so every draft is a 60-node tree; request
-     a's oracle path harvested), three requests of 128 new tokens; (b)
+     a's oracle path harvested), three requests of 64 new tokens; (b)
      sam_only with a static corpus SAM built by the native engine over
      random tokens and request a's oracle output, saved and loaded back
      (every array equal); each request against ArBaseline(block_size=60) by
@@ -217,7 +224,8 @@ Phases, in order; any failure exits non-zero:
      this process (``cli.build_engine``) and to ArBaseline(block_size=60)
      bit for bit; ``python3 -m samd_tpu_torch.server --model DIR --engine
      paged_fused_sam`` over 127.0.0.1, four greedy replies equal to the
-     engine called directly;
+     engine called directly; the three CLI sessions and the server start
+     together;
  16. training and evaluation (after 15): ``evaluation.accept_demo.run``
      at the reference bench's sizes (400 steps, vocabulary 64, 48 new
      tokens): the LM loss falls below half its first value and the
@@ -256,7 +264,32 @@ Phases, in order; any failure exits non-zero:
      indexed (never a longer match), its agreement rates printed;
      ``python3 -m samd_tpu_torch.evaluation.launch --num-workers 2`` on
      the card, the merged answers sorted and each equal to the engine
-     called in this process.
+     called in this process;
+ 19. the mesh (after 18, the earlier weights freed): (1) a world of one
+     over NCCL in this process, ``make_mesh(1)``: llama_7b int4 over bf16
+     KV in ``SamdEngine(mesh=)`` with the SAM drafter (sam_only, the
+     static corpus SAM of the oracle's outputs cut to one branch: chains,
+     M 16) on phase 5's three prompts with 64 new tokens, each equal bit
+     for bit to the unsharded engine and to ArBaseline(block_size=16)
+     unsharded and on the mesh; tok/s, and the median, least and greatest
+     tok/s ratio to the unsharded engine over seven rounds of the two in
+     turn; then two ranks sharing the card over
+     gloo, two processes of this script (``--mesh-rank``, the kernels
+     built before): (a) llama_7b int4 at tp 2 (int4 whole on each rank,
+     as in the reference), each request equal bit for bit to the
+     unsharded engine, and the collectives' share of one T 16 forward
+     (CUDA events around it, each collective synchronized and timed); (d)
+     ``int4_matmul_tp`` on each rank's w_gate slab at R 16 and 192, the
+     gathered columns within K3's bound of K3 on the whole weight and of
+     the plain version; (b) llama_1b bf16 at tp 2 (32 new tokens a
+     request), each request equal to
+     ArBaseline(block_size=16) on the mesh bit for bit and to the
+     unsharded engine up to a near-tie (``near_tie_rule`` on the gaps in
+     the unsharded oracle's logits, a plain prefill's and the mesh's own);
+     (c) ``make_sp_forward`` on llama_1b, S 512 over the two ranks, a
+     300-token prompt (the prefill straddles the shards) and 16 greedy
+     steps against the unsharded forward, by the same rule.  The ranks'
+     path launches (K3, the verify kernel) join the kernels line.
 ``--isolate-11b`` reports phase 11b (every path warm) without failing on
 the judge and, at the first rejected request, the diverging token (i)
 over bf16 pages, (ii) through the dense int8 BatchedFusedHybridEngine,
@@ -409,6 +442,21 @@ def check_kernels(card: str) -> dict:
     # the paged engine's prefill: a bf16 batch-1 cache of P = 128 slots
     cases.append(("llama_7b T=128 prefill S=128 (KH>=8)", 128, 32, 32, 128,
                   128, 0, True))
+    # phase 19: the unsharded llama_1b engines at M 16; a rank's heads at
+    # tp 2 (llama_1b KH 2 under NH 16, llama_7b KH 16 under NH 16) at M 16
+    # and the 128-row prefill bucket, over its caches of 1024 slots
+    for cl in (96, 700):
+        cases.append((f"llama_1b T=16 S=1024 cache_len={cl}", 16, 32, 4,
+                      64, 1024, cl, False))
+    for cl in (96, 700):
+        cases.append((f"llama_1b tp 2 T=16 cache_len={cl} (KH 2)", 16, 16,
+                      2, 64, 1024, cl, False))
+    cases.append(("llama_1b tp 2 T=128 prefill S=1024 (KH 2)", 128, 16, 2,
+                  64, 1024, 0, True))
+    cases.append(("llama_7b tp 2 T=16 cache_len=200 (KH 16)", 16, 16, 16,
+                  128, 1024, 200, False))
+    cases.append(("llama_7b tp 2 T=128 prefill S=1024 (KH 16)", 128, 16,
+                  16, 128, 1024, 0, True))
     # f32 only: the trained tiny models of phase 16 (NH 4, KH 2, D 16):
     # the host block 40, the fused block 60, the prefill buckets 32 and
     # 64 and the block-1 baseline, over the demos' caches of 256 and 512
@@ -458,7 +506,8 @@ def check_kernels(card: str) -> dict:
                   f"{s_note} [{card}]", flush=True)
             if label.startswith("tiny") or (
                     dname == "bfloat16" and (label.startswith("llama_1b")
-                                             or "S=128" in label)):
+                                             or "S=128" in label
+                                             or "KH 16" in label)):
                 max_err_main = max(max_err_main, err)   # on paths
             if dname == "bfloat16" and label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -602,7 +651,9 @@ def check_int4(card: str) -> dict:
               ("w_gate/w_up", 4096, 11008, torch.bfloat16, every_r),
               ("w_down", 11008, 4096, torch.bfloat16, every_r),
               ("lm_head", 4096, 32000, torch.float32, every_r),
-              ("mixtral wk/wv", 4096, 1024, torch.bfloat16, (16, 128, 192))]
+              ("mixtral wk/wv", 4096, 1024, torch.bfloat16, (16, 128, 192)),
+              # a rank's slab of w_gate under int4_matmul_tp at tp 2
+              ("w_gate slab tp 2", 4096, 5504, torch.bfloat16, (16, 192))]
     main_label = "w_gate/w_up R=16"
     row, max_err = None, 0.0
     gen = torch.Generator(device="cuda")
@@ -2458,7 +2509,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
 
     cfg = dataclasses.replace(cfg, kv_quant=True)
     S, M, V = 1024, 60, cfg.vocab_size
-    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    gen = GenerationConfig(max_new_tokens=64, max_cache_len=S)
     kw = dict(max_cache_len=S, eos_token_id=-1)
     rng = np.random.default_rng(9)
     prompts = {"a_random": rng.integers(3, V, size=100).tolist(),
@@ -4276,73 +4327,19 @@ def main_path_1b_disk(card: str, d: str):
         shutil.rmtree(path)
         gc.collect()
 
-    # (d) the CLI, as a subprocess, against the same engine in process
+    # (d) the CLI, as a subprocess, against the same engine in process;
+    # the three sessions and (e)'s server start together
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
     rng = np.random.default_rng(151)
     V = cfg.vocab_size
     turns = [rng.integers(3, V, size=n).tolist() for n in (64, 32, 24)]
     gen = GenerationConfig(max_new_tokens=48, max_cache_len=1024)
-    for flags in (["--engine", "fused_sam"],
-                  ["--engine", "fused_sam", "--quantize", "int4",
-                   "--kv-quant"],
-                  ["--engine", "samd"]):
-        label = "cli " + " ".join(flags)
-        save = os.path.join(d, "conversation.json")
-        replies, err, wall = cli_session(model_dir, flags, turns, save)
-        fail_if(replies[1] != replies[2], f"{label}: !!regen gave "
-                "another reply")
-        fail_if("loaded 2 turns" not in err or "holds no tokenizer"
-                not in err, f"{label}: stderr {err[-2000:]}")
-        with open(save) as f:
-            fail_if(json.load(f) != [[turns[0], replies[0]],
-                                     [turns[1], replies[1]]],
-                    f"{label}: the saved conversation differs")
-        args = cli.parse_args(["--model", model_dir, "--max-new-tokens",
-                               "48", "--max-cache-len", "1024", *flags])
-        engine, _, eos = cli.build_engine(args)
-        fail_if(eos != 2, f"{label}: end token {eos}, config.json says 2")
-        M = engine.samd_cfg.max_predicts if flags[1] == "samd" \
-            else engine.cfg.block
-        oracle = ArBaseline(engine.model_cfg, engine.params,
-                            max_cache_len=1024, eos_token_id=eos,
-                            block_size=M)
-        prompts = [turns[0], turns[0] + replies[0] + turns[1],
-                   turns[0] + replies[0] + turns[1] + replies[1] + turns[2]]
-        want = [replies[0], replies[1], replies[3]]
-        reset_counts()                          # the path starts here
-        t0 = time.perf_counter()
-        outs = [engine.generate(p, gen) for p in prompts]
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_counts()                  # the path ends here
-        refs = [oracle.generate(p, gen) for p in prompts]
-        for i, (p, o, r, w) in enumerate(zip(prompts, outs, refs, want)):
-            fail_if(o.output_ids[len(p):] != w, f"{label} turn {i}: the "
-                    "CLI's reply differs from the engine's generate")
-            fail_if(o.output_ids != r.output_ids, f"{label} turn {i}: "
-                    f"differs from ArBaseline(block_size={M})")
-        steps = sum(o.decode_steps for o in outs)
-        print(f"{label}: 4 replies (regen equal, save/load round trip) in "
-              f"{wall:.2f} s of subprocess; the same engine in process "
-              f"{steps} steps, {dt / steps * 1e3:.3f} ms/step, each reply "
-              f"equal to it and to ArBaseline(block_size={M}) bit for bit; "
-              f"launches {counts} [{card}]", flush=True)
-        want_k = ("flash_block_attention_int8kv", "int4_matmul") \
-            if "--quantize" in flags else ("flash_block_attention",)
-        fail_if(any(counts[k] == 0 for k in want_k),
-                f"{label}: launch counts {counts}")
-        del engine, oracle, outs, refs
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    # (e) the server, as a subprocess, against the engine called directly
-    import socket
-
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    four = [rng.integers(3, V, size=int(n)).tolist()
-            for n in rng.integers(40, 101, size=4)]
-    t0 = time.perf_counter()
+    t_server = time.perf_counter()
     log_path = os.path.join(d, "server.log")
     log = open(log_path, "w")
     proc = subprocess.Popen(
@@ -4351,6 +4348,69 @@ def main_path_1b_disk(card: str, d: str):
          "--max-cache-len", "1024", "--port", str(port)],
         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
     try:
+        flag_sets = (["--engine", "fused_sam"],
+                     ["--engine", "fused_sam", "--quantize", "int4",
+                      "--kv-quant"],
+                     ["--engine", "samd"])
+        pool = ThreadPoolExecutor(len(flag_sets))
+        sessions = [pool.submit(cli_session, model_dir, flags, turns,
+                                os.path.join(d, f"conversation{i}.json"))
+                    for i, flags in enumerate(flag_sets)]
+        pool.shutdown(wait=False)
+        for i, (flags, session) in enumerate(zip(flag_sets, sessions)):
+            label = "cli " + " ".join(flags)
+            save = os.path.join(d, f"conversation{i}.json")
+            replies, err, wall = session.result()
+            fail_if(replies[1] != replies[2], f"{label}: !!regen gave "
+                    "another reply")
+            fail_if("loaded 2 turns" not in err or "holds no tokenizer"
+                    not in err, f"{label}: stderr {err[-2000:]}")
+            with open(save) as f:
+                fail_if(json.load(f) != [[turns[0], replies[0]],
+                                         [turns[1], replies[1]]],
+                        f"{label}: the saved conversation differs")
+            args = cli.parse_args(["--model", model_dir, "--max-new-tokens",
+                                   "48", "--max-cache-len", "1024", *flags])
+            engine, _, eos = cli.build_engine(args)
+            fail_if(eos != 2, f"{label}: end token {eos}, config.json says 2")
+            M = engine.samd_cfg.max_predicts if flags[1] == "samd" \
+                else engine.cfg.block
+            oracle = ArBaseline(engine.model_cfg, engine.params,
+                                max_cache_len=1024, eos_token_id=eos,
+                                block_size=M)
+            second = turns[0] + replies[0] + turns[1]
+            prompts = [turns[0], second, second + replies[1] + turns[2]]
+            want = [replies[0], replies[1], replies[3]]
+            reset_counts()                          # the path starts here
+            t0 = time.perf_counter()
+            outs = [engine.generate(p, gen) for p in prompts]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts()                  # the path ends here
+            refs = [oracle.generate(p, gen) for p in prompts]
+            for i, (p, o, r, w) in enumerate(zip(prompts, outs, refs, want)):
+                fail_if(o.output_ids[len(p):] != w, f"{label} turn {i}: the "
+                        "CLI's reply differs from the engine's generate")
+                fail_if(o.output_ids != r.output_ids, f"{label} turn {i}: "
+                        f"differs from ArBaseline(block_size={M})")
+            steps = sum(o.decode_steps for o in outs)
+            print(f"{label}: 4 replies (regen equal, save/load round trip) in "
+                  f"{wall:.2f} s of subprocess; the same engine in process "
+                  f"{steps} steps, {dt / steps * 1e3:.3f} ms/step, each reply "
+                  f"equal to it and to ArBaseline(block_size={M}) bit for "
+                  "bit; "
+                  f"launches {counts} [{card}]", flush=True)
+            want_k = ("flash_block_attention_int8kv", "int4_matmul") \
+                if "--quantize" in flags else ("flash_block_attention",)
+            fail_if(any(counts[k] == 0 for k in want_k),
+                    f"{label}: launch counts {counts}")
+            del engine, oracle, outs, refs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (e) the server, as a subprocess, against the engine called directly
+        four = [rng.integers(3, V, size=int(n)).tolist()
+                for n in rng.integers(40, 101, size=4)]
         url = f"http://127.0.0.1:{port}"
         deadline = time.monotonic() + 300
         while True:
@@ -4366,7 +4426,7 @@ def main_path_1b_disk(card: str, d: str):
                         break
             except OSError:
                 time.sleep(0.5)
-        t_up = time.perf_counter() - t0
+        t_up = time.perf_counter() - t_server
         replies = http_traffic(url, [{"input_ids": p, "max_new_tokens": 32}
                                      for p in four], "--model")
     finally:
@@ -4989,6 +5049,537 @@ def main_path_tools(card: str, d: str) -> None:
           f"launches in process {counts} [{card}]", flush=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 19: the mesh (parallel/, SamdEngine(mesh=), int4_matmul_tp)
+# ----------------------------------------------------------------------
+
+MESH_NEW = 64           # new tokens per llama_7b request of phase 19
+MESH_NEW_1B = 32        # per llama_1b request (its ranks' steps cost most)
+MESH_M = 16             # the engines' block
+MESH_ROUNDS = 7         # world-of-one timing rounds, unsharded and mesh
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_prompts(V: int) -> dict:
+    """Phase 5's three prompts."""
+    rng = np.random.default_rng(7)
+    return {"a_random_200": rng.integers(3, V, size=200).tolist(),
+            "b_own_corpus": rng.integers(3, V, size=96).tolist(),
+            "c_repetitive": rng.integers(3, V, size=8).tolist() * 12}
+
+
+def mesh_engine(cfg, params, corpus, mesh=None):
+    """SamdEngine with the SAM drafter at M 16 (sam_only, the static
+    corpus SAM's trees cut to one branch: chains), over 1024 bf16 KV
+    slots, on ``mesh``."""
+    from samd_tpu_torch.config import SamdConfig
+    from samd_tpu_torch.drafters import make_drafter
+    from samd_tpu_torch.engine import SamdEngine
+    from samd_tpu_torch.sam import SamCursor, build_corpus_sam
+
+    so = SamdConfig(draft_source="sam_only", max_predicts=MESH_M,
+                    tree_topk=1)
+    static = build_corpus_sam(corpus, eos_token=0, topk=1)
+    return SamdEngine(cfg, params, so,
+                      make_drafter(so, cfg.vocab_size,
+                                   static_sam=SamCursor(static)),
+                      max_cache_len=1024, eos_token_id=-1, mesh=mesh)
+
+
+def timed_outputs(engine, prompts, new: int = MESH_NEW, warm: bool = True
+                  ) -> tuple:
+    """({name: output ids}, new tokens, wall s, decode steps) of ``new``
+    new tokens per prompt, after a short warm-up request when ``warm``."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=new, max_cache_len=1024)
+    if warm:
+        engine.generate(prompts["c_repetitive"][:16],
+                        GenerationConfig(max_new_tokens=8))
+    torch.cuda.synchronize()
+    outs, toks, steps = {}, 0, 0
+    t0 = time.perf_counter()
+    for name, p in prompts.items():
+        o = engine.generate(p, gen)
+        outs[name] = o.output_ids
+        toks += o.decode_tokens
+        steps += o.decode_steps
+    torch.cuda.synchronize()
+    return outs, toks, time.perf_counter() - t0, steps
+
+
+def first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def mesh_world_of_one(card: str) -> dict:
+    """Phase 19 (1): a world of one over NCCL, in this process: llama_7b
+    int4 over bf16 KV in SamdEngine(mesh=make_mesh(1)) against the
+    unsharded engine and ArBaseline(block_size=16) on the same mesh.
+    Returns the unsharded outputs, which the tp-2 ranks must equal."""
+    import torch
+    import torch.distributed as dist
+
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.parallel import make_mesh
+
+    cfg, params = llama_7b_int4_params()
+    cfg = dataclasses.replace(cfg, kv_quant=False)
+    prompts = mesh_prompts(cfg.vocab_size)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        fail_if(mesh.device != torch.device("cuda", 0),
+                f"world of one: the rank's device is {mesh.device}")
+        oracle = ArBaseline(cfg, params, max_cache_len=1024,
+                            eos_token_id=-1, block_size=MESH_M)
+        refs = timed_outputs(oracle, prompts)[0]
+        corpus = list(refs.values())
+        plain_engine = mesh_engine(cfg, params, corpus)
+        unsharded = timed_outputs(plain_engine, prompts)
+        engine = mesh_engine(cfg, params, corpus, mesh)
+        reset_counts()                          # the path starts here
+        meshed = timed_outputs(engine, prompts)
+        counts = read_counts()                  # the path ends here
+        mesh_ar = timed_outputs(ArBaseline(
+            cfg, params, max_cache_len=1024, eos_token_id=-1,
+            block_size=MESH_M, mesh=mesh), prompts)[0]
+        # the tok/s ratio: rounds of the two engines in turn, the one that
+        # goes first alternating, each run the same requests
+        ratios = [meshed[1] / meshed[2] / (unsharded[1] / unsharded[2])]
+        for i in range(MESH_ROUNDS - 1):
+            pair = {}
+            for e in ((engine, plain_engine) if i % 2 == 0
+                      else (plain_engine, engine)):
+                pair[e is engine] = timed_outputs(e, prompts, warm=False)
+            fail_if(any(o[0] != unsharded[0] for o in pair.values()),
+                    "phase 19 world of one: a timing round's outputs differ")
+            ratios.append(pair[True][1] / pair[True][2]
+                          / (pair[False][1] / pair[False][2]))
+    finally:
+        dist.destroy_process_group()
+    for name in prompts:
+        for label, got in (("the unsharded engine", unsharded[0][name]),
+                           ("the mesh engine", meshed[0][name]),
+                           ("ArBaseline on the mesh", mesh_ar[name])):
+            j = first_difference(got, refs[name])
+            fail_if(j is not None, f"phase 19 world of one, {name}: "
+                    f"{label} differs from ArBaseline(block_size=16) at {j}")
+    fail_if(counts["int4_matmul"] == 0
+            or counts["flash_block_attention"] == 0,
+            f"phase 19 world of one: launch counts {counts}")
+    tps = [n / w for _, n, w, _ in (unsharded, meshed)]
+    mid, lo, hi = float(np.median(ratios)), min(ratios), max(ratios)
+    verdict = ("the mesh is slower in every round" if hi < 1 else
+               "the mesh is faster in every round" if lo > 1 else
+               "unresolved: the rounds fall on both sides of 1")
+    print(f"phase 19 world of one (NCCL, make_mesh(1)), llama_7b int4 bf16 "
+          f"KV, SamdEngine sam_only chains M {MESH_M}: 3 requests of "
+          f"{MESH_NEW} new tokens, each equal bit for bit to the unsharded "
+          f"engine and to ArBaseline(block_size=16) unsharded and on the "
+          f"mesh; first round: unsharded {unsharded[1]} tokens in "
+          f"{unsharded[3]} steps, {tps[0]:.2f} tok/s, mesh {meshed[1]} "
+          f"tokens in {meshed[3]} steps, {tps[1]:.2f} tok/s; tok/s ratio "
+          f"mesh/unsharded over {len(ratios)} rounds: median {mid:.4f}, "
+          f"min {lo:.4f}, max {hi:.4f} ({verdict}); rounds "
+          f"{[round(r, 4) for r in ratios]}; launches {counts} [{card}]",
+          flush=True)
+    return {"prompts": prompts, "outputs": unsharded[0], "corpus": corpus}
+
+
+def mesh_1b_references(card: str) -> dict:
+    """Phase 19's llama_1b references, unsharded, in this process: the
+    unsharded engine and ArBaseline(block_size=16) with its rows on phase
+    5's prompts, the near-tie bound's noise, and the sequence-parallel
+    case's 16 greedy tokens after a 300-token prompt with their logits."""
+    import torch
+
+    from samd_tpu_torch.cache import init_kv_cache
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.models import (block_decode_mask, forward,
+                                       init_params, llama_1b, prefill_mask)
+
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    prompts = mesh_prompts(cfg.vocab_size)
+    oracle = ArBaseline(cfg, params, max_cache_len=1024, eos_token_id=-1,
+                        block_size=MESH_M)
+    gen = GenerationConfig(max_new_tokens=MESH_NEW_1B, max_cache_len=1024)
+    oracle.generate(prompts["c_repetitive"][:16],
+                    GenerationConfig(max_new_tokens=4))        # warm-up
+    refs = {}
+    for name, p in prompts.items():
+        with AcceptRows("oracle") as rows:
+            refs[name] = oracle.generate(p, gen).output_ids
+        # the row of each generated token: the prefill's last row for the
+        # first, then each step's
+        refs[name + "/rows"] = [oracle._engine._prefill(p)[1].float()] \
+            + rows.steps
+    corpus = [refs[n] for n in prompts]
+    unsharded = timed_outputs(mesh_engine(cfg, params, corpus), prompts,
+                              MESH_NEW_1B)[0]
+    for name in prompts:
+        j = first_difference(unsharded[name], refs[name])
+        fail_if(j is not None, f"phase 19 llama_1b, {name}: the unsharded "
+                f"engine differs from ArBaseline(block_size=16) at {j}")
+    noise = noise_spread(cfg, params, [
+        (refs[n], len(prompts[n]), refs[n + "/rows"][1:]) for n in prompts],
+        per_case=8)
+    print(f"phase 19 llama_1b references: {noise_line(noise)} [{card}]",
+          flush=True)
+    # the sequence-parallel case: a 300-token prompt, 16 greedy steps
+    sp_prompt = np.random.default_rng(19).integers(
+        3, cfg.vocab_size, size=300).tolist()
+    S, T0 = 512, 300
+    kv_k, kv_v = init_kv_cache(cfg, 1, S, "cuda")
+    toks = torch.tensor([sp_prompt], device="cuda")
+    logits, _ = forward(params, cfg, toks, torch.arange(T0, device="cuda")
+                        [None], kv_k, kv_v, 0, prefill_mask(1, T0, S, "cuda"))
+    sp_rows = [logits[0, -1].float()]
+    chain = torch.ones((1, 1), dtype=torch.bool, device="cuda")
+    for step in range(16):
+        cl = T0 + step
+        tok = int(sp_rows[-1].argmax())
+        lo, _ = forward(params, cfg, torch.tensor([[tok]], device="cuda"),
+                        torch.tensor([[cl]], device="cuda"), kv_k, kv_v,
+                        torch.tensor(cl, device="cuda"),
+                        block_decode_mask(chain, cl, S))
+        sp_rows.append(lo[0, 0].float())
+    del kv_k, kv_v
+    return {"cfg": cfg, "params": params, "prompts": prompts, "refs": refs,
+            "noise": noise, "sp_prompt": sp_prompt,
+            "sp_tokens": [int(r.argmax()) for r in sp_rows],
+            "sp_rows": sp_rows}
+
+
+def mesh_near_tie(label, cfg, params, noise, a, b, j, row, eng_gap) -> str:
+    """The verdict on a first difference at ``j`` between a sharded run's
+    ``a`` and the unsharded ``b``: ``near_tie_rule`` on the gaps a[j] -
+    b[j] in the unsharded oracle's own logits ``row``, a plain prefill's
+    over the shared prefix, and the sharded run's own (``eng_gap``);
+    anything else fails."""
+    fail_if(int(row.argmax()) != b[j],
+            f"{label}: the recorded unsharded row does not choose its token")
+    gap = float(row[a[j]] - row[b[j]])
+    lg = plain_next_logits(cfg, params, a[:j])
+    plain = float(lg[a[j]] - lg[b[j]])
+    tau, why = near_tie_rule(noise.oracle, noise.plain, (gap, plain, eng_gap),
+                             noise.spread, False)
+    facts = (f"token {j} (sharded {a[j]}, unsharded {b[j]}): gap {gap:.5f} "
+             f"in the unsharded oracle's logits, {plain:.5f} by a plain "
+             f"prefill, {eng_gap:.5f} in the sharded run's own")
+    fail_if(why is not None, f"{label}: not a near-tie (tau {tau:.5f}) at "
+            f"{facts}: {why}")
+    return f"near-tie (tau {tau:.5f}) at {facts}"
+
+
+def main_path_mesh(card: str) -> dict:
+    """Phase 19: the mesh.  Returns the ranks' launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    one = mesh_world_of_one(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ref1 = mesh_1b_references(card)
+    t2 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix=".smoke_mesh_", dir=ROOT)
+    try:
+        with open(os.path.join(d, "refs.json"), "w") as f:
+            json.dump({"prompts": one["prompts"], "corpus7": one["corpus"],
+                       "corpus1": [ref1["refs"][n] for n in ref1["prompts"]],
+                       "refs1": {n: ref1["refs"][n] for n in ref1["prompts"]},
+                       "sp_prompt": ref1["sp_prompt"],
+                       "sp_tokens": ref1["sp_tokens"]}, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reports = run_mesh_ranks(d, card)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 19 walls: world of one {t1 - t0:.1f} s, llama_1b "
+          f"references {t2 - t1:.1f} s, the two ranks "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    cfg1, params1 = ref1["cfg"], ref1["params"]
+    fail_if(any(r["embed_sum"] != float(params1["embed"].float().sum())
+                for r in reports.values()),
+            "phase 19: a rank drew other llama_1b weights")
+    total = {}
+    for rank, r in sorted(reports.items()):
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v
+        # (a) llama_7b int4 tp 2: bit for bit the unsharded engine
+        for name, ids in r["a"].items():
+            j = first_difference(ids, one["outputs"][name])
+            fail_if(j is not None, f"phase 19 rank {rank} llama_7b tp 2, "
+                    f"{name}: differs from the unsharded engine at {j}")
+        # (b) llama_1b tp 2: the mesh oracle bit for bit; the unsharded
+        # engine up to a near-tie
+        for name, (ids, mesh_ar, eng_gap) in r["b"].items():
+            j = first_difference(ids, mesh_ar)
+            fail_if(j is not None, f"phase 19 rank {rank} llama_1b tp 2, "
+                    f"{name}: differs from ArBaseline(block_size=16) on the "
+                    f"mesh at {j}")
+            b = ref1["refs"][name]
+            j = first_difference(ids, b)
+            verdict = "equal to the unsharded engine"
+            if j is not None:
+                g = j - len(ref1["prompts"][name])
+                verdict = mesh_near_tie(
+                    f"phase 19 llama_1b tp 2 {name}", cfg1, params1,
+                    ref1["noise"], ids, b, j,
+                    ref1["refs"][name + "/rows"][g], eng_gap)
+            print(f"phase 19 rank {rank} llama_1b tp 2 {name}: equal to "
+                  f"ArBaseline(block_size=16) on the mesh; {verdict} "
+                  f"[{card}]", flush=True)
+        # (c) sequence parallel
+        sp, (tokens, eng_gap) = ref1["sp_tokens"], r["c"]
+        j = first_difference(tokens, sp)
+        verdict = "equal to the unsharded forward's"
+        if j is not None:
+            prefix = ref1["sp_prompt"] + sp[:j]
+            P = len(ref1["sp_prompt"])
+            verdict = mesh_near_tie(
+                "phase 19 sequence parallel", cfg1, params1, ref1["noise"],
+                ref1["sp_prompt"] + tokens, prefix + [sp[j]], P + j,
+                ref1["sp_rows"][j], eng_gap)
+        print(f"phase 19 rank {rank} make_sp_forward (S 512 over 2 ranks, a "
+              f"300-token prompt, 16 greedy steps): {verdict} [{card}]",
+              flush=True)
+    print(f"phase 19: the ranks' path launches {total} [{card}]",
+          flush=True)
+    return total
+
+
+def run_mesh_ranks(d: str, card: str) -> dict:
+    """Two ranks sharing the card over gloo, as two processes of this
+    script (``--mesh-rank``); a rank that fails ends the other.  Returns
+    each rank's report."""
+    port = free_port()
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(port), d], cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    deadline = time.monotonic() + 700
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    reports = {}
+    for r, p in enumerate(procs):
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("{\"rank\""):
+                reports.setdefault(r, {}).update(json.loads(line))
+            elif line.strip():
+                print(f"phase 19 rank {r}: {line} [{card}]", flush=True)
+        fail_if(p.returncode != 0, f"phase 19: rank {r} exited "
+                f"{p.returncode}")
+    fail_if(sorted(reports) != [0, 1] or any("done" not in r
+                                             for r in reports.values()),
+            "phase 19: a rank reported nothing")
+    return reports
+
+
+def mesh_rank(rank: int, port: int, d: str) -> int:
+    """One rank of phase 19's two (``--mesh-rank RANK PORT DIR``): over
+    gloo with the other, on the one card; prints its results as JSON
+    lines."""
+    import torch
+
+    from samd_tpu_torch.cache import init_kv_cache
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.models import (block_decode_mask, forward,
+                                       init_params, llama_1b, prefill_mask)
+    from samd_tpu_torch.ops.int4_matmul import (int4_matmul, int4_matmul_ref,
+                                                int4_matmul_tp, int4_tp_slab,
+                                                kernel_tolerance)
+    from samd_tpu_torch.parallel import make_mesh, shard_kv
+    from samd_tpu_torch.parallel.multihost import init_distributed
+    from samd_tpu_torch.parallel.seq_parallel import (make_sp_forward,
+                                                      shard_kv_seq)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+
+    def report(**kw):
+        print(json.dumps({"rank": rank, **kw}), flush=True)
+        print(f"{sorted(kw)} reported at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    with open(os.path.join(d, "refs.json")) as f:
+        refs = json.load(f)
+    prompts = refs["prompts"]
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(2)
+    print(f"{mesh} on {mesh.device}", flush=True)
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) llama_7b int4 at tp 2, JAX's placement: int4 whole on each rank
+    cfg, params = llama_7b_int4_params()
+    cfg = dataclasses.replace(cfg, kv_quant=False)
+    eng = mesh_engine(cfg, params, refs["corpus7"], mesh)
+    reset_counts()                              # the path starts here
+    outs, n, wall, steps = timed_outputs(eng, prompts)
+    c = read_counts()                           # the path ends here
+    add(c)
+    print(f"llama_7b int4 tp 2: {n} tokens in {steps} steps, {n / wall:.2f} "
+          f"tok/s (two ranks on one card over gloo); launches {c}",
+          flush=True)
+    report(a=outs)
+    # the collectives' share of one T 16 verify forward at cache_len 400
+    S, cl, T = 1024, 400, 16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    toks = torch.randint(3, cfg.vocab_size, (1, T), generator=g,
+                         device="cuda")
+    pos = torch.arange(cl, cl + T, device="cuda")[None]
+    tri = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    mask = block_decode_mask(tri, cl, S)
+    split = {}
+    for timed in (False, True, False, True):
+        mesh.stats.calls, mesh.stats.seconds = 0, 0.0
+        mesh.stats.timed = timed
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        forward(eng.params, cfg, toks, pos, eng.kv_k, eng.kv_v,
+                torch.tensor(cl, device="cuda"), mask, mesh=mesh)
+        end.record()
+        torch.cuda.synchronize()
+        split[timed] = (start.elapsed_time(end), mesh.stats.seconds * 1e3,
+                        mesh.stats.calls)
+    mesh.stats.timed = False
+    ms, _, calls = split[False]
+    ms_t, comm_ms, _ = split[True]
+    print(f"llama_7b int4 tp 2, one T 16 forward at cache_len {cl}: "
+          f"{ms:.3f} ms by CUDA events, {calls} collectives; with each "
+          f"collective synchronized and timed {ms_t:.3f} ms, of which the "
+          f"collectives {comm_ms:.3f} ms ({comm_ms / ms_t:.1%})", flush=True)
+    report(split=[ms, ms_t, comm_ms, calls])
+    # (d) int4_matmul_tp at w_gate, layer 0: each rank's slab
+    w = params["layers"]["w_gate"]
+    packed, scale = int4_tp_slab(mesh, w.packed[0], w.scale[0])
+    errs = {}
+    for R in (16, 192):
+        gx = torch.Generator(device="cuda")
+        gx.manual_seed(R)
+        x = torch.randn((R, cfg.hidden_size), generator=gx,
+                        device="cuda").to(torch.bfloat16)
+        got = int4_matmul_tp(mesh, x, w.packed, w.scale, 0)
+        own = int4_matmul(x, packed, scale)
+        whole = int4_matmul(x, w.packed, w.scale, 0)
+        ref = int4_matmul_ref(x, w.packed, w.scale, 0)
+        own_ref = int4_matmul_ref(x, packed, scale)
+        torch.cuda.synchronize()
+        err_w = check_close(f"int4_matmul_tp R={R} gathered against K3 on "
+                            "the whole weight", got, whole,
+                            kernel_tolerance(x, w.packed, w.scale, 0, ref))[0]
+        err_p = check_close(f"int4_matmul_tp R={R} gathered against the "
+                            "plain version", got, ref,
+                            kernel_tolerance(x, w.packed, w.scale, 0, ref))[0]
+        err_o = check_close(f"int4_matmul_tp R={R} the rank's slab against "
+                            "its plain version", own, own_ref,
+                            kernel_tolerance(x, packed, scale, None,
+                                             own_ref))[0]
+        errs[R] = (err_w, err_p, err_o)
+        print(f"int4_matmul_tp w_gate R={R} (slab out/2 "
+              f"{packed.shape[-1]}): gathered within K3's bound of K3 on "
+              f"the whole weight (max {err_w:.3e}) and of the plain version "
+              f"({err_p:.3e}); the slab within its own ({err_o:.3e})",
+              flush=True)
+    report(d=errs)
+    del eng, params, w, packed, scale
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) llama_1b bf16 at tp 2: row-parallel sums reordered
+    cfg = llama_1b()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    report(embed_sum=float(params["embed"].float().sum()))
+    eng = mesh_engine(cfg, params, refs["corpus1"], mesh)
+    reset_counts()                              # the path starts here
+    outs = timed_outputs(eng, prompts, MESH_NEW_1B)[0]
+    add(read_counts())                          # the path ends here
+    oracle = ArBaseline(cfg, params, max_cache_len=1024, eos_token_id=-1,
+                        block_size=MESH_M, mesh=mesh)
+    mesh_ar = timed_outputs(oracle, prompts, MESH_NEW_1B)[0]
+    b = {}
+    for name, ids in outs.items():
+        want = refs["refs1"][name]
+        j = first_difference(ids, want)
+        gap = None
+        if j is not None:           # the sharded gap at the first difference
+            S = -(-j // 64) * 64
+            kv = shard_kv(*init_kv_cache(cfg, 1, S, "cuda"), mesh)
+            lg, _ = forward(eng.params, cfg,
+                            torch.tensor([ids[:j]], device="cuda"),
+                            torch.arange(j, device="cuda")[None], *kv, 0,
+                            prefill_mask(1, j, S, "cuda"), mesh=mesh)
+            gap = float(lg[0, -1, ids[j]] - lg[0, -1, want[j]])
+        b[name] = (ids, mesh_ar[name], gap)
+    report(b=b)
+    # (c) make_sp_forward: S 512 over the two ranks
+    sp = make_sp_forward(cfg, mesh)
+    S, T0 = 512, len(refs["sp_prompt"])
+    kv_k, kv_v = shard_kv_seq(*init_kv_cache(cfg, 1, S, "cuda"), mesh)
+    toks = torch.tensor([refs["sp_prompt"]], device="cuda")
+    logits, _, kv_k, kv_v = sp(params, toks, torch.arange(
+        T0, device="cuda")[None], kv_k, kv_v, 0,
+        prefill_mask(1, T0, S, "cuda"))
+    rows = [logits[0, -1].float()]
+    chain = torch.ones((1, 1), dtype=torch.bool, device="cuda")
+    for step in range(16):
+        cl = T0 + step
+        tok = int(rows[-1].argmax())
+        lo, _, kv_k, kv_v = sp(params, torch.tensor([[tok]], device="cuda"),
+                               torch.tensor([[cl]], device="cuda"), kv_k,
+                               kv_v, cl, block_decode_mask(chain, cl, S))
+        rows.append(lo[0, 0].float())
+    tokens = [int(r.argmax()) for r in rows]
+    j = first_difference(tokens, refs["sp_tokens"])
+    gap = None if j is None else float(rows[j][tokens[j]]
+                                       - rows[j][refs["sp_tokens"][j]])
+    report(c=(tokens, gap), counts=counts, done=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 LAPS = [time.perf_counter()]
 
 
@@ -5006,6 +5597,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:       # one of phase 19's ranks
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from samd_tpu_torch.ops import _build
 
     # phase 1: card.  The port's f32 products (logits, the plain attention,
@@ -5143,6 +5736,11 @@ def main() -> int:
         lap("phase 18")
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in main_path_mesh(card).items():
+        TOTALS[name] = TOTALS.get(name, 0) + n
+    lap("phase 19")
     fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "
             f"{TOTALS}")
 

@@ -35,7 +35,13 @@ unpacks there.
 generator, and a ``profiling.PhaseTimer`` set as ``engine.profiler``
 times the host draft, the device step and the host update of every step.
 
-Not ported yet: meshes (ROADMAP queue 1 item 16).
+With ``mesh=`` (a ``parallel.sharding.Mesh``) the engine serves on one
+rank of it, as the reference's does under GSPMD: the parameters and the
+cache become the rank's shards (``shard_params``, ``shard_kv``), every
+forward runs ``models.llama.forward(..., mesh=)``, and every rank runs the
+same host drafter on the same tokens, so all ranks take the same path and
+``generate`` returns the same ``Outputs`` on each.  An int8 KV cache under
+a mesh raises: the reference has no sharding for it.
 """
 
 from __future__ import annotations
@@ -174,9 +180,25 @@ class SamdEngine:
                  eos_token_id: int = 2,
                  stop_token_id: Optional[int] = None,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         check_supported(model_cfg)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device or "cuda")
+        else:
+            from .parallel.sharding import check_shardable, shard_params
+
+            if model_cfg.kv_quant:
+                raise ValueError("int8 KV under a mesh needs a QuantizedKV "
+                                 "sharding spec")
+            if device is not None and \
+                    resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            check_shardable(model_cfg, mesh)
+            params = shard_params(params, mesh, model_cfg)
         check_params_device(params, self.device)
         self.model_cfg = model_cfg
         self.params = params
@@ -195,6 +217,10 @@ class SamdEngine:
         self.profiler = None        # a profiling.PhaseTimer, when set
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
                                              self.device)
+        if mesh is not None:
+            from .parallel.sharding import shard_kv
+
+            self.kv_k, self.kv_v = shard_kv(self.kv_k, self.kv_v, mesh)
 
     # ------------------------------------------------------------------
     # Device steps
@@ -212,7 +238,7 @@ class SamdEngine:
         logits, hidden = forward(
             self.params, self.model_cfg, padded.to(dev),
             torch.arange(P, device=dev)[None, :], self.kv_k, self.kv_v, 0,
-            prefill_mask(1, P, S, dev))
+            prefill_mask(1, P, S, dev), mesh=self.mesh)
         last = logits[0, len(input_ids) - 1]
         topk = (harvest_topk(logits[0, :len(input_ids)], HARVEST_TOPK)
                 if self.wants_harvest else None)
@@ -233,7 +259,7 @@ class SamdEngine:
         mask = block_decode_mask(tree_mask, cache_len, S)
         logits, hidden = forward(
             self.params, cfg, tokens[None], depths[None, :] + cache_len,
-            self.kv_k, self.kv_v, cache_len, mask)
+            self.kv_k, self.kv_v, cache_len, mask, mesh=self.mesh)
         return logits, hidden, tokens, paths
 
     def _decode_step(self, cache_len: torch.Tensor, draft: Draft,
@@ -422,14 +448,16 @@ class ArBaseline:
 
     ``block_size=1`` is the speed baseline; ``block_size=M`` runs AR
     through the same M-wide step as a speculative engine with
-    ``max_predicts=M`` — the bitwise greedy-equality oracle."""
+    ``max_predicts=M`` — the bitwise greedy-equality oracle, under the
+    same ``mesh`` as the engine it judges."""
 
     def __init__(self, model_cfg: ModelConfig, params: Params, *,
                  max_cache_len: int = 2048, eos_token_id: int = 2,
                  stop_token_id: Optional[int] = None,
                  prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
                  block_size: int = 1,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         samd_cfg = SamdConfig(draft_source="sam_only",
                               max_predicts=block_size,
                               max_tree_paths=block_size,
@@ -439,7 +467,7 @@ class ArBaseline:
             model_cfg, params, samd_cfg, _SingleTokenDrafter(block_size),
             max_cache_len=max_cache_len, eos_token_id=eos_token_id,
             stop_token_id=stop_token_id, prefill_buckets=prefill_buckets,
-            device=device)
+            device=device, mesh=mesh)
 
     def generate(self, input_ids, gen_config=None) -> Outputs:
         return self._engine.generate(input_ids, gen_config)

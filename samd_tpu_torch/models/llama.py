@@ -34,6 +34,7 @@ head only.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import TYPE_CHECKING, Dict, Optional, Tuple, Union
 
 import torch
@@ -50,6 +51,7 @@ from .configs import ModelConfig, check_supported
 
 if TYPE_CHECKING:
     from ..paged_kv import PagedAux
+    from ..parallel.sharding import Mesh
 
 Params = Dict[str, object]
 
@@ -190,8 +192,8 @@ def _expert_stack(w: Weight, l: int, dtype: torch.dtype) -> torch.Tensor:
     return w[l]
 
 
-def _moe_mlp(x: torch.Tensor, layers: Params, l: int, cfg: ModelConfig
-             ) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, layers: Params, l: int, cfg: ModelConfig,
+             sh: Optional["_Shards"] = None) -> torch.Tensor:
     """Layer ``l``'s Mixtral MoE MLP on x [B, T, H], computed densely over
     the expert axis as the reference does (``samd_tpu/models/llama.py:
     143-175``): every expert's gate, up and down products over every row,
@@ -199,18 +201,30 @@ def _moe_mlp(x: torch.Tensor, layers: Params, l: int, cfg: ModelConfig
     with the routing weights in x's type.  The expert products are plain
     matmuls, as in JAX, where they run outside the Pallas kernels; one
     stack is dequantized at a time, so the transient is one layer's
-    ``[E, in, out]`` in x's type."""
+    ``[E, in, out]`` in x's type.  Under a mesh the rank computes its own
+    experts' SwiGLU blocks and the f32 combine is summed over "ep" and
+    "tp"."""
     B, T, H = x.shape
     wts = moe_route(x, layers["router"][l], cfg.num_experts_per_tok)
+    if sh is None:
+        def stack(name):
+            return _expert_stack(layers[name], l, x.dtype)
+    else:
+        wts = sh.own_experts(wts)
+
+        def stack(name):
+            return sh.experts(layers[name], l, x.dtype, name)
     xs = x.reshape(1, B * T, H)
-    g = xs @ _expert_stack(layers["w_gate"], l, x.dtype)     # [E, BT, I]
-    u = xs @ _expert_stack(layers["w_up"], l, x.dtype)
-    d = (F.silu(g) * u) @ _expert_stack(layers["w_down"], l, x.dtype)
+    g = xs @ stack("w_gate")                                  # [E, BT, I]
+    u = xs @ stack("w_up")
+    d = (F.silu(g) * u) @ stack("w_down")
     del g, u
     # [E, BT, H] x [BT, E] -> [BT, H], summed over e in f32, rounded once
-    return torch.einsum("eth,te->th", d.float(),
-                        wts.reshape(B * T, -1).to(x.dtype).float()
-                        ).to(x.dtype).reshape(B, T, H)
+    out = torch.einsum("eth,te->th", d.float(),
+                       wts.reshape(B * T, -1).to(x.dtype).float())
+    if sh is not None:
+        out = sh.comm.sum_(sh.comm.sum_(out, sh.ep), sh.tp)
+    return out.to(x.dtype).reshape(B, T, H)
 
 
 def _head(h: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -232,7 +246,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             position_ids: torch.Tensor, kv_k, kv_v,
             write_offset: Union[int, torch.Tensor],
             attn_mask: torch.Tensor, *,
-            paged: Optional["PagedAux"] = None
+            paged: Optional["PagedAux"] = None,
+            mesh: Optional["Mesh"] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward pass that writes the block's KV into the cache.
 
@@ -253,6 +268,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     ``ops.paged_attention.boundary_mask_window``.
       paged:        ``paged_kv.PagedAux(tables, scratch_page)``: the pools'
                     page tables; needs a [B] offset
+      mesh:         a ``parallel.sharding.Mesh``: ``params`` and the cache
+                    are this rank's shards (``shard_params``,
+                    ``shard_kv``), every other argument is the whole
+                    batch's, and the result is the whole batch's on every
+                    rank (``_forward_mesh``)
 
     Returns (logits [B,T,V] f32, hidden [B,T,H]).
 
@@ -267,11 +287,34 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     takes ``ops.paged_attention.paged_block_attention``.  On CUDA it raises
     while TF32 matmuls are on.
     """
+    check_supported(cfg)
+    if mesh is not None:
+        if paged is not None:
+            raise ValueError("paged mode takes no mesh")
+        return _forward_mesh(params, cfg, tokens, position_ids, kv_k, kv_v,
+                             write_offset, attn_mask, mesh)
+    write, attend = _cache_ops(cfg, tokens.shape, kv_k, kv_v, write_offset,
+                               attn_mask, paged)
+    h = F.embedding(tokens.long(), params["embed"])       # [B,T,H]
+    cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
+    for l in range(cfg.num_layers):
+        h = _layer(h, params["layers"], l, kv_k, kv_v, cfg, cos, sin, write,
+                   attend)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return _head(h, params, cfg), h
+
+
+def _cache_ops(cfg: ModelConfig, block_shape, kv_k, kv_v,
+               write_offset: Union[int, torch.Tensor],
+               attn_mask: torch.Tensor, paged: Optional["PagedAux"]):
+    """``forward``'s cache side for a [B, T] block: ``write(cache,
+    block)`` puts a layer's [B, T, KH, D] block into its cache and
+    ``attend(q, k_cache, v_cache)`` reads it, by the routes ``forward``'s
+    docstring names.  ``cfg``'s heads are the cache's (a rank's own under
+    a mesh)."""
     from ..paged_kv import PagedKV, paged_flat_indices, paged_write_block
 
-    check_supported(cfg)
-    B, T = tokens.shape
-    D, NH, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    B, T = block_shape
     per_slot = torch.is_tensor(write_offset) and write_offset.dim() == 1
     if torch.is_tensor(write_offset) and write_offset.dim() > 1:
         raise ValueError("write_offset must be a scalar or a [B] tensor")
@@ -346,34 +389,174 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             kvcache.dequantize_kv(v_cache[:, :, :live], q.dtype),
             attn_mask[..., :live], cfg)
 
-    h = F.embedding(tokens.long(), params["embed"])       # [B,T,H]
-    cos, sin = rope_tables(position_ids, D, cfg.rope_theta)
-    layers = params["layers"]
-    for l in range(cfg.num_layers):
-        x = rms_norm(h, layers["attn_norm"][l], cfg.rms_eps)
-        q = _mm(x, layers["wq"], l, cfg)
-        k = _mm(x, layers["wk"], l, cfg)
-        v = _mm(x, layers["wv"], l, cfg)
-        if cfg.attn_bias:
-            q, k, v = q + layers["bq"][l], k + layers["bk"][l], \
-                v + layers["bv"][l]
-        q = apply_rope(q.reshape(B, T, NH, D), cos, sin)
-        k = apply_rope(k.reshape(B, T, KH, D), cos, sin)
-        v = v.reshape(B, T, KH, D)
-        k_cache, v_cache = kv_k[l], kv_v[l]               # per-layer views
-        write(k_cache, k)
-        write(v_cache, v)
-        ctx = attend(q, k_cache, v_cache)
-        h = h + _mm(ctx, layers["wo"], l, cfg)
-        x = rms_norm(h, layers["mlp_norm"][l], cfg.rms_eps)
-        if cfg.num_experts:
-            h = h + _moe_mlp(x, layers, l, cfg)
-        else:
-            gated = F.silu(_mm(x, layers["w_gate"], l, cfg)) \
-                * _mm(x, layers["w_up"], l, cfg)
-            h = h + _mm(gated, layers["w_down"], l, cfg)
+    return write, attend
+
+
+def _layer(h: torch.Tensor, layers: Params, l: int, kv_k, kv_v,
+           cfg: ModelConfig, cos, sin, write, attend,
+           sh: Optional["_Shards"] = None) -> torch.Tensor:
+    """Decoder layer ``l`` on h [B, T, H]: attention through ``write`` and
+    ``attend`` (``_cache_ops``), then the MLP.  Under a mesh, ``sh`` is
+    this rank's view of it and ``cfg`` holds the rank's own heads."""
+    B, T = h.shape[0], h.shape[1]
+    D, NH, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    x = rms_norm(h, layers["attn_norm"][l], cfg.rms_eps)
+    q = _col(x, layers["wq"], l, cfg, sh)
+    k = _col(x, layers["wk"], l, cfg, sh)
+    v = _col(x, layers["wv"], l, cfg, sh)
+    if cfg.attn_bias:
+        q, k, v = q + layers["bq"][l], k + layers["bk"][l], \
+            v + layers["bv"][l]
+    q = apply_rope(q.reshape(B, T, NH, D), cos, sin)
+    k = apply_rope(k.reshape(B, T, KH, D), cos, sin)
+    v = v.reshape(B, T, KH, D)
+    k_cache, v_cache = kv_k[l], kv_v[l]               # per-layer views
+    write(k_cache, k)
+    write(v_cache, v)
+    ctx = attend(q, k_cache, v_cache)
+    h = h + _row(ctx, layers["wo"], l, cfg, sh)
+    x = rms_norm(h, layers["mlp_norm"][l], cfg.rms_eps)
+    if cfg.num_experts:
+        return h + _moe_mlp(x, layers, l, cfg, sh)
+    if all(isinstance(layers[n], Int4Tensor)
+           for n in ("w_gate", "w_up", "w_down")):
+        sh = None       # whole on every rank: the MLP runs whole, uncut
+    gated = F.silu(_col(x, layers["w_gate"], l, cfg, sh)) \
+        * _col(x, layers["w_up"], l, cfg, sh)
+    return h + _row(gated, layers["w_down"], l, cfg, sh)
+
+
+# ----------------------------------------------------------------------
+# The sharded forward
+# ----------------------------------------------------------------------
+
+def _col(x: torch.Tensor, w: Weight, l: int, cfg: ModelConfig,
+         sh: Optional["_Shards"]) -> torch.Tensor:
+    """A column-parallel product: the rank's own columns.  A packed int4
+    weight lies whole on every rank, so its product is taken whole and
+    cut."""
+    y = _mm(x, w, l, cfg)
+    if sh is not None and isinstance(w, Int4Tensor):
+        return sh.own_columns(y)
+    return y
+
+
+def _row(x: torch.Tensor, w: Weight, l: int, cfg: ModelConfig,
+         sh: Optional["_Shards"]) -> torch.Tensor:
+    """A row-parallel product: the rank's partial sum over its rows,
+    summed over "tp".  A whole int4 weight takes the whole input instead,
+    gathered over "tp", and sums nothing across ranks."""
+    if sh is None:
+        return _mm(x, w, l, cfg)
+    if isinstance(w, Int4Tensor):
+        return _mm(sh.gather_tp(x), w, l, cfg)
+    return sh.comm.sum_(_mm(x, w, l, cfg), sh.tp)
+
+
+class _Shards:
+    """One rank's view of a mesh inside a forward: its axes, the model
+    config with its own heads (NH/tp, KH/tp), and the cuts and collectives
+    that GSPMD makes in the reference."""
+
+    def __init__(self, mesh: "Mesh", cfg: ModelConfig):
+        from ..parallel import comm
+
+        self.comm = comm
+        self.dp, self.pp, self.ep, self.tp = (
+            mesh.axis(a) for a in ("dp", "pp", "ep", "tp"))
+        n = self.tp.size
+        self.cfg = replace(cfg, num_heads=cfg.num_heads // n,
+                           num_kv_heads=cfg.num_kv_heads // n)
+
+    @staticmethod
+    def _block(t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        n = t.shape[dim] // axis.size
+        return t.narrow(dim, axis.index * n, n)
+
+    def own_columns(self, y: torch.Tensor) -> torch.Tensor:
+        return self._block(y, self.tp, y.dim() - 1)
+
+    def own_experts(self, wts: torch.Tensor) -> torch.Tensor:
+        """The rank's experts' routing weights of [B, T, E]."""
+        return self._block(wts, self.ep, wts.dim() - 1)
+
+    def gather_tp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.gather(x, self.tp, -1)
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor
+              ) -> torch.Tensor:
+        """The vocabulary-sharded lookup: the rank's rows where a token
+        falls in its block, -0.0 elsewhere, summed over "tp" (exact)."""
+        if self.tp.size == 1:
+            return F.embedding(tokens.long(), table)
+        V = table.shape[0]
+        local = tokens.long() - self.tp.index * V
+        inside = (local >= 0) & (local < V)
+        e = F.embedding(torch.where(inside, local, 0), table)
+        e = torch.where(inside[..., None], e, -0.0)
+        return self.comm.sum_(e, self.tp)
+
+    def head(self, h: torch.Tensor, params: Params, cfg: ModelConfig
+             ) -> torch.Tensor:
+        """Full f32 logits on every rank: the rank's vocabulary columns
+        gathered over "tp", or a whole int4 head's product."""
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        logits = _head(h, params, cfg)
+        if isinstance(head, Int4Tensor):
+            return logits
+        return self.comm.gather(logits, self.tp, -1)
+
+    def experts(self, w: Weight, l: int, dtype: torch.dtype, name: str
+                ) -> torch.Tensor:
+        """Layer ``l``'s stack of the rank's experts and SwiGLU block:
+        [E/ep, in, I/tp] (gate, up) or [E/ep, I/tp, H] (down).  A whole
+        int4 stack is dequantized whole and cut."""
+        stack = _expert_stack(w, l, dtype)
+        if isinstance(w, Int4Tensor):
+            stack = self._block(stack, self.ep, 0)
+            stack = self._block(stack, self.tp, 1 if name == "w_down" else 2)
+        return stack
+
+
+def _forward_mesh(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  position_ids: torch.Tensor, kv_k, kv_v,
+                  write_offset: Union[int, torch.Tensor],
+                  attn_mask: torch.Tensor, mesh: "Mesh"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` on one rank of ``mesh`` (``parallel.sharding``'s
+    layout).  The rank takes its dp block of the batch; the embedding and
+    head are vocabulary-sharded over "tp"; each layer runs on the rank's
+    heads and MLP columns, with one sum over "tp" after each row-parallel
+    product (a whole int4 weight gathers its input instead, and an MLP of
+    whole int4 weights runs whole); the MoE MLP
+    computes the rank's experts and sums over "ep" and "tp".  Pipeline
+    stages run their blocks of L/pp layers in turn, each handing h on to
+    every stage; the logits and hidden states are gathered over "dp".
+    Every rank returns the same tensors."""
+    sh = _Shards(mesh, cfg)
+    comm = sh.comm
+    B, T = tokens.shape
+    if B % sh.dp.size:
+        raise ValueError(f"batch {B} does not divide by dp={sh.dp.size}")
+    b = B // sh.dp.size
+    rows = slice(sh.dp.index * b, (sh.dp.index + 1) * b)
+    tokens, position_ids = tokens[rows], position_ids[rows]
+    attn_mask = attn_mask[rows]
+    if torch.is_tensor(write_offset) and write_offset.dim() == 1:
+        write_offset = write_offset[rows]
+    write, attend = _cache_ops(sh.cfg, (b, T), kv_k, kv_v, write_offset,
+                               attn_mask, None)
+    h = sh.embed(tokens, params["embed"])
+    cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
+    for stage in range(sh.pp.size):
+        if stage == sh.pp.index:
+            for l in range(cfg.num_layers // sh.pp.size):
+                h = _layer(h, params["layers"], l, kv_k, kv_v, sh.cfg, cos,
+                           sin, write, attend, sh)
+        h = comm.broadcast(h, sh.pp, stage)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    return _head(h, params, cfg), h
+    logits = sh.head(h, params, cfg)
+    return comm.gather(logits, sh.dp, 0), comm.gather(h, sh.dp, 0)
 
 
 # ----------------------------------------------------------------------

@@ -262,3 +262,53 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 int4_matmul.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Tensor parallelism over the out-halves axis
+# ----------------------------------------------------------------------
+
+def int4_tp_slab(mesh, packed: torch.Tensor, scale: torch.Tensor, *,
+                 axis: str = "tp"):
+    """This rank's slab of a halves-packed weight for ``int4_matmul_tp``:
+    ``packed[..., r·OUTH/n:(r+1)·OUTH/n]`` (r its index along ``axis`` of
+    ``mesh``, n the axis's size) and the matching columns of both halves of
+    ``scale``, ``[..., 2·OUTH/n]``, on the rank's device.  A byte holds
+    column j and j + OUTH in its two nibbles, so the slab is itself a
+    halves-packed weight: its column j is global column r·OUTH/n + j and
+    its column OUTH/n + j global column OUTH + r·OUTH/n + j."""
+    ax = mesh.axis(axis)
+    OUTH = packed.shape[-1]
+    if OUTH % ax.size:
+        raise ValueError(f"out/2 = {OUTH} does not divide by {axis}="
+                         f"{ax.size}")
+    c = OUTH // ax.size
+    lo = ax.index * c
+    p = packed[..., lo:lo + c]
+    s = torch.cat([scale[..., lo:lo + c], scale[..., OUTH + lo:OUTH + lo + c]],
+                  dim=-1)
+    return (p.to(mesh.device).contiguous(), s.to(mesh.device).contiguous())
+
+
+def int4_matmul_tp(mesh, x: torch.Tensor, packed: torch.Tensor,
+                   scale: torch.Tensor, layer: Optional[int] = None, *,
+                   axis: str = "tp",
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Tensor-parallel ``int4_matmul`` (counterpart of
+    ``samd_tpu/ops/int4_matmul.py:262``), with its arguments: each rank
+    streams only its slab of layer ``layer`` (``int4_tp_slab``) through K3,
+    and the ranks' ``[.., 2·OUTH/n]`` results, each in halves order, are
+    gathered over ``axis`` into the global ``[.., out]`` order, every low
+    half before every high half.  The reference's engines leave this form
+    off their path (int4 weights lie whole on every rank,
+    ``parallel.sharding._put_leaf``)."""
+    from ..parallel import comm
+
+    if layer is not None:
+        packed, scale = packed[layer], scale[layer]
+    p, s = int4_tp_slab(mesh, packed, scale, axis=axis)
+    y = int4_matmul(x, p, s, out_dtype=out_dtype)
+    ax, c = mesh.axis(axis), p.shape[-1]
+    halves = y.reshape(*y.shape[:-1], 2, c).contiguous()
+    return comm.gather(halves, ax, -1).reshape(*y.shape[:-1],
+                                               2 * c * ax.size)

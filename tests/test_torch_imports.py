@@ -9,10 +9,12 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# the port, its chip script, and the card-only test that must run where
-# JAX is not installed
+# the port, its chip script, the card-only test that must run where JAX is
+# not installed, and the worker of the multi-process tests, which must not
+# import JAX either
 PORT_FILES = sorted((ROOT / "samd_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernel_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernel_cuda.py",
+    ROOT / "tests" / "torch_parallel_worker.py"]
 
 
 def imported_modules(path: Path):
@@ -43,7 +45,9 @@ def test_port_files_found():
                 "evaluation/specbench_demo.py", "evaluation/neartie.py",
                 "evaluation/profile_run.py", "evaluation/parity.py",
                 "evaluation/launch.py", "tools/build_sam.py",
-                "tools/gen_corpus.py"):
+                "tools/gen_corpus.py", "parallel/__init__.py",
+                "parallel/comm.py", "parallel/sharding.py",
+                "parallel/seq_parallel.py", "parallel/multihost.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 
