@@ -296,6 +296,11 @@ over bf16 pages, (ii) through the dense int8 BatchedFusedHybridEngine,
 (iii) re-verified as a chain over the engine's own cache at that step and
 (iv) over the chain oracle's cache at that length, and how the two
 caches' int8 values differ.
+After each path phase (4-19) the phases' end-to-end numbers so far
+(ms/step, tok/s, mean accept, requests equal to their oracle, peak pages,
+each phase's wall seconds) go to ``chiprun_out/chip_smoke_detail.json``
+through the port's ``evaluation.bench_emit.BenchEmitter``, which also
+prints a compact JSON line; a run cut at phase N keeps phases 1 to N - 1.
 Then a JSON line of kernels (launches summed over every path), the
 nvidia-smi line, and last the device line.
 Without a CUDA device it exits 1 before printing any result.
@@ -1145,6 +1150,25 @@ def reset_counts() -> None:
 # every path's launches, summed over the run for the kernels line
 TOTALS: dict = {}
 
+# every path phase's end-to-end numbers, written out after each phase
+DETAIL: dict = {}
+
+
+def note(prefix: str, **numbers) -> None:
+    """Record a phase's end-to-end numbers as ``prefix_name`` keys (numpy
+    scalars, nested too, as Python numbers, for the JSON file)."""
+    for k, v in numbers.items():
+        DETAIL[f"{prefix}_{k}"] = json.loads(json.dumps(
+            v, default=lambda x: x.item()))
+
+
+def run_numbers(runs) -> dict:
+    """tok/s, ms/step and mean accept over (new tokens, steps, wall
+    seconds) runs."""
+    new, steps, wall = (sum(r[i] for r in runs) for i in range(3))
+    return dict(tokens_per_s=new / wall, ms_per_step=wall / steps * 1e3,
+                mean_accept=new / steps)
+
 
 def read_counts() -> dict:
     """The launches since ``reset_counts``, added to ``TOTALS``."""
@@ -1164,12 +1188,15 @@ def read_counts() -> dict:
     return counts
 
 
-def serve(card, name_cfg, engines, prompts, refs, gen, vocab) -> list:
+def serve(card, name_cfg, engines, prompts, refs, gen, vocab, key: str,
+          tps_key: str = "") -> list:
     """Run each request on its engine and check it against the oracle's
-    tokens; returns each request's (prompt length, decode steps)."""
+    tokens; returns each request's (prompt length, decode steps).  The
+    requests' tok/s (request walls, prefills included; under ``tps_key``
+    where given), ms/step and mean accept go to the detail as ``key_*``."""
     import torch
 
-    done = []
+    done, runs = [], []
     for name, p in prompts.items():
         t0 = time.perf_counter()
         out = engines[name].generate(p, gen)
@@ -1191,6 +1218,10 @@ def serve(card, name_cfg, engines, prompts, refs, gen, vocab) -> list:
               f"{out.decode_tokens / dt:.2f} (request wall {dt:.3f} s, "
               f"prefill included) equal_to_oracle True [{card}]", flush=True)
         done.append((len(p), out.decode_steps))
+        runs.append((out.decode_tokens, out.decode_steps, dt))
+    numbers = run_numbers(runs)
+    DETAIL[tps_key or f"{key}_tokens_per_s"] = numbers.pop("tokens_per_s")
+    note(key, **numbers, equal_to_oracle=f"{len(done)}/{len(prompts)}")
     return done
 
 
@@ -1201,7 +1232,7 @@ def main_path_1b(card: str) -> int:
     from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.engine import ArBaseline
     from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
-    from samd_tpu_torch.models import init_params, llama_1b
+    from samd_tpu_torch.models import init_params, llama_1b, param_count
 
     cfg = llama_1b()                 # attention_impl "flash" by default
     gen_w = torch.Generator(device="cuda")
@@ -1230,9 +1261,12 @@ def main_path_1b(card: str) -> int:
                           GenerationConfig(max_new_tokens=8))   # warm-up
     torch.cuda.synchronize()
 
+    print(f"param_count: llama_1b {param_count(params)}", flush=True)
+    note("phase4_llama_1b", param_count=param_count(params))
     reset_counts()                              # the path starts here
     done = serve(card, "llama_1b", engines, prompts, refs, gen,
-                 cfg.vocab_size)
+                 cfg.vocab_size, "phase4_llama_1b_fused_sam",
+                 tps_key="fused_sam_tokens_per_s")
     counts = read_counts()                      # the path ends here
     expected = sum(cfg.num_layers * (1 + steps) for _, steps in done)
     launches = counts["flash_block_attention"]
@@ -1450,6 +1484,7 @@ def main_path_7b(card: str, cfg, params) -> tuple:
     from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.engine import ArBaseline
     from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+    from samd_tpu_torch.models import param_count
 
     cfg = dataclasses.replace(cfg, kv_quant=True)
     fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
@@ -1479,9 +1514,12 @@ def main_path_7b(card: str, cfg, params) -> tuple:
                           GenerationConfig(max_new_tokens=8))   # warm-up
     torch.cuda.synchronize()
 
+    print(f"param_count: llama_7b int4 {param_count(params)}", flush=True)
+    note("phase5_llama_7b_int4", param_count=param_count(params))
     reset_counts()                              # the path starts here
     done = serve(card, "llama_7b int4 int8-KV", engines, prompts, refs, gen,
-                 cfg.vocab_size)
+                 cfg.vocab_size, "phase5_llama_7b_int4_fused_sam",
+                 tps_key="int4_7b_fused_sam_tokens_per_s")
     counts = read_counts()                      # the path ends here
     forwards = sum(1 + steps for _, steps in done)
     short = sum(steps + (n <= 128) for n, steps in done)  # T <= 128 forwards
@@ -1526,9 +1564,11 @@ def serve_batched(engine, requests, vocab):
     return outs, wall, engine.steps_run - steps0
 
 
-def report_batched(card, label, requests, outs, wall, steps, oracle):
+def report_batched(card, label, requests, outs, wall, steps, oracle,
+                   key: str, tps_key: str = ""):
     """Check every request against the oracle's tokens; print the run's
-    numbers."""
+    numbers and record them as ``key_*`` (tok/s under ``tps_key`` where
+    given)."""
     for i, (o, r) in enumerate(zip(outs, oracle)):
         if o.output_ids != r.output_ids:
             diff = next(j for j, (a, b) in enumerate(
@@ -1542,6 +1582,9 @@ def report_batched(card, label, requests, outs, wall, steps, oracle):
           f"{new / wall:.2f} tok/s, {wall / steps * 1e3:.3f} ms/step, mean "
           f"accept {new / slot_steps:.3f} per live slot-step; every request "
           f"equal to the alpha = 0 oracle [{card}]", flush=True)
+    DETAIL[tps_key or f"{key}_tokens_per_s"] = float(new / wall)
+    note(key, ms_per_step=wall / steps * 1e3, mean_accept=new / slot_steps,
+         equal_to_oracle=f"{len(outs)}/{len(oracle)}")
 
 
 def phase6_requests(V: int) -> list:
@@ -1593,7 +1636,8 @@ def main_path_7b_paged(card: str, cfg, params) -> int:
     outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
     counts = read_counts()                      # the path ends here
     report_batched(card, "llama_7b int4 paged int8 pages B=12", requests,
-                   outs, wall, steps, oracle)
+                   outs, wall, steps, oracle, "phase6_llama_7b_int4_paged",
+                   tps_key="int4_7b_paged_batched_tokens_per_s")
     fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
             f"llama_7b paged: {n_pages - len(eng.pool._free)} pages not "
             "returned")
@@ -1613,6 +1657,7 @@ def main_path_7b_paged(card: str, cfg, params) -> int:
           f"P = 128 prefills; int4_matmul {counts['int4_matmul']} = 225 x "
           f"{steps + len(requests)} forwards; peak_pages {eng.peak_pages} of "
           f"{n_pages}; all pages returned [{card}]", flush=True)
+    note("phase6_llama_7b_int4_paged", peak_pages=eng.peak_pages)
     del eng
     gc.collect()
 
@@ -1767,6 +1812,7 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
     # the same greedy requests straight through the engine, all queued at
     # once, for the server's cost beside it
     alone, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
+    wall_alone, steps_alone = wall, steps
     fail_if(any(a.output_ids != o.output_ids for a, o in zip(alone, oracle)),
             "server engine alone: tokens differ from the alpha = 0 oracle")
     print(f"server engine alone (no HTTP, 16 greedy requests queued at "
@@ -1808,6 +1854,8 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
                   f"[12, 16] ({live / steps:.2f} live slots per step), wall "
                   f"{wall:.3f} s: {new / wall:.2f} tok/s, "
                   f"{wall / steps * 1e3:.3f} ms/step [{card}]", flush=True)
+            note("phase8_server_" + label.replace(" ", "_").replace("-", "_"),
+                 tokens_per_s=new / wall, ms_per_step=wall / steps * 1e3)
             return replies
 
         # greedy: phase 6's 16 requests, each equal to its alpha = 0 oracle
@@ -1816,6 +1864,9 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
             fail_if(r["output_ids"] != o.output_ids, f"server greedy request "
                     f"{i}: tokens differ from the alpha = 0 oracle")
         acc = [r["new_tokens"] / r["decode_steps"] for r in greedy]
+        note("phase8_server_greedy", equal_to_oracle=f"{len(greedy)}/16",
+             mean_accept=sum(r["new_tokens"] for r in greedy)
+             / sum(r["decode_steps"] for r in greedy))
         rep = [0, 1, 2, 3, 12, 13, 14, 15]     # outputs held by the corpus
         print(f"server greedy: all 16 replies equal the alpha = 0 oracle; "
               f"mean accept {np.mean([acc[i] for i in rep]):.3f} on the four"
@@ -1963,6 +2014,9 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
           f"{from_corpus} of {live} live slot-steps "
           f"({from_corpus / live:.3f}); peak_pages {eng.peak_pages} of "
           f"{n_pages}; all pages returned [{card}]", flush=True)
+    note("phase8_server", peak_pages=eng.peak_pages,
+         alone_tokens_per_s=sum(a.decode_tokens for a in alone) / wall_alone,
+         alone_ms_per_step=wall_alone / steps_alone * 1e3)
     del eng
     gc.collect()
     return counts
@@ -2009,7 +2063,7 @@ def main_path_1b_batched(card: str) -> int:
         outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
         counts = read_counts()                  # the path ends here
         report_batched(card, f"llama_1b bf16 {name} B=4", requests, outs,
-                       wall, steps, oracle)
+                       wall, steps, oracle, f"phase7_llama_1b_{name}_b4")
         want = {"flash_block_attention": cfg.num_layers * len(requests),
                 "flash_block_attention_int8kv": 0, "int4_matmul": 0,
                 "paged_block_attention":
@@ -2020,6 +2074,7 @@ def main_path_1b_batched(card: str) -> int:
         if name == "paged":
             fail_if(len(eng.pool._free) != 32,
                     "llama_1b paged: pages not returned")
+            note("phase7_llama_1b_paged_b4", peak_pages=eng.peak_pages)
         runs[name] = (outs, counts, corpus)
         del eng
         gc.collect()
@@ -2607,6 +2662,9 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
               f"{new / dt:.2f} (prefill included) "
               f"mean accept by source: {by_source(stats)}; against "
               f"ArBaseline(block_size=60): {verdict} [{card}]", flush=True)
+    note("phase9_llama_7b_host", equal_to_oracle=f"{equal}/{len(done)}",
+         **run_numbers([(len(d[2].output_ids) - len(prompts[d[1]]),
+                         d[2].decode_steps, d[3]) for d in done]))
     forwards = sum(1 + d[2].decode_steps for d in done)
     short = sum(d[2].decode_steps + (len(prompts[d[1]]) <= 128)
                 for d in done)
@@ -2795,6 +2853,10 @@ def main_path_1b_host(card: str) -> dict:
                   f"[{card}]", flush=True)
             for i, v in enumerate(verdicts):
                 print(f"{label} request {i}: {v} [{card}]", flush=True)
+            note(f"phase10_llama_1b_host_{kind}_b4_{source}",
+                 tokens_per_s=new / wall, ms_per_step=wall / steps * 1e3,
+                 mean_accept=new / sum(o.decode_steps for o in outs),
+                 equal_to_oracle=f"{n_equal}/{len(verdicts)}")
             want = {"flash_block_attention": L * len(requests),
                     "flash_block_attention_int8kv": 0, "int4_matmul": 0,
                     "paged_block_attention": L * steps if kind == "paged"
@@ -2804,6 +2866,8 @@ def main_path_1b_host(card: str) -> dict:
             if kind == "paged":
                 fail_if(len(eng.pool._free) != 16,
                         f"{label}: pages not returned")
+                note(f"phase10_llama_1b_host_{kind}_b4_{source}",
+                     peak_pages=eng.peak_pages)
                 counted[source] = counts["paged_block_attention"]
             del eng
             gc.collect()
@@ -3105,10 +3169,11 @@ def deep_tree_steps(card, label, rec) -> None:
             ">= 2")
 
 
-def judge_all(card, label, cases, cfg, params, noise) -> list:
+def judge_all(card, label, cases, cfg, params, noise, key: str) -> list:
     """``oracle_verdict`` of every (name, prompt, engine outputs, oracle
-    outputs, chains, oracle rows, engine path rows); prints each verdict
-    and returns them."""
+    outputs, chains, oracle rows, engine path rows); prints each verdict,
+    records how many are equal as ``key_equal_to_oracle`` and returns
+    them."""
     verdicts = []
     for name, p, out, ref, chains, ref_rows, rows in cases:
         v = oracle_verdict(f"{label} request {name}", p, out, ref, chains,
@@ -3116,6 +3181,8 @@ def judge_all(card, label, cases, cfg, params, noise) -> list:
         print(f"{label} request {name}: {v}; {chains.count(True)} chain and "
               f"{chains.count(False)} tree drafts [{card}]", flush=True)
         verdicts.append(v)
+    n_equal = sum(v.startswith("equal") for v in verdicts)
+    note(key, equal_to_oracle=f"{n_equal}/{len(verdicts)}")
     return verdicts
 
 
@@ -3169,7 +3236,7 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
             (0, refs["a_random_200"].output_ids[len(a):],
              ref_rows["a_random_200"])])
     torch.cuda.synchronize()
-    cases, done = [], []
+    cases, done, runs = [], [], []
     reset_counts()                              # the path starts here
     for name, p in prompts.items():
         eng = engines[name]
@@ -3183,6 +3250,7 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
         cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
                       ref_rows[name], r["rows"]))
         done.append((len(p), out.decode_steps))
+        runs.append((out.decode_tokens, out.decode_steps, dt))
         print(f"llama_7b hybrid int8-KV request {name}: prompt {len(p)} new "
               f"{out.decode_tokens} decode_steps {out.decode_steps} "
               f"(retrieval chains {eng.sam_steps}) mean_accept "
@@ -3191,7 +3259,9 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
               f"{out.decode_tokens / dt:.2f} (prefill included) [{card}]",
               flush=True)
     counts = read_counts()                      # the path ends here
-    judge_all(card, "llama_7b hybrid int8-KV", cases, qcfg, params, noise)
+    note("phase11a_llama_7b_hybrid", **run_numbers(runs))
+    judge_all(card, "llama_7b hybrid int8-KV", cases, qcfg, params, noise,
+              "phase11a_llama_7b_hybrid")
     forwards = sum(1 + steps for _, steps in done)
     short = sum(steps + (n <= 128) for n, steps in done)
     want = {"flash_block_attention": 0,
@@ -3323,7 +3393,8 @@ def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
               rec.per_rid[rid0 + i]["rows"])
              for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
                                                         oracle, o_rows))]
-    verdicts = judge_all(card, label, cases, cfg, params, noise)
+    key = "phase11b_llama_7b_paged_hybrid"
+    verdicts = judge_all(card, label, cases, cfg, params, noise, key)
     deep_tree_steps(card, label, rec)
     del rec, cases
     fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
@@ -3338,6 +3409,8 @@ def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
           f"peak_pages {eng.peak_pages} of {n_pages}; {n_equal} equal to "
           f"the chain oracle, {len(outs) - n_equal} near-ties (tau "
           f"{noise.tau:.5f}); all pages returned [{card}]", flush=True)
+    note(key, tokens_per_s=new_tok / wall, ms_per_step=wall / steps * 1e3,
+         mean_accept=new_tok / eng.steps_total, peak_pages=eng.peak_pages)
     p128 = sum(len(p) <= 128 for p, _ in requests)
     want = {"flash_block_attention": L * p128,
             "flash_block_attention_int8kv": 0,
@@ -3422,7 +3495,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
                  GenerationConfig(max_new_tokens=8))         # warm-up
     torch.cuda.synchronize()
     label = "llama_7b SAM[EAGLE-2] int8-KV"
-    cases, done = [], []
+    cases, done, runs = [], [], []
     with FusedSteps(eng, fh) as rec_a, FusedSteps(own, fh) as rec_b:
         recs = {"a_random_200": rec_a, "b_own_corpus": rec_b,
                 "c_repetitive": rec_a}
@@ -3438,6 +3511,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
             cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
                           r["chains"], ref_rows[name], r["rows"]))
             done.append((len(p), out.decode_steps))
+            runs.append((out.decode_tokens, out.decode_steps, dt))
             print(f"{label} request {name}: prompt {len(p)} new "
                   f"{out.decode_tokens} decode_steps {out.decode_steps} "
                   f"(retrieval chains {e.sam_steps}) mean_accept "
@@ -3446,7 +3520,9 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
                   f"{out.decode_tokens / dt:.2f} (prefill included) "
                   f"[{card}]", flush=True)
         counts = read_counts()                  # the path ends here
-        judge_all(card, label, cases, qcfg, params, noise)
+        note("phase13_llama_7b_eagle_hybrid", **run_numbers(runs))
+        judge_all(card, label, cases, qcfg, params, noise,
+                  "phase13_llama_7b_eagle_hybrid")
         for rec in (rec_a, rec_b):
             tree_depths(label, card, rec)
     steps = sum(s for _, s in done)
@@ -3511,7 +3587,8 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
               rec.per_rid[i]["rows"])
              for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
                                                         oracle, o_rows))]
-    verdicts = judge_all(card, label, cases, cfg, params, noise)
+    key = "phase13_llama_7b_paged_eagle_hybrid"
+    verdicts = judge_all(card, label, cases, cfg, params, noise, key)
     tree_depths(label, card, rec)
     del rec, cases
     fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
@@ -3526,6 +3603,8 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
           f"peak_pages {eng.peak_pages} of {n_pages}; {n_equal} equal to "
           f"the chain oracle, {len(outs) - n_equal} near-ties (tau "
           f"{noise.tau:.5f}); all pages returned [{card}]", flush=True)
+    note(key, tokens_per_s=new_tok / wall, ms_per_step=wall / steps * 1e3,
+         mean_accept=new_tok / eng.steps_total, peak_pages=eng.peak_pages)
     p128 = sum(len(p) <= 128 for p, _ in requests)
     want = {"flash_block_attention": L * p128,
             "flash_block_attention_int8kv": 0,
@@ -3792,7 +3871,7 @@ def main_path_1b_fused(card: str) -> None:
     refs = {n: oracle.generate(p, gen) for n, p in prompts.items()}
     reset_counts()                              # the path starts here
     done = serve(card, "llama_1b PLD", {n: pld for n in prompts}, prompts,
-                 refs, gen, V)
+                 refs, gen, V, "phase12_llama_1b_pld")
     counts = read_counts()                      # the path ends here
     forwards = sum(1 + steps for _, steps in done)
     fail_if(counts["flash_block_attention"] != L * forwards
@@ -3819,7 +3898,7 @@ def main_path_1b_fused(card: str) -> None:
     a = prompts["a_random"]
     warm_harvest(tr, np.random.default_rng(32), [
         (0, refs["a_random"].output_ids[len(a):], ref_rows["a_random"])])
-    cases, forwards = [], 0
+    cases, forwards, runs = [], 0, []
     reset_counts()                              # the path starts here
     for name, p in prompts.items():
         with FusedSteps(tr, trf) as rec:
@@ -3832,6 +3911,7 @@ def main_path_1b_fused(card: str) -> None:
         cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
                       ref_rows[name], r["rows"]))
         forwards += 1 + out.decode_steps
+        runs.append((out.decode_tokens, out.decode_steps, dt))
         print(f"llama_1b fused Token Recycle request {name}: "
               f"{out.decode_steps} steps of a 61-node tree, mean accept "
               f"{out.decode_tokens / out.decode_steps:.3f}, "
@@ -3840,8 +3920,9 @@ def main_path_1b_fused(card: str) -> None:
     counts = read_counts()                      # the path ends here
     print(f"llama_1b fused Token Recycle: {noise_line(noise)} [{card}]",
           flush=True)
+    note("phase12_llama_1b_fused_token_recycle", **run_numbers(runs))
     judge_all(card, "llama_1b fused Token Recycle", cases, cfg, params,
-              noise)
+              noise, "phase12_llama_1b_fused_token_recycle")
     fail_if(counts["flash_block_attention"] != L * forwards
             or sum(counts.values()) != L * forwards,
             f"llama_1b fused Token Recycle: launch counts {counts}")
@@ -3887,11 +3968,15 @@ def main_path_1b_fused(card: str) -> None:
                   rr, rec.per_rid[i]["rows"])
                  for i, ((p, _), o, r, rr) in enumerate(zip(
                      requests, outs, oracle, o_rows))]
-        verdicts = judge_all(card, label, cases, cfg, params, noise)
+        key = f"phase12_llama_1b_{kind}_hybrid_b4"
+        verdicts = judge_all(card, label, cases, cfg, params, noise, key)
         deep_tree_steps(card, label, rec)
         del rec, cases
         n_equal = sum(v.startswith("equal") for v in verdicts)
         new_tok = sum(o.decode_tokens for o in outs)
+        note(key, tokens_per_s=new_tok / wall,
+             ms_per_step=wall / steps * 1e3,
+             mean_accept=new_tok / eng.steps_total)
         print(f"{label}: {new_tok} new tokens, {steps} steps of [4, 24], "
               f"{wall / steps * 1e3:.3f} ms/step, {new_tok / wall:.2f} tok/s, "
               f"retrieval chains {eng.sam_steps_total} of {eng.steps_total} "
@@ -3907,6 +3992,7 @@ def main_path_1b_fused(card: str) -> None:
         if kind == "paged":
             fail_if(len(eng.pool._free) != 32, f"{label}: pages not "
                     "returned")
+            note(key, peak_pages=eng.peak_pages)
         del eng
         gc.collect()
 
@@ -4004,7 +4090,7 @@ def main_path_1b_eagle(card: str) -> None:
     label = "llama_1b FusedEagle2Engine"
     eng = FusedEagle2Engine(cfg, params, net_params=net, max_cache_len=S,
                             eos_token_id=-1)
-    cases, forwards = [], 0
+    cases, forwards, runs = [], 0, []
     with FusedSteps(eng, ef) as rec:
         reset_counts()                          # the path starts here
         for name, p in prompts.items():
@@ -4017,13 +4103,16 @@ def main_path_1b_eagle(card: str) -> None:
             cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
                           r["chains"], ref_rows[name], r["rows"]))
             forwards += 1 + out.decode_steps
+            runs.append((out.decode_tokens, out.decode_steps, dt))
             print(f"{label} request {name}: {out.decode_steps} steps of a "
                   f"64-node tree, mean accept "
                   f"{out.decode_tokens / out.decode_steps:.3f}, "
                   f"{dt / out.decode_steps * 1e3:.3f} ms/step [{card}]",
                   flush=True)
         counts = read_counts()                  # the path ends here
-    judge_all(card, label, cases, cfg, params, noise)
+    note("phase14_llama_1b_fused_eagle2", **run_numbers(runs))
+    judge_all(card, label, cases, cfg, params, noise,
+              "phase14_llama_1b_fused_eagle2")
     tree_depths(label, card, rec)
     fail_if(counts["flash_block_attention"] != L * forwards
             or sum(counts.values()) != L * forwards,
@@ -4040,15 +4129,19 @@ def main_path_1b_eagle(card: str) -> None:
                                     eagle_net_params=net))
         eng = SamdEngine(cfg, params, scfg, log, max_cache_len=S,
                          eos_token_id=-1)
-        forwards = 0
+        forwards, runs, n_equal = 0, [], 0
         reset_counts()                          # the path starts here
         for name, p in prompts.items():
             with AcceptRows("path") as rows:
+                t0 = time.perf_counter()
                 out = eng.generate(p, gen)
+                runs.append((out.decode_tokens, out.decode_steps,
+                             time.perf_counter() - t0))
             forwards += 1 + out.decode_steps
             verdict = oracle_verdict(f"{label} request {name}", p, out,
                                      refs[name], log.chains, ref_rows[name],
                                      cfg, params, noise, rows.steps)
+            n_equal += verdict.startswith("equal")
             print(f"{label} request {name}: {out.decode_steps} steps "
                   f"({log.chains.count(False)} tree drafts of "
                   f"{run_lengths(log.nodes)} nodes), mean accept by source: "
@@ -4059,6 +4152,8 @@ def main_path_1b_eagle(card: str) -> None:
                 or not eng.stats.source_counts.get(method),
                 f"{label}: launch counts {counts}, sources "
                 f"{eng.stats.source_counts}")
+        note(f"phase14_llama_1b_samd_{method}", **run_numbers(runs),
+             equal_to_oracle=f"{n_equal}/{len(prompts)}")
         del eng, log
         gc.collect()
 
@@ -4095,10 +4190,13 @@ def main_path_1b_eagle(card: str) -> None:
               rec.per_rid[i]["rows"])
              for i, ((p, _), o, r, rr) in enumerate(zip(requests, outs,
                                                         oracle, o_rows))]
-    verdicts = judge_all(card, label, cases, cfg, params, bnoise)
+    key = "phase14_llama_1b_dense_eagle_hybrid_b4"
+    verdicts = judge_all(card, label, cases, cfg, params, bnoise, key)
     tree_depths(label, card, rec)
     n_equal = sum(v.startswith("equal") for v in verdicts)
     new_tok = sum(o.decode_tokens for o in outs)
+    note(key, tokens_per_s=new_tok / wall, ms_per_step=wall / steps * 1e3,
+         mean_accept=new_tok / eng.steps_total)
     print(f"{label}: {new_tok} new tokens, {steps} steps of [4, 24], "
           f"{wall / steps * 1e3:.3f} ms/step, {new_tok / wall:.2f} tok/s, "
           f"retrieval chains {eng.sam_steps_total} of {eng.steps_total} "
@@ -4394,6 +4492,12 @@ def main_path_1b_disk(card: str, d: str):
                 fail_if(o.output_ids != r.output_ids, f"{label} turn {i}: "
                         f"differs from ArBaseline(block_size={M})")
             steps = sum(o.decode_steps for o in outs)
+            note("phase15_" + "_".join(f.strip("-").replace("-", "_")
+                                       for f in flags),
+                 ms_per_step=dt / steps * 1e3,
+                 tokens_per_s=sum(o.decode_tokens for o in outs) / dt,
+                 mean_accept=sum(o.decode_tokens for o in outs) / steps,
+                 equal_to_oracle=f"{len(outs)}/{len(prompts)}")
             print(f"{label}: 4 replies (regen equal, save/load round trip) in "
                   f"{wall:.2f} s of subprocess; the same engine in process "
                   f"{steps} steps, {dt / steps * 1e3:.3f} ms/step, each reply "
@@ -4461,6 +4565,8 @@ def main_path_1b_disk(card: str, d: str):
     print(f"server --model --engine paged_fused_sam: up in {t_up:.2f} s, 4 "
           f"greedy replies over HTTP equal to the engine called directly; "
           f"launches {counts} [{card}]", flush=True)
+    note("phase15_server_model", up_seconds=t_up,
+         equal_to_direct=f"{len(replies)}/{len(four)}")
     del eng
     gc.collect()
     return lcfg, params
@@ -4620,6 +4726,8 @@ def main_path_training(card: str, cfg, params) -> dict:
             "random one")
     fail_if(counts["flash_block_attention"] == 0,
             f"accept demo: launch counts {counts}")
+    note("phase16_accept_demo", seconds=dt, **{
+        f"mean_accept_{k}": v for k, v in acc.items()})
 
     # (b) the Spec-Bench pipeline
     reset_counts()                              # the path starts here
@@ -4640,6 +4748,11 @@ def main_path_training(card: str, cfg, params) -> dict:
         fail_if(not row["outputs_equal_vs_block_oracle"] or row["errors"],
                 f"spec-bench {name}: mismatches {row['mismatch_qids']}, "
                 f"errors {row['errors']}")
+        note(f"phase16_specbench_{name}", speedup=row["speedup"],
+             mean_accept=row["mean_accept"],
+             tokens_per_s=row["tokens_per_s"],
+             equal_to_oracle=f"{sb['n_questions'] - len(row['mismatch_qids'])}"
+                             f"/{sb['n_questions']}")
     print(f"spec-bench pipeline: {sb['n_questions']} questions, LM loss "
           f"{sb['lm_loss']}, {dt:.1f} s; launches {counts} [{card}]",
           flush=True)
@@ -4671,6 +4784,8 @@ def main_path_training(card: str, cfg, params) -> dict:
           f"net, batch 8 x 64): losses {[round(x, 4) for x in losses]}; "
           f"{np.median(per_step[1:]):.3f} ms/step median (first step "
           f"{per_step[0]:.3f}); launches {counts} [{card}]", flush=True)
+    note("phase16_train_eagle", ms_per_step=float(np.median(per_step[1:])),
+         loss_first=losses[0], loss_last=losses[-1])
     fail_if(not losses[-1] < losses[0], f"train_eagle: loss {losses[0]} -> "
             f"{losses[-1]}")
     fail_if(bool(bad), f"train_eagle: parameters {sorted(set(bad))} without "
@@ -4816,11 +4931,15 @@ def main_path_mixtral(card: str) -> None:
     from samd_tpu_torch.config import GenerationConfig
     from samd_tpu_torch.engine import ArBaseline
     from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+    from samd_tpu_torch.models import param_count
     from samd_tpu_torch.ops.quant import dequant, unpack4
 
     torch.cuda.reset_peak_memory_stats()
     cfg, params = mixtral_int4_params()
     cfg = dataclasses.replace(cfg, kv_quant=True)
+    print(f"param_count: mixtral_8x7b int4 {param_count(params)}",
+          flush=True)
+    note("phase17_mixtral_8x7b_int4", param_count=param_count(params))
     fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
                         cache_buckets=(256, 384, 512, 768))
     M, S, new = fc.block, 1024, 64
@@ -4876,7 +4995,7 @@ def main_path_mixtral(card: str) -> None:
         probe.capture = True
         done = serve(card, "mixtral_8x7b int4 int8-KV",
                      {n: engine for n in prompts}, prompts, refs, gen,
-                     cfg.vocab_size)
+                     cfg.vocab_size, "phase17_mixtral_8x7b_int4_fused_sam")
         probe.capture = False
         counts = read_counts()                  # the path ends here
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5047,6 +5166,10 @@ def main_path_tools(card: str, d: str) -> None:
           f"{sum(o.decode_tokens for o in outs) / steps:.3f} from the "
           f"corpus SAM); worker tok/s {report['per_worker_tokens_per_s']}; "
           f"launches in process {counts} [{card}]", flush=True)
+    note("phase18_launch_2_workers", seconds=wall,
+         worker_tokens_per_s=report["per_worker_tokens_per_s"],
+         mean_accept=sum(o.decode_tokens for o in outs) / steps,
+         equal_to_oracle=f"{len(answers)}/{len(prompts)}")
 
 
 # ----------------------------------------------------------------------
@@ -5182,6 +5305,11 @@ def mesh_world_of_one(card: str) -> dict:
             f"phase 19 world of one: launch counts {counts}")
     tps = [n / w for _, n, w, _ in (unsharded, meshed)]
     mid, lo, hi = float(np.median(ratios)), min(ratios), max(ratios)
+    note("phase19_world_of_one", unsharded_tokens_per_s=tps[0],
+         mesh_tokens_per_s=tps[1], mesh_tokens_per_s_ratio_median=mid,
+         unsharded_ms_per_step=unsharded[2] / unsharded[3] * 1e3,
+         mesh_ms_per_step=meshed[2] / meshed[3] * 1e3,
+         equal_to_oracle=f"{len(prompts)}/{len(prompts)}")
     verdict = ("the mesh is slower in every round" if hi < 1 else
                "the mesh is faster in every round" if lo > 1 else
                "unresolved: the rounds fall on both sides of 1")
@@ -5319,10 +5447,12 @@ def main_path_mesh(card: str) -> dict:
     fail_if(any(r["embed_sum"] != float(params1["embed"].float().sum())
                 for r in reports.values()),
             "phase 19: a rank drew other llama_1b weights")
-    total = {}
+    total, n_7b, n_1b, equal_1b = {}, 0, 0, 0
     for rank, r in sorted(reports.items()):
         for k, v in r["counts"].items():
             total[k] = total.get(k, 0) + v
+        n_7b += len(r["a"])
+        n_1b += len(r["b"])
         # (a) llama_7b int4 tp 2: bit for bit the unsharded engine
         for name, ids in r["a"].items():
             j = first_difference(ids, one["outputs"][name])
@@ -5338,6 +5468,7 @@ def main_path_mesh(card: str) -> dict:
             b = ref1["refs"][name]
             j = first_difference(ids, b)
             verdict = "equal to the unsharded engine"
+            equal_1b += j is None
             if j is not None:
                 g = j - len(ref1["prompts"][name])
                 verdict = mesh_near_tie(
@@ -5363,6 +5494,9 @@ def main_path_mesh(card: str) -> dict:
               flush=True)
     print(f"phase 19: the ranks' path launches {total} [{card}]",
           flush=True)
+    note("phase19_tp2", llama_7b_equal_to_unsharded=f"{n_7b}/{n_7b}",
+         llama_1b_equal_to_mesh_oracle=f"{n_1b}/{n_1b}",
+         llama_1b_equal_to_unsharded=f"{equal_1b}/{n_1b}")
     return total
 
 
@@ -5581,14 +5715,22 @@ def mesh_rank(rank: int, port: int, d: str) -> int:
 
 
 LAPS = [time.perf_counter()]
+EMITTER = []          # the BenchEmitter, once the path phases begin
 
 
 def lap(label: str) -> None:
-    """Print the wall seconds since the previous lap (each phase's time)."""
+    """Print the wall seconds since the previous lap (each phase's time),
+    record them, and from phase 4 on write the detail file."""
     now = time.perf_counter()
     print(f"wall: {label} {now - LAPS[-1]:.1f} s ({now - LAPS[0]:.1f} s "
           "in all)", flush=True)
-    LAPS.append(now)
+    DETAIL[label.replace(" ", "_") + "_seconds"] = now - LAPS[-1]
+    DETAIL["script_seconds"] = now - LAPS[0]
+    for em in EMITTER:            # its own cost, summed, in the next file
+        em.emit()
+        DETAIL["emit_seconds"] = DETAIL.get("emit_seconds", 0.0) \
+            + time.perf_counter() - now
+    LAPS.append(time.perf_counter())
 
 
 def main() -> int:
@@ -5662,7 +5804,12 @@ def main() -> int:
         rows["paged_block_attention_int8kv"]["max_abs_err"], errs["k4"])
 
     lap("phase 3")
-    # phases 4 to 16: the paths, each with its counts read on its own and
+    from samd_tpu_torch.evaluation.bench_emit import BenchEmitter
+
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    EMITTER.append(BenchEmitter(DETAIL, os.path.join(
+        ROOT, "chiprun_out", "chip_smoke_detail.json")))
+    # phases 4 to 19: the paths, each with its counts read on its own and
     # summed into TOTALS
     main_path_1b(card)
     lap("phase 4")
@@ -5743,6 +5890,7 @@ def main() -> int:
     lap("phase 19")
     fail_if(min(TOTALS.values()) == 0, f"a kernel never launched on a path: "
             f"{TOTALS}")
+    EMITTER[0].emit(complete=True)
 
     meta = {
         "flash_block_attention": (

@@ -166,6 +166,9 @@ void sam_feed(Sam* s, const int32_t* tokens, int64_t n, int grow) {
   }
 }
 
+// index one token without moving the cursor (the Python engine's extend)
+void sam_extend(Sam* s, int32_t token) { s->extend(token); }
+
 void sam_reset_cursor(Sam* s) {
   s->cur_state = ROOT;
   s->cur_length = 0;

@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .engine import harvest_topk  # noqa: F401 (the reference's name here)
 from .fused_sam import suffix_match
 from .ops.ngram_index import NgramIndex, build_ngram_index
 from .ops.ngram_index import indexed_suffix_match

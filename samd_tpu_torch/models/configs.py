@@ -66,6 +66,9 @@ class ModelConfig:
     def kv_groups(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    def with_dtype(self, dtype: torch.dtype) -> "ModelConfig":
+        return replace(self, dtype=dtype)
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a setting the port does not run, naming what covers

@@ -46,7 +46,8 @@ from ..ops.flash_attention import MAX_T as FLASH_MAX_T
 from ..ops.flash_attention import flash_block_attention
 from ..ops.int4_matmul import int4_matmul
 from ..ops.paged_attention import paged_block_attention
-from ..ops.quant import Int4Tensor, QuantizedTensor, Weight, dequant, qmatmul
+from ..ops.quant import (Int4Tensor, QuantizedTensor, Weight, dequant,
+                         qmatmul, tensors)
 from .configs import ModelConfig, check_supported
 
 if TYPE_CHECKING:
@@ -100,6 +101,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = norm(H, cfg.vocab_size)
     return params
+
+
+def param_count(params: Params) -> int:
+    """The elements of every tensor in the tree: a quantized weight counts
+    its values and its scales, as the reference counts its leaves."""
+    return sum(t.numel() for t in tensors(params) if t is not None)
 
 
 # ----------------------------------------------------------------------

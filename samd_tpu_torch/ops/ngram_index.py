@@ -68,6 +68,14 @@ class NgramIndex:
     powers: torch.Tensor
 
     @property
+    def num_candidates(self) -> int:
+        """The width of a probe's candidate row: every gram's bucket, and
+        its latest positions where they are kept."""
+        return self.table.shape[0] * self.table.shape[2] + (
+            0 if self.latest is None
+            else self.latest.shape[0] * self.latest.shape[2])
+
+    @property
     def nbytes(self) -> int:
         n = self.table.numel() * self.table.element_size()
         if self.latest is not None:

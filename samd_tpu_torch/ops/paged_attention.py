@@ -34,6 +34,8 @@ import torch
 from ..device import refuse_grad
 from . import flash_attention as fa
 
+NEG_INF = fa.NEG_INF
+
 KERNEL_PAGE_MULTIPLE = 64     # the kernel's KV tile: a tile lies in one page
 
 
@@ -168,7 +170,7 @@ def paged_block_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     allowed = window_to_mask(window, kv_limits, T, page, C)  # [B, T, C]
     qh = q.float().transpose(1, 2).reshape(B, KH, G * T, D)  # r = g*T + t
     s = torch.matmul(qh, k.transpose(-1, -2)) * (D ** -0.5)  # [B,KH,R,C]
-    s = torch.where(allowed.repeat(1, G, 1)[:, None], s, fa.NEG_INF)
+    s = torch.where(allowed.repeat(1, G, 1)[:, None], s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p, v) / torch.clamp(l, min=1e-30)

@@ -7,8 +7,9 @@ root→node paths are derived from it on the host, where the host drafters
 build it: the reference's ``lax.scan`` loops over M become one numpy pass
 over the nodes, and the results come back as CPU tensors for one upload
 each.  A draft built on the device (the EAGLE drafters') is unpacked there
-by ``unpack_draft_device``, with no host read.  Their integers equal the
-reference's.
+by ``unpack_draft_device``, with no host read; ``depths_from_parents`` and
+``paths_from_parents`` are the reference's device forms of one draft's
+depths and paths.  Their integers equal the reference's.
 
 Padding convention: padding node *i* has ``parents[i] == i`` (self-parent)
 and sits after all real nodes; real nodes obey ``parents[i] < i`` and
@@ -69,6 +70,50 @@ def tree_mask_from_parents(parents) -> torch.Tensor:
     return torch.from_numpy(mask.reshape(shape + shape[-1:]))
 
 
+def depths_from_parents(parents: torch.Tensor) -> torch.Tensor:
+    """[..., M] int -> [..., M] int32 node depths (a root, parent -1, at
+    0), on the parents' device.  A node's depth is its parent's plus one,
+    read in node order as the reference's scan reads it: a parent at or
+    after the node (a self-parented padding node) is unwritten there and
+    counts as 0, so such a node gets depth 1.  The chains through earlier
+    parents are followed by pointer jumping, ceil(log2 M) gathers."""
+    p = parents.long()
+    M = p.shape[-1]
+    idx = torch.arange(M, device=p.device).expand_as(p)
+    back = (p >= 0) & (p < idx)                   # an earlier parent
+    nxt = torch.where(back, p, idx)               # an end points at itself
+    dist = back.long()
+    base = (p >= idx).long()                      # 1 at a later parent
+    for _ in range(max(M - 1, 1).bit_length()):
+        dist = dist + torch.gather(dist, -1, nxt)
+        nxt = torch.gather(nxt, -1, nxt)
+    return (dist + torch.gather(base, -1, nxt)).to(torch.int32)
+
+
+def _ancestors(parents: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., M] parents -> [..., M, n]: the k-th ancestor of each node for
+    k = 0 .. n - 1 (itself at 0), -1 past a root; ``n - 1`` gathers."""
+    anc = [torch.arange(parents.shape[-1],
+                        device=parents.device).expand_as(parents)]
+    for _ in range(n - 1):
+        prev = anc[-1]
+        up = torch.gather(parents, -1, torch.clamp(prev, min=0))
+        anc.append(torch.where(prev >= 0, up, -1))
+    return torch.stack(anc, -1)
+
+
+def paths_from_parents(parents: torch.Tensor, depths: torch.Tensor,
+                       max_depth: int) -> torch.Tensor:
+    """[..., M] parents and depths -> [..., M, max_depth] int32: row i
+    holds the node ids on the root->i path, padded with -1, on the
+    parents' device.  Real nodes need depth < ``max_depth``."""
+    anc = _ancestors(parents.long(), max_depth)           # [..., M, D]
+    dist = depths.long()[..., None] - torch.arange(max_depth,
+                                                   device=anc.device)
+    rows = torch.gather(anc, -1, torch.clamp(dist, 0, max_depth - 1))
+    return torch.where(dist >= 0, rows, -1).to(torch.int32)
+
+
 def unpack_draft(draft, max_depth: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
@@ -101,19 +146,12 @@ def unpack_draft_device(draft: torch.Tensor, max_depth: int, levels: int
     only itself, gets depth 1 and the path [i, i]."""
     tokens = draft[:, 0].to(torch.int32)
     parents = draft[:, 1].long()
-    B, M = parents.shape
-    idx = torch.arange(M, device=parents.device)
-    anc = [idx.expand(B, M)]                  # anc[k][b, i]: k-th ancestor
-    for _ in range(levels):
-        prev = anc[-1]
-        up = torch.gather(parents, 1, torch.clamp(prev, min=0))
-        anc.append(torch.where(prev >= 0, up, -1))
-    anc = torch.stack(anc)                                     # [k, B, M]
-    depths = torch.where(parents == idx, 1, (anc[1:] >= 0).sum(0))
-    mask = (anc[..., None] == idx).any(0)                      # [B, M, M]
+    idx = torch.arange(parents.shape[1], device=parents.device)
+    anc = _ancestors(parents, levels + 1)                      # [B, M, k]
+    depths = torch.where(parents == idx, 1, (anc[..., 1:] >= 0).sum(-1))
+    mask = (anc[..., None] == idx).any(-2)                     # [B, M, M]
     dist = depths[..., None] - torch.arange(max_depth, device=idx.device)
-    rows = torch.gather(anc.permute(1, 2, 0), 2,
-                        torch.clamp(dist, 0, levels))          # [B, M, D]
+    rows = torch.gather(anc, 2, torch.clamp(dist, 0, levels))  # [B, M, D]
     paths = torch.where(dist >= 0, rows, -1)
     return (tokens, mask, depths.to(torch.int32), paths.to(torch.int32))
 

@@ -24,6 +24,15 @@ class PhaseTimer:
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        """Record the wall time spent inside the block under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - t0)
+
     def record(self, name: str, seconds: float) -> None:
         self.totals[name] += seconds
         self.counts[name] += 1

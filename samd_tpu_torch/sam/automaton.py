@@ -40,6 +40,7 @@ oracle and by construction):
 from __future__ import annotations
 
 import heapq
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 ROOT = 0
@@ -293,6 +294,26 @@ class SuffixAutomaton:
                 p = (-neg_prob) * (self._occ[child_state] / denom)
                 heapq.heappush(heap, (-p, counter, child_token, child_state,
                                       node, depth + 1))
+        return tokens, parents
+
+    def neighborhood_tree_draft(self, state: int, start_token: int,
+                                n_nodes: int) -> Tuple[List[int], List[int]]:
+        """Breadth-first expansion of every transition from ``state``, in
+        each state's insertion order and with no frequency ordering, up to
+        ``n_nodes`` nodes; returns ``(tokens, parents)`` with
+        ``parents[0] == -1``.  The reference keeps it unused beside
+        ``tree_draft`` (samd_sam_only/sam/dyn_sam.py:157-172)."""
+        tokens = [start_token]
+        parents = [-1]
+        frontier = deque([(state, 0)])
+        while frontier and len(tokens) < n_nodes:
+            s, node = frontier.popleft()
+            for token, child in self._trans[s].items():
+                if len(tokens) >= n_nodes:
+                    break
+                frontier.append((child, len(tokens)))
+                tokens.append(token)
+                parents.append(node)
         return tokens, parents
 
     # ------------------------------------------------------------------

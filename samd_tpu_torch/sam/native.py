@@ -83,6 +83,7 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, fn).argtypes = [ctypes.c_void_p]
     lib.sam_feed.argtypes = [ctypes.c_void_p, I32, ctypes.c_int64,
                              ctypes.c_int]
+    lib.sam_extend.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.sam_reset_cursor.argtypes = [ctypes.c_void_p]
     lib.sam_reset.argtypes = [ctypes.c_void_p]
     lib.sam_cursor.argtypes = [ctypes.c_void_p, I32, I32]
@@ -104,6 +105,17 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         I32, I32, I32, I64, I64, I32, I32, I32]
     return lib
+
+
+def native_available() -> bool:
+    """Whether the native engine builds and loads here.  Unlike the
+    reference's, nothing falls back on a False: a caller that wants the
+    Python engine asks for it."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 class NativeSuffixAutomaton:
@@ -150,6 +162,11 @@ class NativeSuffixAutomaton:
     def feed(self, tokens: Sequence[int], *, grow: bool) -> None:
         arr = np.ascontiguousarray(tokens, dtype=np.int32)
         self._lib.sam_feed(self._h, _ptr(arr, I32), len(arr), int(grow))
+
+    def extend(self, token: int) -> None:
+        """Index one token; the cursor stays where it is, as in the Python
+        engine's ``extend``."""
+        self._lib.sam_extend(self._h, int(token))
 
     def advance_cursor(self, token: int) -> None:
         arr = np.asarray([token], dtype=np.int32)

@@ -179,6 +179,25 @@ def lm_loss(params: Params, cfg: ModelConfig,
     return nll.mean()
 
 
+def make_lm_train_step(cfg: ModelConfig,
+                       optimizer: torch.optim.Optimizer) -> Callable:
+    """The one-step closure ``(params, tokens) -> loss``: the LM loss on a
+    [B, T] batch through the plain attention (the kernels have no
+    backward), its gradients, and one ``optimizer`` step over the leaves it
+    holds, which are ``params``' own, updated in place.  The loss comes
+    back detached, on the device, with no host read."""
+    train_cfg = replace(cfg, attention_impl="xla")
+
+    def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        loss = lm_loss(params, train_cfg, tokens)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def train_lm(cfg: ModelConfig, corpus: np.ndarray, *, steps: int = 500,
              batch: int = 16, seq_len: int = 64, lr: float = 3e-3,
              seed: int = 0, params: Optional[Params] = None,
@@ -193,20 +212,17 @@ def train_lm(cfg: ModelConfig, corpus: np.ndarray, *, steps: int = 500,
     ``log_every`` the last five."""
     dev = resolve_device(device)
     require_full_f32(dev)
-    train_cfg = replace(cfg, attention_impl="xla")
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_params(cfg, gen, device=dev)
     params, leaves = _trainable(params)
     opt, sched = _optimizer(leaves, lr, steps)
+    step_fn = make_lm_train_step(cfg, opt)
     losses = []
     for i, toks in enumerate(_batches(corpus, steps, batch, seq_len, seed,
                                       dev)):
-        loss = lm_loss(params, train_cfg, toks)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        loss = step_fn(params, toks)
         sched.step()
         if log_every and (i % log_every == 0 or i == steps - 1):
             losses.append(loss.item())

@@ -44,7 +44,8 @@ def test_port_files_found():
                 "evaluation/synthetic.py", "evaluation/accept_demo.py",
                 "evaluation/specbench_demo.py", "evaluation/neartie.py",
                 "evaluation/profile_run.py", "evaluation/parity.py",
-                "evaluation/launch.py", "tools/build_sam.py",
+                "evaluation/launch.py", "evaluation/bench_emit.py",
+                "tools/build_sam.py",
                 "tools/gen_corpus.py", "parallel/__init__.py",
                 "parallel/comm.py", "parallel/sharding.py",
                 "parallel/seq_parallel.py", "parallel/multihost.py"):

@@ -2,9 +2,10 @@
 (CPU, f32, tiny config): the Markov corpus token for token, the LM and
 EAGLE distillation losses within 1e-5 relative and their gradients within
 1e-4 of ``jax.grad``'s, the learning-rate schedule against optax's at every
-step, and twelve steps of ``train_lm`` and ``train_eagle`` (the warmup and
+step, twelve steps of ``train_lm`` and ``train_eagle`` (the warmup and
 the start of the cosine) whose losses and parameters stay within 1e-4 of
-optax's AdamW.  Then the trained models' accept lengths, as
+optax's AdamW, and three of ``make_lm_train_step`` against JAX's jitted
+step within the same 1e-4.  Then the trained models' accept lengths, as
 ``tests/test_training.py`` holds JAX's, the accept demo at a small size,
 and the kernels' gradient guard."""
 
@@ -122,6 +123,31 @@ def test_train_lm_steps_equal_optax(shared):
     # the caller's parameters are copied, not trained in place
     assert torch.equal(params["embed"],
                        torch.from_numpy(np.array(jp["embed"])))
+
+
+def test_make_lm_train_step_equals_jax(shared):
+    """Three steps of the one-step closure against JAX's jitted step, both
+    under AdamW at a constant learning rate: losses and parameters within
+    1e-4."""
+    jcfg, jp, _, cfg, params, _, corpus = shared
+    tx = optax.adamw(1e-3, weight_decay=1e-4)
+    jstep = jax_training.make_lm_train_step(jcfg, tx)
+    jparams = jax.tree.map(jnp.copy, jp)    # JAX's step donates them
+    jstate = tx.init(jparams)
+    p, ls = training._trainable(params)
+    opt = torch.optim.AdamW(ls, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    step = training.make_lm_train_step(
+        dataclasses.replace(cfg, attention_impl="flash"), opt)
+    for i in range(3):
+        toks = corpus[i * 96:(i + 1) * 96].reshape(4, 24)
+        jparams, jstate, jl = jstep(jparams, jstate, jnp.asarray(toks))
+        loss = step(p, torch.from_numpy(toks.astype(np.int64)))
+        assert not loss.requires_grad
+        assert loss.item() == pytest.approx(float(jl), abs=1e-4)
+    for a, b in zip(jax.tree.leaves(jparams), leaves(p)):
+        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a),
+                                   atol=1e-4)
 
 
 def test_train_eagle_steps_equal_optax(shared):
