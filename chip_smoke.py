@@ -1188,6 +1188,111 @@ def read_counts() -> dict:
     return counts
 
 
+def loop_line(stats, decode_steps: int) -> str:
+    """A request's device loop: host reads against decode steps, graph
+    replays and no-op steps (``device_loop.LoopStats``)."""
+    return (f"host_reads {stats.segments}/{decode_steps} replays "
+            f"{stats.replays} noop_steps {stats.noop_steps}")
+
+
+def loop_check(card, label, key: str, stats, decode_steps,
+               greedy: bool = True, every_step_reads: bool = False) -> None:
+    """A path's device loop (``device_loop``): the steps replayed from CUDA
+    graphs, each request's host reads against its decode steps, and the
+    no-op steps run after a request stopped; recorded as ``key_loop_*``.
+    A greedy path fails if it replayed no step, or, unless
+    ``every_step_reads`` allows it (the tree engines' reruns, whose
+    segments are short), if a request of more than one decode step read
+    the host once per step."""
+    reads = [st.segments for st in stats]
+    replays = sum(st.replays for st in stats)
+    noop = sum(st.noop_steps for st in stats)
+    pairs = " ".join(f"{r}/{d}" for r, d in zip(reads, decode_steps))
+    print(f"{label} device loop: {replays} steps replayed from graphs; host "
+          f"reads / decode steps per request: {pairs}; noop_steps {noop} "
+          f"[{card}]", flush=True)
+    note(key, loop_replays=replays, loop_host_reads=sum(reads),
+         loop_decode_steps=sum(decode_steps), loop_noop_steps=noop)
+    if greedy:
+        fail_if(not replays, f"{label}: no step was replayed from a graph")
+        every = [i for i, (r, d) in enumerate(zip(reads, decode_steps))
+                 if d > 1 and r >= d]
+        fail_if(every and not every_step_reads, f"{label}: requests {every} "
+                "read the host once per decode step")
+
+
+class PerStep:
+    """While active, ``engine`` runs its per-step route (one eager step and
+    one control read per step): for recorders that read each step."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        self.engine.segmented = False
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.__dict__.pop("segmented", None)
+
+
+def harvest_state(*engines) -> list:
+    """Each engine's drafter state that outlives a request (the
+    Token-Recycle harvest tables), to start a rerun where a judged run
+    started."""
+    return [(e, [(n, getattr(e, n).clone()) for n in ("harvests", "seens")
+                 if hasattr(e, n)]) for e in engines]
+
+
+def graph_rerun(card, label, key: str, state, run, judged, counts) -> None:
+    """A path judged on the per-step route (its recorder reads every
+    step), again on the graph route from the drafter ``state`` the judged
+    run started from (``harvest_state``): ``run()`` serves the same
+    requests and returns their (outputs, device loops).  Each output must
+    equal the judged run's, with the same kernel launches; the path's
+    device loop goes through ``loop_check``."""
+    import torch
+
+    for eng, saved in state:
+        for name, t in saved:
+            getattr(eng, name).copy_(t)
+    torch.cuda.synchronize()
+    reset_counts()                              # the path starts here
+    t0 = time.perf_counter()
+    outs, loops = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    again = read_counts()                       # the path ends here
+    bad = [i for i, (o, j) in enumerate(zip(outs, judged)) if o != j]
+    fail_if(bad or len(outs) != len(judged), f"{label}: requests {bad} "
+            "differ on the graph route from the judged run")
+    fail_if(again != counts, f"{label}: the graph route launched {again}, "
+            f"the judged run {counts}")
+    new = sum(o.decode_tokens for o in outs)
+    print(f"{label}, graph route: every request equal to the judged run, "
+          f"the same launches; {new / wall:.2f} tok/s (wall {wall:.3f} s, "
+          f"prefills included) [{card}]", flush=True)
+    note(key, graph_tokens_per_s=new / wall)
+    loop_check(card, label, key, loops, [o.decode_steps for o in outs],
+               every_step_reads=True)
+
+
+def serve_single(engines, prompts, gen):
+    """Each prompt through its single-stream engine: (outputs, device
+    loops), for ``graph_rerun``."""
+    outs, loops = [], []
+    for name, p in prompts.items():
+        outs.append(engines[name].generate(p, gen))
+        loops.append(engines[name].loop_stats)
+    return outs, loops
+
+
+def serve_batched_loops(engine, requests, vocab):
+    """``serve_batched``'s outputs and device loops, for ``graph_rerun``."""
+    outs, _, _ = serve_batched(engine, requests, vocab)
+    return outs, list(LAST_LOOPS)
+
+
 def serve(card, name_cfg, engines, prompts, refs, gen, vocab, key: str,
           tps_key: str = "") -> list:
     """Run each request on its engine and check it against the oracle's
@@ -1196,12 +1301,13 @@ def serve(card, name_cfg, engines, prompts, refs, gen, vocab, key: str,
     where given), ms/step and mean accept go to the detail as ``key_*``."""
     import torch
 
-    done, runs = [], []
+    done, runs, loops = [], [], []
     for name, p in prompts.items():
         t0 = time.perf_counter()
         out = engines[name].generate(p, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        loops.append(engines[name].loop_stats)
         ref = refs[name]
         if out.output_ids != ref.output_ids:
             diff = next(i for i, (a, b) in enumerate(
@@ -1216,9 +1322,11 @@ def serve(card, name_cfg, engines, prompts, refs, gen, vocab, key: str,
               f"mean_accept {out.decode_tokens / out.decode_steps:.3f} "
               f"ms_per_step {dt / out.decode_steps * 1e3:.3f} tok_per_s "
               f"{out.decode_tokens / dt:.2f} (request wall {dt:.3f} s, "
-              f"prefill included) equal_to_oracle True [{card}]", flush=True)
+              f"prefill included) {loop_line(loops[-1], out.decode_steps)} "
+              f"equal_to_oracle True [{card}]", flush=True)
         done.append((len(p), out.decode_steps))
         runs.append((out.decode_tokens, out.decode_steps, dt))
+    loop_check(card, name_cfg, key, loops, [d for _, d in done])
     numbers = run_numbers(runs)
     DETAIL[tps_key or f"{key}_tokens_per_s"] = numbers.pop("tokens_per_s")
     note(key, **numbers, equal_to_oracle=f"{len(done)}/{len(prompts)}")
@@ -1316,8 +1424,9 @@ def point_mass_1b(card, engines, prompts, refs) -> None:
         print(f"llama_1b point-mass sampled {mode} {POINT_MASS[mode]} "
               f"request {name}: new {out.decode_tokens} decode_steps "
               f"{out.decode_steps} mean_accept "
-              f"{out.decode_tokens / out.decode_steps:.3f}; equal to the "
-              f"ArBaseline oracle [{card}]", flush=True)
+              f"{out.decode_tokens / out.decode_steps:.3f}; "
+              f"{loop_line(engines[name].loop_stats, out.decode_steps)}; "
+              f"equal to the ArBaseline oracle [{card}]", flush=True)
 
 
 def sampled_1b(card, cfg, engine, prompt) -> None:
@@ -1343,9 +1452,14 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
+        loop = engine.loop_stats
         b = engine.generate(prompt, gen)
         fail_if(a.output_ids != b.output_ids,
                 f"llama_1b sampled {mode}: the same seed gave other tokens")
+        with PerStep(engine):
+            c = engine.generate(prompt, gen)
+        fail_if(c != a, f"llama_1b sampled {mode}: the per-step route gave "
+                "other tokens or steps than the graph route")
         fail_if(a.decode_tokens != new or not all(
             0 <= t < cfg.vocab_size for t in a.output_ids),
                 f"llama_1b sampled {mode}: malformed output")
@@ -1358,8 +1472,9 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
               f"decode_steps {a.decode_steps} mean_accept "
               f"{a.decode_tokens / a.decode_steps:.3f} ms_per_step "
               f"{dt / a.decode_steps * 1e3:.3f} (prefill included); the "
-              f"same tokens on a second run with seed 17; verify launches "
-              f"{want} [{card}]", flush=True)
+              f"same tokens on a second run with seed 17 and on the "
+              f"per-step route; verify launches {want}; "
+              f"{loop_line(loop, a.decode_steps)} [{card}]", flush=True)
 
 
 def chain_rejection_tv(card) -> None:
@@ -1561,7 +1676,13 @@ def serve_batched(engine, requests, vocab):
         fail_if(len(o.output_ids) != len(p) + n or o.output_ids[:len(p)] != p
                 or not all(0 <= t < vocab for t in o.output_ids),
                 "batched serving: malformed output")
+    LAST_LOOPS[:] = [engine.loop_stats[i] for i in ids] \
+        if hasattr(engine, "loop_stats") else []
     return outs, wall, engine.steps_run - steps0
+
+
+# the last ``serve_batched`` call's requests' device loops, in order
+LAST_LOOPS: list = []
 
 
 def report_batched(card, label, requests, outs, wall, steps, oracle,
@@ -1585,6 +1706,7 @@ def report_batched(card, label, requests, outs, wall, steps, oracle,
     DETAIL[tps_key or f"{key}_tokens_per_s"] = float(new / wall)
     note(key, ms_per_step=wall / steps * 1e3, mean_accept=new / slot_steps,
          equal_to_oracle=f"{len(outs)}/{len(oracle)}")
+    loop_check(card, label, key, LAST_LOOPS, [o.decode_steps for o in outs])
 
 
 def phase6_requests(V: int) -> list:
@@ -1820,6 +1942,8 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
           f"{sum(a.decode_tokens for a in alone) / wall:.2f} tok/s, "
           f"{wall / steps * 1e3:.3f} ms/step; every request equal to the "
           f"alpha = 0 oracle [{card}]", flush=True)
+    loop_check(card, "server engine alone", "phase8_server_alone",
+               LAST_LOOPS, [a.decode_steps for a in alone])
 
     def body(p, n, **kw):
         return {"input_ids": p, "max_new_tokens": n, "max_cache_len": S,
@@ -1863,6 +1987,9 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
         for i, (r, o) in enumerate(zip(greedy, oracle)):
             fail_if(r["output_ids"] != o.output_ids, f"server greedy request "
                     f"{i}: tokens differ from the alpha = 0 oracle")
+        loop_check(card, "server greedy", "phase8_server_greedy",
+                   [eng.loop_stats[r["request_id"]] for r in greedy],
+                   [r["decode_steps"] for r in greedy])
         acc = [r["new_tokens"] / r["decode_steps"] for r in greedy]
         note("phase8_server_greedy", equal_to_oracle=f"{len(greedy)}/16",
              mean_accept=sum(r["new_tokens"] for r in greedy)
@@ -2975,6 +3102,7 @@ class FusedSteps:
         import torch
 
         mod, eng = self.mod, self.engine
+        eng.segmented = False           # the recorder reads every step
         self._saved = (mod.forward, mod.greedy_accept, eng._step)
         fwd, acc, step = self._saved
 
@@ -3029,7 +3157,7 @@ class FusedSteps:
 
     def __exit__(self, *exc):
         self.mod.forward, self.mod.greedy_accept = self._saved[:2]
-        for name in ("_step", "_hybrid_draft"):
+        for name in ("_step", "_hybrid_draft", "segmented"):
             self.engine.__dict__.pop(name, None)
 
     def outputs(self, rid, out):
@@ -3052,6 +3180,7 @@ class ChainOracleRows:
         import samd_tpu_torch.fused_sam as fs
 
         eng, self._fwd, step = self.engine, fs.forward, self.engine._step
+        eng.segmented = False           # the recorder reads every step
         last = {}
 
         def forward(*a, **k):
@@ -3075,7 +3204,8 @@ class ChainOracleRows:
         import samd_tpu_torch.fused_sam as fs
 
         fs.forward = self._fwd
-        self.engine.__dict__.pop("_step", None)
+        for name in ("_step", "segmented"):
+            self.engine.__dict__.pop(name, None)
 
 
 def warm_harvest(engine, rng, trajectories=()) -> None:
@@ -3236,7 +3366,8 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
             (0, refs["a_random_200"].output_ids[len(a):],
              ref_rows["a_random_200"])])
     torch.cuda.synchronize()
-    cases, done, runs = [], [], []
+    state = harvest_state(engines["a_random_200"], engines["b_own_corpus"])
+    cases, done, runs, judged = [], [], [], []
     reset_counts()                              # the path starts here
     for name, p in prompts.items():
         eng = engines[name]
@@ -3247,6 +3378,7 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         r = rec.per_rid[0]
+        judged.append(out)
         cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
                       ref_rows[name], r["rows"]))
         done.append((len(p), out.decode_steps))
@@ -3274,6 +3406,9 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
           f"x {forwards} forwards; int8-KV verify "
           f"{counts['flash_block_attention_int8kv']} = 32 x {short} forwards "
           f"of T <= 128 [{card}]", flush=True)
+    graph_rerun(card, "llama_7b hybrid int8-KV", "phase11a_llama_7b_hybrid",
+                state, lambda: serve_single(engines, prompts, gen), judged,
+                counts)
 
     # (c) sampled: each accept mode twice from one saved harvest state;
     # point-mass requests equal the greedy run from that state
@@ -3382,6 +3517,7 @@ def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
                  every_path(requests, oracle, o_rows, eng.B))
     gc.collect()
     torch.cuda.synchronize()
+    state = harvest_state(eng)
     with FusedSteps(eng, fh) as rec:
         reset_counts()                          # the path starts here
         outs, wall, steps = serve_batched(eng, requests, cfg.vocab_size)
@@ -3422,6 +3558,10 @@ def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
     print(f"{label} path: K4 int8 {counts['paged_block_attention_int8kv']} = "
           f"32 x {steps} steps; K3 {counts['int4_matmul']} = 225 x "
           f"{steps + len(requests)} forwards [{card}]", flush=True)
+    graph_rerun(card, label, key, state, lambda: serve_batched_loops(
+        eng, requests, cfg.vocab_size), outs, counts)
+    fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
+            f"{label}, graph route: pages not returned")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3495,7 +3635,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
                  GenerationConfig(max_new_tokens=8))         # warm-up
     torch.cuda.synchronize()
     label = "llama_7b SAM[EAGLE-2] int8-KV"
-    cases, done, runs = [], [], []
+    cases, done, runs, judged = [], [], [], []
     with FusedSteps(eng, fh) as rec_a, FusedSteps(own, fh) as rec_b:
         recs = {"a_random_200": rec_a, "b_own_corpus": rec_b,
                 "c_repetitive": rec_a}
@@ -3508,6 +3648,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             r = rec.per_rid[rec.rid]
+            judged.append(out)
             cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
                           r["chains"], ref_rows[name], r["rows"]))
             done.append((len(p), out.decode_steps))
@@ -3525,6 +3666,8 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
                   "phase13_llama_7b_eagle_hybrid")
         for rec in (rec_a, rec_b):
             tree_depths(label, card, rec)
+    graph_rerun(card, label, "phase13_llama_7b_eagle_hybrid", [],
+                lambda: serve_single(engines, prompts, gen), judged, counts)
     steps = sum(s for _, s in done)
     forwards = sum(1 + s for _, s in done)
     short = sum(s + (n <= 128) for n, s in done)
@@ -3618,6 +3761,8 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
           f"32 x {steps} steps; K3 {counts['int4_matmul']} = 225 x "
           f"{steps + len(requests)} forwards + {hy.eagle_depth} draft-head "
           f"launches x {steps} steps [{card}]", flush=True)
+    graph_rerun(card, label, key, [], lambda: serve_batched_loops(
+        eng, requests, cfg.vocab_size), outs, counts)
     del eng, net
     gc.collect()
     torch.cuda.empty_cache()
@@ -3644,6 +3789,7 @@ class SnapAt:
         from samd_tpu_torch.ops.paged_attention import gather_pages
 
         eng, step = self.engine, self.engine._step
+        eng.segmented = False           # the snapshot reads every step
 
         def dense(side, table):
             def cut(x):
@@ -3667,7 +3813,8 @@ class SnapAt:
         return self
 
     def __exit__(self, *exc):
-        self.engine.__dict__.pop("_step", None)
+        for name in ("_step", "segmented"):
+            self.engine.__dict__.pop(name, None)
 
 
 def chain_rows(cfg, params, kv, h0, tokens, M):
@@ -3898,7 +4045,8 @@ def main_path_1b_fused(card: str) -> None:
     a = prompts["a_random"]
     warm_harvest(tr, np.random.default_rng(32), [
         (0, refs["a_random"].output_ids[len(a):], ref_rows["a_random"])])
-    cases, forwards, runs = [], 0, []
+    warm = (tr.harvests.clone(), tr.seens.clone())
+    cases, forwards, runs, judged = [], 0, [], {}
     reset_counts()                              # the path starts here
     for name, p in prompts.items():
         with FusedSteps(tr, trf) as rec:
@@ -3908,6 +4056,7 @@ def main_path_1b_fused(card: str) -> None:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         r = rec.per_rid[0]
+        judged[name] = out
         cases.append((name, p, rec.outputs(0, out), refs[name], r["chains"],
                       ref_rows[name], r["rows"]))
         forwards += 1 + out.decode_steps
@@ -3926,6 +4075,35 @@ def main_path_1b_fused(card: str) -> None:
     fail_if(counts["flash_block_attention"] != L * forwards
             or sum(counts.values()) != L * forwards,
             f"llama_1b fused Token Recycle: launch counts {counts}")
+    # the judged run read every step for its recorder; the graph route,
+    # from the same harvest, must give its tokens and steps
+    tr.harvests.copy_(warm[0])
+    tr.seens.copy_(warm[1])
+    loops, forwards, runs = [], 0, []
+    reset_counts()                              # the path starts here
+    for name, p in prompts.items():
+        t0 = time.perf_counter()
+        out = tr.generate(p, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fail_if(out != judged[name], f"llama_1b fused Token Recycle request "
+                f"{name}: the graph route differs from the judged run")
+        loops.append(tr.loop_stats)
+        forwards += 1 + out.decode_steps
+        runs.append((out.decode_tokens, out.decode_steps, dt))
+        print(f"llama_1b fused Token Recycle request {name}, graph route: "
+              f"equal to the judged run; {dt / out.decode_steps * 1e3:.3f} "
+              f"ms/step; {loop_line(loops[-1], out.decode_steps)} [{card}]",
+              flush=True)
+    counts = read_counts()                      # the path ends here
+    fail_if(counts["flash_block_attention"] != L * forwards
+            or sum(counts.values()) != L * forwards,
+            f"llama_1b fused Token Recycle, graph route: launch counts "
+            f"{counts}")
+    note("phase12_llama_1b_fused_token_recycle_graph", **run_numbers(runs))
+    loop_check(card, "llama_1b fused Token Recycle",
+               "phase12_llama_1b_fused_token_recycle_graph", loops,
+               [j.decode_steps for j in judged.values()])
     del tr, cases
     gc.collect()
 
@@ -3960,6 +4138,7 @@ def main_path_1b_fused(card: str) -> None:
             (b, o.output_ids[len(p):], rr) for b in range(kw["batch_size"])
             for (p, _), o, rr in zip(requests, oracle, o_rows)])
         torch.cuda.synchronize()
+        state = harvest_state(eng)
         with FusedSteps(eng, fh) as rec:
             reset_counts()                      # the path starts here
             outs, wall, steps = serve_batched(eng, requests, V)
@@ -3993,6 +4172,8 @@ def main_path_1b_fused(card: str) -> None:
             fail_if(len(eng.pool._free) != 32, f"{label}: pages not "
                     "returned")
             note(key, peak_pages=eng.peak_pages)
+        graph_rerun(card, label, key, state, lambda: serve_batched_loops(
+            eng, requests, V), outs, counts)
         del eng
         gc.collect()
 
@@ -4090,7 +4271,7 @@ def main_path_1b_eagle(card: str) -> None:
     label = "llama_1b FusedEagle2Engine"
     eng = FusedEagle2Engine(cfg, params, net_params=net, max_cache_len=S,
                             eos_token_id=-1)
-    cases, forwards, runs = [], 0, []
+    cases, forwards, runs, judged = [], 0, [], []
     with FusedSteps(eng, ef) as rec:
         reset_counts()                          # the path starts here
         for name, p in prompts.items():
@@ -4100,6 +4281,7 @@ def main_path_1b_eagle(card: str) -> None:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             r = rec.per_rid[rec.rid]
+            judged.append(out)
             cases.append((name, p, rec.outputs(rec.rid, out), refs[name],
                           r["chains"], ref_rows[name], r["rows"]))
             forwards += 1 + out.decode_steps
@@ -4117,6 +4299,9 @@ def main_path_1b_eagle(card: str) -> None:
     fail_if(counts["flash_block_attention"] != L * forwards
             or sum(counts.values()) != L * forwards,
             f"{label}: launch counts {counts}, expected 22 x {forwards}")
+    graph_rerun(card, label, "phase14_llama_1b_fused_eagle2", [],
+                lambda: serve_single({n: eng for n in prompts}, prompts,
+                                     gen), judged, counts)
     del eng, rec, cases
     gc.collect()
 
@@ -4207,6 +4392,8 @@ def main_path_1b_eagle(card: str) -> None:
             "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
     fail_if(counts != want or not steps,
             f"{label}: launch counts {counts}, expected {want}")
+    graph_rerun(card, label, key, [], lambda: serve_batched_loops(
+        eng, requests, V), outs, counts)
     del eng, rec, cases
     gc.collect()
 

@@ -63,8 +63,9 @@ def quantize_kv_block(block: torch.Tensor
     (one ulp away from the quotient for some amax); the port computes that
     product, so its cache bytes equal the reference engines'."""
     bf = block.float()
-    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32,
-                          device=block.device)
+    # a fill, not a host copy: this runs inside captured decode steps
+    inv127 = torch.full((), 1.0 / 127.0, dtype=torch.float32,
+                        device=block.device)
     scale = torch.clamp(bf.abs().amax(dim=-1) * inv127, min=1e-12)
     q = torch.clamp(torch.round(bf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale

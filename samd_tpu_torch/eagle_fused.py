@@ -107,7 +107,9 @@ def make_eagle_expand(net_cfg: EagleNetConfig, model_cfg: ModelConfig, *,
         beam_pool_idx = (1 + kk).expand(B, K)
         anc = torch.zeros((B, K, tree_slots), dtype=torch.bool, device=dev)
         anc[:, :, 0] = True
-        anc[:, kk, 1 + kk] = True
+        # index writes take a device value: no host copy in a captured step
+        true = torch.ones((), dtype=torch.bool, device=dev)
+        anc[:, kk, 1 + kk] = true
         # tree columns of the net KV, as each beam row sees them
         rel = torch.clamp(s_idx[None] - stable[:, None], 0, tree_slots - 1)
         in_tree = (s_idx[None] >= stable[:, None]) \
@@ -117,7 +119,7 @@ def make_eagle_expand(net_cfg: EagleNetConfig, model_cfg: ModelConfig, *,
         for lvl in range(1, depth):
             # the beam (depth lvl) takes tree slots 1 + (lvl-1)K .. + K - 1
             anc_now = anc.clone()
-            anc_now[:, kk, 1 + (lvl - 1) * K + kk] = True
+            anc_now[:, kk, 1 + (lvl - 1) * K + kk] = true
             tree_m = torch.gather(anc_now, 2,
                                   rel[:, None, :].expand(B, K, S))
             mask = prefix[:, None] | (in_tree[:, None] & tree_m)  # [B,K,S]
@@ -192,6 +194,10 @@ class EagleDraftNet:
             (slots, self.model_cfg.hidden_size), dtype=self.model_cfg.dtype,
             device=dev)
 
+    def _max_accept(self) -> int:
+        """A tree commits at most its depth + 1 tokens."""
+        return self.eagle_depth + 1
+
     def _last_start(self, W: int) -> int:
         """One stream also stops where its tree scratch would pass S, as
         the reference's loop does."""
@@ -252,9 +258,9 @@ class EagleDraftNet:
                       cols[None, None] <= pos[..., None])
         last = torch.gather(path_hidden, 1, torch.clamp(
             alens - 1, min=0).long()[:, None, None].expand(B, 1, H))[:, 0]
-        self.last_hiddens = torch.where(lives[:, None],
-                                        last.to(self.last_hiddens.dtype),
-                                        self.last_hiddens)
+        self.last_hiddens.copy_(torch.where(
+            lives[:, None], last.to(self.last_hiddens.dtype),
+            self.last_hiddens))           # in place: captured steps read it
 
 
 @dataclass(frozen=True)
@@ -262,6 +268,7 @@ class FusedEagle2Config:
     depth: int = 5
     topk: int = 8
     total_tokens: int = 63
+    steps_per_call: int = 256     # the most steps of one segment
 
     @property
     def block(self) -> int:       # verify block M = the tree
@@ -272,18 +279,19 @@ class FusedEagle2Engine(EagleDraftNet, SingleStreamEngine):
     """EAGLE-2 tree decoding over one batch-1 cache, greedy or sampled by
     the request's tree accept rule (reference
     ``samd_tpu/eagle_fused.py:154-363``).  ``net_params=None`` draws a
-    random net from a generator seeded 7; keyword arguments are
+    random net from a generator seeded 7; ``steps_per_call`` caps a
+    segment (the reference's loop length); keyword arguments are
     ``fused_sam.SingleStreamEngine``'s."""
 
     def __init__(self, model_cfg: ModelConfig, params: Params, *,
                  net_params: Optional[Dict] = None, depth: int = 5,
-                 topk: int = 8, total_tokens: int = 63, **kwargs):
+                 topk: int = 8, total_tokens: int = 63,
+                 steps_per_call: int = 256, **kwargs):
         super().__init__(model_cfg, params,
-                         FusedEagle2Config(depth, topk, total_tokens),
-                         **kwargs)
+                         FusedEagle2Config(depth, topk, total_tokens,
+                                           steps_per_call), **kwargs)
         self._init_eagle(net_params, 1, depth=depth, topk=topk,
                          total=total_tokens, M=self.cfg.block)
-        self._live = torch.ones(1, dtype=torch.bool, device=self.device)
 
     def _observe_prompt(self, slot, tokens, true_len, logits, hidden):
         self._net_prefill(slot, tokens, true_len, hidden)
@@ -296,35 +304,37 @@ class FusedEagle2Engine(EagleDraftNet, SingleStreamEngine):
         return draw_tree_noise(generators, sig, M, M, M,
                                self.model_cfg.vocab_size, self.device)
 
-    def _step(self, W, history, hist_len, start, budget, eos, accept=None,
-              noise=None):
+    def _step(self, W, history, hist_len, start, budget, done, live, eos,
+              accept=None, noise=None):
         """Expand, verify, accept, compact, extend, commit (reference
         body, ``samd_tpu/eagle_fused.py:270-318``); the contract of
-        ``fused_sam.FusedSamEngine._step``."""
+        ``fused_sam.FusedSamEngine._step``: a step that is not ``live``
+        compacts every row onto itself and keeps the net's last hidden
+        state (its net KV rows past the stable length are scratch)."""
         M = self.cfg.block
         packed, (tree_mask, depths, paths) = self._eagle_tree(
             hist_len[None], start[None])
         draft = packed[:, 0]
+        off = torch.clamp(hist_len, max=W - M)     # hist_len when live
         logits, hidden = forward(
-            self.params, self.model_cfg, draft, depths + hist_len,
-            self.kv_k, self.kv_v, hist_len,
-            block_decode_mask(tree_mask[0], hist_len, W))
+            self.params, self.model_cfg, draft, depths + off,
+            self.kv_k, self.kv_v, off,
+            block_decode_mask(tree_mask[0], off, W))
         if accept is None:
             res = greedy_accept(logits[0], draft[0], paths[0])
         else:
             res = accept(logits, draft, paths, noise)
             res = type(res)(*(t[0] for t in res))
-        compact_accepted(self.kv_k, hist_len, res.path_nodes, M)
-        compact_accepted(self.kv_v, hist_len, res.path_nodes, M)
+        pos = self._chain_pos[:res.path_nodes.shape[0]]
+        path = torch.where(live, res.path_nodes, pos)
+        compact_accepted(self.kv_k, off, path, M)
+        compact_accepted(self.kv_v, off, path, M)
         acc = torch.clamp(res.accepted_tokens, min=0)
-        pos = self._chain_pos[:acc.shape[0]]
         is_eos = (acc == eos) & (pos < res.accept_len)
         any_eos = torch.any(is_eos)
         alen = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)) + 1,
                            res.accept_len).to(torch.int32)
         self._net_extend(hidden, hist_len[None], res.path_nodes[None],
-                         acc[None], alen[None], self._live)
-        history.index_copy_(0, (hist_len + pos).long(), acc)
-        budget = budget - alen
-        return (hist_len + alen, res.next_token, budget,
-                any_eos | (budget <= 0))
+                         acc[None], alen[None], live[None])
+        return self._commit(history, hist_len, start, budget, done, live,
+                            acc, alen, any_eos, res.next_token)

@@ -159,6 +159,6 @@ def harvest_update(harvests: torch.Tensor, seens: torch.Tensor,
                         win[:, :, None].expand(B, T, K))
     flat = (r + V1 * torch.arange(B, device=dev)[:, None]).reshape(-1)
     harvests.view(B * V1, K).index_copy_(0, flat, vals.reshape(B * T, K))
-    seens.view(-1)[flat] = True
+    seens.view(-1).index_fill_(0, flat, True)   # no host copy: captured
     seens[:, V1 - 1] = False
 

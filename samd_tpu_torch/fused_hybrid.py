@@ -186,11 +186,17 @@ class HarvestTables:
     def _observe_block(self, logits: torch.Tensor, drafts: torch.Tensor,
                        lives: torch.Tensor) -> None:
         """After a verify of drafts [B, T] (-1 where invalid): harvest the
-        block's top-K rows of the live slots' valid nodes."""
+        block's top-K rows of the live slots' valid nodes.  A dead slot's
+        rows land on its sink row V, as in the reference's loop; a step
+        with no live slot (a segment's no-op step, which the reference
+        never runs) leaves the tables as they are."""
         V = self.model_cfg.vocab_size
         rows = torch.where(lives[:, None] & (drafts >= 0), drafts, V)
+        sink = self.harvests[:, V].clone()
         harvest_update(self.harvests, self.seens, rows,
                        harvest_topk(logits, self.cfg.topk))
+        self.harvests[:, V] = torch.where(lives.any(), self.harvests[:, V],
+                                          sink)
 
     def _observe_prompt(self, slot: int, tokens: torch.Tensor, true_len: int,
                         logits: torch.Tensor, hidden: torch.Tensor) -> None:
@@ -226,6 +232,11 @@ class _HybridDraft(HarvestTables):
         self._tr_draft = make_tr_draft(self.tr_parents, self.tr_depths,
                                        self.tr_rank, M, dev)
         self._init_harvest(slots)
+
+    def _max_accept(self) -> int:
+        """A retrieval chain commits at most n_predicts tokens, a tree its
+        depth + 1."""
+        return max(self.cfg.n_predicts, int(self.tr_depths.max()) + 1)
 
     # -- drafter hooks (the SAM[EAGLE-2] engines override these) ---------
     def _tree_draft(self, hist_lens: torch.Tensor,
@@ -291,47 +302,48 @@ class FusedHybridEngine(_HybridDraft, FusedSamEngine):
         self.sam_steps = 0          # the last request's retrieval drafts
         self.sam_steps_total = 0
         self.steps_total = 0
-        self._sam_count = None
+        self._sam_count = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
 
-    def _step(self, W, history, hist_len, start, budget, eos, accept=None,
-              noise=None):
+    def _step(self, W, history, hist_len, start, budget, done, live, eos,
+              accept=None, noise=None):
         """One hybrid step on the device (reference body,
-        ``samd_tpu/fused_hybrid.py:224-284``); same contract as
-        ``FusedSamEngine._step``."""
+        ``samd_tpu/fused_hybrid.py:224-284``); the contract of
+        ``FusedSamEngine._step``: a step that is not ``live`` compacts
+        every row onto itself, harvests nothing and counts no draft."""
         M = self.cfg.max_block
         use_sam, draft, kind = self._hybrid_draft(
             history[None], hist_len[None], start[None])
         tree_mask, depths, paths = self._buffers(kind)
+        off = torch.clamp(hist_len, max=W - M)     # hist_len when live
         logits, hidden = forward(
             self.params, self.model_cfg, torch.clamp(draft, min=0),
-            depths + hist_len, self.kv_k, self.kv_v, hist_len,
-            block_decode_mask(tree_mask[0], hist_len, W))
+            depths + off, self.kv_k, self.kv_v, off,
+            block_decode_mask(tree_mask[0], off, W))
         if accept is None:
             res = greedy_accept(logits[0], draft[0], paths[0])
         else:
             res = accept(logits, draft, paths, noise)
             res = type(res)(*(t[0] for t in res))
-        compact_accepted(self.kv_k, hist_len, res.path_nodes, M)
-        compact_accepted(self.kv_v, hist_len, res.path_nodes, M)
-        self._observe_block(logits, draft, torch.ones_like(use_sam))
+        D = res.path_nodes.shape[0]
+        path = torch.where(live, res.path_nodes, self._chain_pos[:D])
+        compact_accepted(self.kv_k, off, path, M)
+        compact_accepted(self.kv_v, off, path, M)
+        self._observe_block(logits, draft, live[None])
         acc = torch.clamp(res.accepted_tokens, min=0)
-        D = acc.shape[0]
         is_eos = (acc == eos) & (self._chain_pos[:D] < res.accept_len)
         any_eos = torch.any(is_eos)
         alen = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)) + 1,
                            res.accept_len).to(torch.int32)
         self._observe_accept(hidden, hist_len[None], res.path_nodes[None],
-                             acc[None], alen[None], torch.ones_like(use_sam))
-        history.index_copy_(0, (hist_len + self._chain_pos[:D]).long(), acc)
-        self._sam_count += use_sam[0].to(torch.int32)
-        budget = budget - alen
-        return (hist_len + alen, res.next_token, budget,
-                any_eos | (budget <= 0))
+                             acc[None], alen[None], live[None])
+        self._sam_count += (use_sam[0] & live).to(torch.int32)
+        return self._commit(history, hist_len, start, budget, done, live,
+                            acc, alen, any_eos, res.next_token)
 
     def generate(self, input_ids: Sequence[int],
                  gen_config: Optional[GenerationConfig] = None) -> Outputs:
-        self._sam_count = torch.zeros((), dtype=torch.int32,
-                                      device=self.device)
+        self._sam_count.zero_()
         out = super().generate(input_ids, gen_config)
         self.sam_steps = int(self._sam_count)
         self.sam_steps_total += self.sam_steps
@@ -342,7 +354,7 @@ class FusedHybridEngine(_HybridDraft, FusedSamEngine):
 class BatchedFusedHybridEngine(_HybridDraft, BatchedFusedSamEngine):
     """B request slots of SAM[Token Recycle] under continuous batching
     (reference ``samd_tpu/fused_hybrid.py:371-913``): the scheduler of
-    ``BatchedFusedSamEngine`` (segments, one control read per step,
+    ``BatchedFusedSamEngine`` (segments with one control read each,
     admission, refill, inline prefill, one sampling signature) over the
     hybrid step.  Each slot keeps its own harvest table across the requests
     it serves; only live slots harvest.  Row 5 of the control matrix counts
@@ -525,6 +537,9 @@ class _EagleHybrid(EagleDraftNet):
                                  for t in constant_buffers(chain, M))
         self._init_eagle(self.net_params, slots, depth=hc.eagle_depth,
                          topk=hc.eagle_topk, total=hc.eagle_total, M=M)
+
+    def _max_accept(self) -> int:
+        return max(self.cfg.n_predicts, self.eagle_depth + 1)
 
     def _tree_draft(self, hist_lens, starts):
         packed, self._tree_bufs = self._eagle_tree(hist_lens, starts)

@@ -5,18 +5,27 @@ Each decode step drafts by longest-suffix match over the request's own
 history and a static corpus (a scan, or with ``FusedSamConfig.indexed`` an
 n-gram index probe, ``ops.ngram_index``), verifies the chain draft with one
 forward over an M-token block, accepts a prefix of it and commits it — all
-on the device.  The reference runs these steps inside one
-``lax.while_loop``; here a host loop runs one step at a time and reads one
-packed control vector (``fused_base.pack_ctrl``) per step, the only host
-sync of the step.  The KV cache and the history are updated in place.
+on the device.  The reference runs up to ``steps_per_call`` steps inside
+one ``lax.while_loop``; here the host runs segments of steps
+(``device_loop``): on the card each segment replays the step's CUDA graph
+k times, then reads one packed control vector (``fused_base.pack_ctrl``),
+the segment's only host sync.  k is the number of steps the requests that
+decide the segment's end are certain to stay live for
+(``device_loop.segment_length``), so a segment runs past a stop only when
+an EOS ends a request inside it; a step that is not live (the reference's
+loop condition) is a no-op.  The KV cache, the history and the control
+scalars are engine buffers updated in place.  Greedy requests take the
+graphs in every engine here; a sampled one-stream request too, with its
+generator registered to the graph; a sampled batched segment runs one
+eager step and one read per step (a slot draws noise only on its own live
+steps, which a fixed graph cannot express).
 
 ``FusedSamEngine`` serves one request at a time; ``BatchedFusedSamEngine``
 steps B request slots together over a dense batched cache, with a slot
-scheduler and continuous admission; ``PagedBatchedFusedSamEngine`` keeps
-the slots' KV in a shared page pool read by the paged kernel (K4).  The
-batched engines run segments of at most ``steps_per_call`` steps, each
-step one ``[B, M]`` forward of every slot, live or not, so the shape never
-changes.
+scheduler and continuous admission at segment ends;
+``PagedBatchedFusedSamEngine`` keeps the slots' KV in a shared page pool
+read by the paged kernel (K4).  Each batched step is one ``[B, M]``
+forward of every slot, live or not, so the shape never changes.
 
 Greedy requests accept the longest prefix that matches the argmax: their
 output equals ``engine.ArBaseline(block_size=M)``'s exactly, and a batched
@@ -28,10 +37,12 @@ distribution), or the typical and nucleus posterior rules
 (``chain_posterior_accept``).  The rules are pure functions of the logits
 and of explicit noise (``ChainNoise``), computed over ``[..., M, V]`` at
 once.  Each sampled request owns one ``torch.Generator`` on the engine's
-device, seeded with ``GenerationConfig.seed``: it draws the first token
-after the prefill (from ``last_logits / temperature``, with no top-p or
-top-k, as the reference does) and then one fixed-size block of noise per
-step in which the request is live.  So a request's sampled stream depends
+device, seeded with ``GenerationConfig.seed`` (a one-stream engine reseeds
+its one generator per request): it draws the first token after the
+prefill (from ``last_logits / temperature``, with no top-p or top-k, as
+the reference does) and then one fixed-size block of noise per step in
+which the request is live (a one-stream segment's no-op steps draw too,
+after the request's last token).  So a request's sampled stream depends
 only on its seed, its prompt, the weights and its own steps — not on its
 slot, the other requests in the batch, or where segments end.  In a
 batched engine greedy slots keep the argmax path exactly; the slots that
@@ -51,6 +62,7 @@ import torch
 from .cache import init_kv_cache, update_slot
 from .config import GenerationConfig
 from .device import resolve_device
+from .device_loop import LoopStats, StepGraphs, segment_length
 from .engine import (PREFILL_BUCKETS, Outputs, _bucket, check_params_device,
                      check_request)
 from .models.configs import ModelConfig, check_supported
@@ -70,8 +82,8 @@ class FusedSamConfig:
     n_predicts: int = 59      # max draft continuation (block = +1)
     alpha: float = 4.0
     len_bias: int = 0
-    # the batched engines' segment length: the most steps between two
-    # admission points (the single-stream engine has no segments)
+    # the most steps of one segment (``device_loop``): between two host
+    # reads of one stream, between two admission points of a batch
     steps_per_call: int = 256
     corpus_capacity: int = 1 << 15  # static corpus buffer size
     # n-gram hash index (ops.ngram_index): an O(bucket) corpus probe in
@@ -332,19 +344,39 @@ class _DraftRules:
         of W slots: its block must fit."""
         return W - self.cfg.block
 
+    def _max_accept(self) -> int:
+        """The most tokens one step commits: the whole block (a chain's
+        length; a tree engine may name its depth + 1)."""
+        return self.cfg.block
+
 
 class SingleStreamEngine(_DraftRules):
     """The request loop of the one-stream fused engines (``FusedSamEngine``
     and its hybrid subclass, ``pld.PldEngine``,
-    ``token_recycle_fused.FusedTokenRecycleEngine``): a prefill into a
-    batch-1 cache (its logits shown to ``_observe_prompt``), then ``_step``
-    until the request is done, with one host read of the packed control
-    vector per step.  ``cfg.block`` is the verify block M; the cache holds
+    ``token_recycle_fused.FusedTokenRecycleEngine``,
+    ``eagle_fused.FusedEagle2Engine``): a prefill into a batch-1 cache (its
+    logits shown to ``_observe_prompt``), then ``_step`` until the request
+    is done.  ``cfg.block`` is the verify block M; the cache holds
     ``max_cache_len`` slots, or per request the smallest of
-    ``cache_buckets`` that covers prompt + budget + M.  Subclasses
-    implement ``_step`` (the contract of ``FusedSamEngine._step``); a
-    greedy-only drafter refuses sampled requests in ``_accept_rule``,
-    before the prefill."""
+    ``cache_buckets`` that covers prompt + budget + M.  One KV buffer per
+    bucket stays allocated, and the history and control scalars are
+    engine buffers written in place, so a captured step never points at
+    freed memory.
+
+    Routes (``segmented``, a class attribute): ``True`` runs segments of
+    ``device_loop.segment_length`` steps, on the card as replays of the
+    step's CUDA graph (one per cache bucket and sampling signature, in
+    ``graphs``), with one host read of the packed control vector per
+    segment; a sampled request rides the graph with its generator
+    registered to it.  ``False`` (set on an instance, by a caller that
+    reads every step) runs one eager step and one read per step.
+    ``loop_stats`` holds the last request's ``device_loop.LoopStats``.
+
+    Subclasses implement ``_step`` (the contract of
+    ``FusedSamEngine._step``); a greedy-only drafter refuses sampled
+    requests in ``_accept_rule``, before the prefill."""
+
+    segmented = True
 
     def __init__(self, model_cfg: ModelConfig, params: Params, cfg, *,
                  cache_buckets: Sequence[int] = (),
@@ -362,22 +394,41 @@ class SingleStreamEngine(_DraftRules):
         self.eos_token_id = eos_token_id
         self.prefill_buckets = tuple(b for b in prefill_buckets
                                      if b <= max_cache_len)
-        self.kv_k, self.kv_v = init_kv_cache(model_cfg, 1, max_cache_len,
-                                             self.device)
+        dev = self.device
+        # one KV buffer per cache bucket, kept for the engine's life
+        self._kv = {max_cache_len: init_kv_cache(model_cfg, 1,
+                                                 max_cache_len, dev)}
+        self.kv_k, self.kv_v = self._kv[max_cache_len]
         self._chain_pos = torch.arange(cfg.block, dtype=torch.int32,
-                                       device=self.device)
+                                       device=dev)
+        # the loop's state: the history, its length, the start token, the
+        # budget left, the stop flag and the live steps run
+        self._history = torch.zeros((max_cache_len,), dtype=torch.int32,
+                                    device=dev)
+
+        def scalar(dtype=torch.int32):
+            return torch.zeros((), dtype=dtype, device=dev)
+
+        self._hist_len, self._start, self._budget = (scalar() for _ in
+                                                      range(3))
+        self._done = scalar(torch.bool)
+        self._live_steps = scalar()
+        self._eos = torch.tensor(eos_token_id, dtype=torch.int32, device=dev)
+        self._rng: Optional[torch.Generator] = None
+        self.graphs = StepGraphs(dev)
+        self.loop_stats = LoopStats()
 
     def _prefill(self, input_ids, P: int, W: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fresh (zeroed) cache of W slots, prompt forward at offset 0;
-        returns the greedy next token (0-dim int32 on the device) and the
-        last prompt row's logits [V]."""
+        """The bucket's (zeroed) cache of W slots, prompt forward at offset
+        0; returns the greedy next token (0-dim int32 on the device) and
+        the last prompt row's logits [V]."""
         dev = self.device
-        if self.kv_k.shape[3] != W:
-            self.kv_k, self.kv_v = init_kv_cache(self.model_cfg, 1, W, dev)
-        else:
-            self.kv_k.zero_()
-            self.kv_v.zero_()
+        if W not in self._kv:
+            self._kv[W] = init_kv_cache(self.model_cfg, 1, W, dev)
+        self.kv_k, self.kv_v = self._kv[W]
+        self.kv_k.zero_()
+        self.kv_v.zero_()
         padded = torch.zeros((1, P), dtype=torch.int32)
         padded[0, :len(input_ids)] = torch.tensor(input_ids,
                                                   dtype=torch.int32)
@@ -391,17 +442,55 @@ class SingleStreamEngine(_DraftRules):
         last = logits[0, len(input_ids) - 1]
         return torch.argmax(last).to(torch.int32), last
 
+    def _commit(self, history: torch.Tensor, hist_len: torch.Tensor,
+                start: torch.Tensor, budget: torch.Tensor,
+                done: torch.Tensor, live: torch.Tensor,
+                tokens: torch.Tensor, alen: torch.Tensor,
+                any_eos: torch.Tensor, bonus: torch.Tensor):
+        """A step's shared end: write the block's ``tokens`` [D] at
+        ``hist_len`` and commit ``alen`` of them (EOS-trimmed; ``any_eos``
+        says the trim hit one), ``bonus`` the next start token.  A step
+        that is not ``live`` commits nothing and writes its history slots'
+        own values back.  Returns (hist_len, start, budget, done)."""
+        alen = torch.where(live, alen, 0)
+        idx = torch.clamp(hist_len + self._chain_pos[:tokens.shape[0]],
+                          max=history.shape[0] - 1).long()
+        history.index_copy_(0, idx, torch.where(live, tokens, history[idx]))
+        budget = budget - alen
+        return (hist_len + alen, torch.where(live, bonus, start), budget,
+                done | (live & (any_eos | (budget <= 0))))
+
+    def _loop_step(self, W: int, accept: Optional[AcceptFn],
+                   sig: Optional[tuple]) -> Callable[[], None]:
+        """One step over the engine's buffers: live under the reference's
+        loop condition (not done, budget left, ``hist_len <= last_start``),
+        and a no-op otherwise."""
+        hist_len, start, budget, done = (self._hist_len, self._start,
+                                         self._budget, self._done)
+        last_start = self._last_start(W)
+        rng = self._rng
+
+        def step():
+            live = ~done & (budget > 0) & (hist_len <= last_start)
+            noise = None if accept is None else self._draw_noise([rng], sig)
+            out = self._step(W, self._history, hist_len, start, budget, done,
+                             live, self._eos, accept, noise)
+            for dst, src in zip((hist_len, start, budget, done), out):
+                dst.copy_(src)
+            self._live_steps.add_(live.to(torch.int32))
+
+        return step
+
     def generate(self, input_ids: Sequence[int],
                  gen_config: Optional[GenerationConfig] = None) -> Outputs:
-        from .fused_base import (finalize_generation, init_history,
-                                 pack_ctrl)
+        from .fused_base import finalize_generation, init_history, pack_ctrl
 
         gen = gen_config or GenerationConfig()
         input_ids = list(input_ids)
         if not input_ids:
             raise ValueError("generate() requires a non-empty prompt")
         check_request(input_ids, gen, self.model_cfg.vocab_size)
-        accept = rng = sig = None
+        accept = sig = None
         if not gen.greedy:
             sig = gen.sampling_signature
             accept = self._accept_rule(sig)
@@ -415,33 +504,49 @@ class SingleStreamEngine(_DraftRules):
             if need <= w < self.S:
                 W = w
                 break
+        history = init_history(input_ids, self.S, "cpu")
         start, last = self._prefill(input_ids, P, W)
         if accept is not None:
-            rng = torch.Generator(device=dev)
-            rng.manual_seed(gen.seed)
-            start = draw_first_token(rng, last, gen.temperature)
+            # one generator per engine, reseeded per request: the graphs
+            # hold it registered
+            if self._rng is None:
+                self._rng = torch.Generator(device=dev)
+            self._rng.manual_seed(gen.seed)
+            start = draw_first_token(self._rng, last, gen.temperature)
+        self._history.copy_(history)
+        self._hist_len.fill_(len(input_ids))
+        self._start.copy_(start)
+        self._budget.fill_(gen.max_new_tokens)
+        self._done.fill_(False)
+        self._live_steps.zero_()
 
-        history = init_history(input_ids, self.S, dev)
-        hist_len = torch.tensor(len(input_ids), dtype=torch.int32,
-                                device=dev)
-        budget = torch.tensor(gen.max_new_tokens, dtype=torch.int32,
-                              device=dev)
-        eos = torch.tensor(self.eos_token_id, dtype=torch.int32, device=dev)
-        hl, left, done = len(input_ids), gen.max_new_tokens, False
-        decode_steps = 0
+        step = self._loop_step(W, accept, sig)
         last_start = self._last_start(W)
+        stats = LoopStats()
+        hl, left, done, live_steps = len(input_ids), gen.max_new_tokens, \
+            False, 0
         while not done and left > 0 and hl <= last_start:
-            noise = None if rng is None else self._draw_noise([rng], sig)
-            hist_len, start, budget, done_t = self._step(
-                W, history, hist_len, start, budget, eos, accept, noise)
-            # the step's one host read
-            hl, left, done_i = pack_ctrl(hist_len, budget,
-                                         done_t).cpu().tolist()
+            if self.segmented:
+                k = segment_length([hl], [left], [last_start + M], M,
+                                   self._max_accept(),
+                                   self.cfg.steps_per_call)
+                stats.replays += self.graphs.run(
+                    (W, sig), step, k, None if accept is None else self._rng)
+            else:
+                k = 1
+                step()
+            stats.steps += k
+            stats.segments += 1
+            # the segment's one host read
+            hl, left, done_i, live_steps = pack_ctrl(
+                self._hist_len, self._budget, self._done,
+                self._live_steps).cpu().tolist()
             done = bool(done_i)
-            decode_steps += 1
-        output = finalize_generation(history, hl, len(input_ids),
+        stats.noop_steps = stats.steps - live_steps
+        self.loop_stats = stats
+        output = finalize_generation(self._history, hl, len(input_ids),
                                      self.eos_token_id, gen.max_new_tokens)
-        return Outputs(output, len(output) - len(input_ids), decode_steps,
+        return Outputs(output, len(output) - len(input_ids), live_steps,
                        [])
 
 
@@ -470,15 +575,18 @@ class FusedSamEngine(SingleStreamEngine):
             len_bias=self.cfg.len_bias, block=self.cfg.block)
 
     def _step(self, W: int, history: torch.Tensor, hist_len: torch.Tensor,
-              start: torch.Tensor, budget: torch.Tensor, eos: torch.Tensor,
+              start: torch.Tensor, budget: torch.Tensor, done: torch.Tensor,
+              live: torch.Tensor, eos: torch.Tensor,
               accept: Optional[AcceptFn] = None,
               noise: Optional[ChainNoise] = None):
         """One draft → verify → accept → commit step, on the device; greedy
         without ``accept``, else that chain rule with this step's
         ``noise`` (leading slot axis of 1).  Writes the block into the
         history and the KV cache in place and returns (hist_len, start,
-        budget, done) as 0-dim tensors.  The caller keeps hist_len + M <=
-        W."""
+        budget, done) as 0-dim tensors.  A step that is not ``live`` (the
+        caller's flag: not done, budget left, the block fits) is a no-op:
+        it commits nothing, keeps hist_len, budget and start, and writes
+        its block at ``min(hist_len, W - M)``, inside the cache."""
         fc, M = self.cfg, self.cfg.block
         chain_pos = self._chain_pos
         match, _, draft_tokens, cont_avail = (t[0] for t in self._draft(
@@ -489,12 +597,12 @@ class FusedSamEngine(SingleStreamEngine):
                         max=fc.n_predicts + 1)
         draft_len = torch.where(match > 0, torch.minimum(n, 1 + cont_avail),
                                 1).to(torch.int32)
-        mask = block_decode_mask(chain_tree_mask(draft_len, M), hist_len, W)
+        off = torch.clamp(hist_len, max=W - M)     # hist_len when live
+        mask = block_decode_mask(chain_tree_mask(draft_len, M), off, W)
         logits, _ = forward(
             self.params, self.model_cfg,
             torch.clamp(draft_tokens, min=0)[None],
-            (chain_pos + hist_len)[None], self.kv_k, self.kv_v, hist_len,
-            mask)
+            (chain_pos + off)[None], self.kv_k, self.kv_v, off, mask)
         if accept is not None:
             alen, bonus = (t[0] for t in accept(
                 logits, draft_tokens[None], draft_len[None], noise))
@@ -510,16 +618,17 @@ class FusedSamEngine(SingleStreamEngine):
                            alen).to(torch.int32)
         if accept is None:
             bonus = take(argmax_tok, alen - 1)
-        history.index_copy_(0, (hist_len + chain_pos).long(), draft_tokens)
-        hist_len = hist_len + alen
-        budget = budget - alen
-        done = any_eos | (budget <= 0)
-        return hist_len, bonus, budget, done
+        return self._commit(history, hist_len, start, budget, done, live,
+                            draft_tokens, alen, any_eos, bonus)
 
 
 # ----------------------------------------------------------------------
 # Batched fused serving: continuous batching x device-resident retrieval
 # ----------------------------------------------------------------------
+
+# finished requests whose loop statistics a batched engine keeps
+LOOP_STATS_KEPT = 4096
+
 
 class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
     """B request slots stepped together (reference
@@ -548,7 +657,17 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
     forward; its prompt streams through the decode steps as a forced-accept
     chain, M tokens per step.  A sampled request is prefilled, to draw its
     first token.
+
+    ``segmented`` (a class attribute) picks the route of greedy segments:
+    ``True`` runs them as replays of the step's CUDA graph (``graphs``)
+    with one host read each (``_segment``); ``False`` (set on an
+    instance, by a caller that reads every step) one eager step and one
+    read per step.  ``loop_stats`` maps the ids of the latest
+    ``LOOP_STATS_KEPT`` finished requests to their
+    ``device_loop.LoopStats``.
     """
+
+    segmented = True
 
     def __init__(self, model_cfg: ModelConfig, params: Params,
                  fs_cfg: Optional[FusedSamConfig] = None, *,
@@ -601,7 +720,20 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
         self._slot_gen: List[Optional[torch.Generator]] = [None] * batch_size
         self.queue = []
         self.results = {}
+        # the finished requests' device_loop.LoopStats, by request id (the
+        # latest LOOP_STATS_KEPT)
+        self.loop_stats = {}
+        self._slot_loop = [LoopStats() for _ in range(batch_size)]
         self._next_id = 0
+        # the segment's buffers, uploaded once and read once a segment:
+        # rows committed lengths, start tokens, budgets, live flags (read
+        # side), decode steps, corpus steps, live steps, prompt lengths
+        # (inline prefill), capacity limits; the live flags themselves
+        self._seg = torch.zeros((9, batch_size), dtype=torch.int32,
+                                device=dev)
+        self._lives = torch.zeros((batch_size,), dtype=torch.bool,
+                                  device=dev)
+        self.graphs = StepGraphs(dev)
         self.steps_run = 0      # [B, M] decode forwards, over all runs
         # live slot-steps, and those whose draft came from the corpus
         self.stats_live_steps = 0
@@ -789,36 +921,74 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
             & (hist_lens + M <= alloc_limits)
         return hist_lens, starts, budgets, lives, slot_steps, corpus_steps
 
+    def _segment_step(self, paged: Optional[PagedAux], samp=None,
+                      accept: Optional[AcceptFn] = None
+                      ) -> Callable[..., None]:
+        """One step of every slot over the segment buffers (``_seg``'s
+        rows and ``_lives``), in place; ``step(noise)`` for a sampled
+        segment."""
+        seg, lives = self._seg, self._lives
+        state = (seg[0], seg[1], seg[2], lives, seg[4], seg[5])
+
+        def step(noise: Optional[ChainNoise] = None):
+            seg[6].add_(lives.to(torch.int32))         # live steps, prompt too
+            out = self._step(*state, seg[7], seg[8], paged, samp, accept,
+                             noise)
+            for dst, src in zip(state, out):
+                dst.copy_(src)
+
+        return step
+
+    def _read_segment(self) -> np.ndarray:
+        """The one host read: the [7, B] control matrix (rows as ``_seg``'s
+        first seven)."""
+        self._seg[3].copy_(self._lives)
+        return self._seg[:7].cpu().numpy()
+
     def _segment(self, hist_lens, starts, budgets, actives, prompt_lens,
                  refill: bool, samp: np.ndarray,
-                 sig: Optional[tuple]) -> np.ndarray:
-        """Up to ``steps_per_call`` steps; ends early when no slot is live
-        or, with ``refill``, when a slot frees.  ``samp`` [B] flags the
-        slots that sample under ``sig``.  Returns the last control matrix
-        [6, B] on the host."""
+                 sig: Optional[tuple]) -> Tuple[np.ndarray, int, int]:
+        """One segment; returns the last control matrix [7, B] on the host
+        (committed lengths, start tokens, budgets, live flags, decode
+        steps, corpus steps, live steps with prompt steps), the steps run
+        and how many of them were graph replays.  ``samp`` [B] flags the
+        slots that sample under ``sig``.
+
+        Greedy segments on the ``segmented`` route run
+        ``device_loop.segment_length`` steps (the minimum over the live
+        slots with ``refill``, else the maximum), replayed as the step's
+        CUDA graph on the card, with one host read.  A sampled segment, or
+        any on the per-step route, runs eager steps with one read each, up
+        to ``steps_per_call``, and ends early when no slot is live or, with
+        ``refill``, when a slot frees."""
         M, dev, B = self.cfg.block, self.device, self.B
         limits = self._alloc_limits()
         init_lives = actives & (budgets > 0) & (hist_lens + M <= limits)
         zeros = np.zeros_like(hist_lens)
-        ctrl = np.stack([hist_lens, starts, budgets,
-                         init_lives.astype(np.int32), zeros, zeros]
-                        ).astype(np.int32)
+        host = np.stack([hist_lens, starts, budgets,
+                         init_lives.astype(np.int32), zeros, zeros, zeros,
+                         prompt_lens, limits]).astype(np.int32)
         if not init_lives.any():
-            return ctrl
+            return host[:7], 0, 0
+        self._seg.copy_(torch.from_numpy(host))
+        self._lives.copy_(self._seg[3])
         paged = self._paged_aux()
-
-        def up(a, dtype=torch.int32):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=dev, dtype=dtype)
-
-        state = (up(hist_lens), up(starts), up(budgets),
-                 up(init_lives, torch.bool), up(zeros), up(zeros))
-        prompt_t, limits_t = up(prompt_lens), up(limits)
+        if self.segmented and not (sig is not None and samp.any()):
+            live = init_lives
+            k = segment_length(
+                hist_lens[live], budgets[live], limits[live], M,
+                self._max_accept(), self.cfg.steps_per_call, refill,
+                (prompt_lens - hist_lens)[live] if self.inline_prefill
+                else None)
+            replays = self.graphs.run("step", self._segment_step(paged), k)
+            self.steps_run += k
+            return self._read_segment(), k, replays
         accept = samp_t = None
         if sig is not None and samp.any():
             accept = self._accept_rule(sig)
-            samp_t = up(samp, torch.bool)
-        lives, steps = init_lives, 0
+            samp_t = torch.from_numpy(samp).to(dev)
+        step = self._segment_step(paged, samp_t, accept)
+        ctrl, lives, steps = host[:7], init_lives, 0
         while lives.any() and steps < self.cfg.steps_per_call \
                 and not (refill and (init_lives & ~lives).any()):
             noise = None
@@ -828,15 +998,12 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 noise = self._draw_noise(
                     [self._slot_gen[i] if samp[i] and lives[i] else None
                      for i in range(B)], sig)
-            state = self._step(*state, prompt_t, limits_t, paged, samp_t,
-                               accept, noise)
+            step(noise)
             self.steps_run += 1
-            # the step's one host read
-            ctrl = torch.stack([t.to(torch.int32) for t in state]
-                               ).cpu().numpy()
+            ctrl = self._read_segment()     # the step's one host read
             lives = ctrl[3].astype(bool)
             steps += 1
-        return ctrl
+        return ctrl, steps, 0
 
     # -- scheduler -------------------------------------------------------
     def add_request(self, input_ids: Sequence[int],
@@ -908,6 +1075,7 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 self._slot_prompt[i] = len(ids)
                 self._slot_max_new[i] = gen.max_new_tokens
                 self._slot_steps[i] = 0
+                self._slot_loop[i] = LoopStats()
                 starts[i] = nt
                 budgets[i] = gen.max_new_tokens
                 actives[i] = True
@@ -919,9 +1087,9 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                     "concurrent sampling requests must share one sampling "
                     f"signature; got {sigs}")
             self._pre_segment(hist_lens, actives)
-            ctrl = self._segment(hist_lens, starts, budgets, actives,
-                                 prompt_lens, bool(self.queue), samp,
-                                 next(iter(sigs)) if sigs else None)
+            ctrl, seg_steps, seg_replays = self._segment(
+                hist_lens, starts, budgets, actives, prompt_lens,
+                bool(self.queue), samp, next(iter(sigs)) if sigs else None)
             hist_lens = ctrl[0].copy()
             starts = ctrl[1].copy()
             budgets = ctrl[2].copy()
@@ -937,6 +1105,12 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 if not actives[i]:
                     continue
                 self._slot_steps[i] += int(steps_arr[i])
+                st = self._slot_loop[i]
+                if seg_steps:
+                    st.segments += 1
+                    st.steps += seg_steps
+                    st.replays += seg_replays
+                    st.noop_steps += seg_steps - int(ctrl[6][i])
                 if lives[i] or self._should_retry_slot(
                         i, int(hist_lens[i]), int(budgets[i])):
                     continue        # still going, or a transient stall
@@ -953,6 +1127,9 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 self.results[self._slot_req[i]] = Outputs(
                     ids[:plen] + gen_part, len(gen_part),
                     self._slot_steps[i], [])
+                self.loop_stats[self._slot_req[i]] = st
+                if len(self.loop_stats) > LOOP_STATS_KEPT:
+                    self.loop_stats.pop(next(iter(self.loop_stats)))
                 self._stream_done(self._slot_req[i])
                 actives[i] = False
                 samp[i] = False
@@ -1012,25 +1189,29 @@ class PagedBatchedFusedSamEngine(BatchedFusedSamEngine):
         self.page_reqs = [PagedRequest(self.pool, self.S)
                           for _ in range(self.B)]
         self._limits = np.zeros((self.B,), np.int32)
-        self._tables_cache = None
         self._stall = 0
         self.peak_pages = 0   # high-water mark of allocated pages
         # a stopped slot's kv_limit (hist + block) can pass S by up to one
         # block: -1 columns keep its table reads in range (and its writes
         # on the scratch page)
         self._table_pad = -(-self.cfg.block // self._page_size) + 1
+        self._tables_host = None
+        self._tables_t = torch.full(
+            (self.B, self.page_reqs[0].max_pages + self._table_pad), -1,
+            dtype=torch.int32, device=self.device)
 
     def _tables(self) -> torch.Tensor:
-        """[B, P + pad] device tables, uploaded again only when a page
+        """The [B, P + pad] device tables: one buffer for the engine's life
+        (a captured step reads it), written again only when a page
         assignment changed."""
         host = np.stack([r.host_table() for r in self.page_reqs])
         host = np.pad(host, ((0, 0), (0, self._table_pad)),
                       constant_values=-1)
-        if self._tables_cache is None or \
-                not np.array_equal(self._tables_cache[0], host):
-            self._tables_cache = (host,
-                                  torch.from_numpy(host).to(self.device))
-        return self._tables_cache[1]
+        if self._tables_host is None or \
+                not np.array_equal(self._tables_host, host):
+            self._tables_t.copy_(torch.from_numpy(host))
+            self._tables_host = host
+        return self._tables_t
 
     def _alloc_limits(self) -> np.ndarray:
         return self._limits

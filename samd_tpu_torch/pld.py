@@ -7,8 +7,9 @@ in the request's own history, a vectorized window comparison over the
 history buffer, and verifies it as a chain of ``n_predicts + 1`` tokens in
 one forward.  Greedy: the accepted prefix matches the argmax, so the output
 equals ``engine.ArBaseline(block_size=n_predicts + 1)``'s.  The request
-loop, with one control read per step, is
-``fused_sam.SingleStreamEngine``'s.
+loop is ``fused_sam.SingleStreamEngine``'s: segments of up to
+``steps_per_call`` steps, replayed as a CUDA graph on the card, with one
+control read per segment.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class PldConfig:
     num_pred_tokens 10."""
     max_ngram: int = 3
     n_predicts: int = 10          # draft continuation length
+    steps_per_call: int = 256     # the most steps of one segment
 
     @property
     def block(self) -> int:       # verify block M = start token + draft
@@ -84,19 +86,20 @@ class PldEngine(SingleStreamEngine):
         raise NotImplementedError(f"{type(self).__name__} is greedy, as "
                                   "the reference's is")
 
-    def _step(self, W, history, hist_len, start, budget, eos, accept=None,
-              noise=None):
+    def _step(self, W, history, hist_len, start, budget, done, live, eos,
+              accept=None, noise=None):
         """Draft, verify the chain (block columns past the draft masked),
-        accept the prefix matching the argmax, trim at EOS, commit."""
-        chain_pos = self._chain_pos
+        accept the prefix matching the argmax, trim at EOS, commit; a no-op
+        unless ``live`` (the contract of ``FusedSamEngine._step``)."""
+        chain_pos, M = self._chain_pos, self.cfg.block
         draft, dlen = pld_draft(history, hist_len, start,
                                 max_ngram=self.cfg.max_ngram,
                                 n_predicts=self.cfg.n_predicts)
-        mask = block_decode_mask(chain_tree_mask(dlen, self.cfg.block),
-                                 hist_len, W)
+        off = torch.clamp(hist_len, max=W - M)     # hist_len when live
+        mask = block_decode_mask(chain_tree_mask(dlen, M), off, W)
         logits, _ = forward(self.params, self.model_cfg, draft[None],
-                            (chain_pos + hist_len)[None], self.kv_k,
-                            self.kv_v, hist_len, mask)
+                            (chain_pos + off)[None], self.kv_k,
+                            self.kv_v, off, mask)
         argmax_tok = torch.argmax(logits[0], dim=-1).to(torch.int32)
         hit = (draft[1:] == argmax_tok[:-1]) & (chain_pos[1:] < dlen)
         alen = torch.cumprod(hit.to(torch.int32), dim=0).sum() + 1
@@ -105,7 +108,5 @@ class PldEngine(SingleStreamEngine):
         alen = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)) + 1,
                            alen).to(torch.int32)
         # the accepted chain prefix is already in place in the cache
-        history.index_copy_(0, (hist_len + chain_pos).long(), draft)
-        budget = budget - alen
-        return (hist_len + alen, take(argmax_tok, alen - 1), budget,
-                any_eos | (budget <= 0))
+        return self._commit(history, hist_len, start, budget, done, live,
+                            draft, alen, any_eos, take(argmax_tok, alen - 1))

@@ -4,9 +4,12 @@
 A listener registered under a request id receives each newly COMMITTED
 chunk of generated token ids (prompt excluded, budget/EOS-clamped exactly
 like the final ``Outputs``) as soon as the segment that produced it
-returns to the host.  Chunk granularity is the fused engines'
-``steps_per_call`` segment, and one step for the host-history engines
-(``batching.BatchedSamdEngine``).  Listeners run on the thread that runs the engine and must be
+returns to the host.  Chunk granularity is the fused engines' segment (up
+to ``steps_per_call`` steps, replayed from a CUDA graph on the card and
+read once, ``device_loop``; one step on their per-step route), and one
+step for the host-history engines (``batching.BatchedSamdEngine``).
+Joined, a request's chunks equal its ``Outputs``' generated tokens.
+Listeners run on the thread that runs the engine and must be
 cheap and non-blocking; an exception from one is logged with its
 traceback and dropped, so a dead client does not kill the batch.
 """

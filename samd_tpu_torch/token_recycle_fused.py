@@ -11,8 +11,10 @@ scatters the block's top-K rows back into the table
 Greedy outputs equal ``engine.ArBaseline``'s on the CPU; on the card tree
 rows attend their ancestors at other columns than a chain does
 (docs/EXACTNESS.md), so a request may first differ at a near-tie.  The
-harvest table persists across requests.  The request loop, with one
-control read per step, is ``fused_sam.SingleStreamEngine``'s.
+harvest table persists across requests.  The request loop is
+``fused_sam.SingleStreamEngine``'s: segments of up to ``steps_per_call``
+steps, replayed as a CUDA graph on the card, with one control read per
+segment.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .verify import greedy_accept
 class FusedTokenRecycleConfig:
     num_nodes: int = 61
     topk: int = 8
+    steps_per_call: int = 256     # the most steps of one segment
 
     @property
     def block(self) -> int:       # verify block M = the tree
@@ -61,33 +64,39 @@ class FusedTokenRecycleEngine(HarvestTables, SingleStreamEngine):
                                                 int(depths.max()) + 1))
         self._fill = make_tr_draft(parents, depths, rank, self.N, dev)
         self._init_harvest(1)
-        self._live = torch.ones(1, dtype=torch.bool, device=dev)
 
     def _accept_rule(self, sig: tuple):
         raise NotImplementedError(f"{type(self).__name__} is greedy, as "
                                   "the reference's is")
 
-    def _step(self, W, history, hist_len, start, budget, eos, accept=None,
-              noise=None):
+    def _max_accept(self) -> int:
+        return self.paths.shape[-1]         # the tree's depth + 1
+
+    def _step(self, W, history, hist_len, start, budget, done, live, eos,
+              accept=None, noise=None):
         """Fill, verify, accept greedily, compact, harvest, commit
-        (reference body, ``samd_tpu/token_recycle_fused.py:185-221``)."""
+        (reference body, ``samd_tpu/token_recycle_fused.py:185-221``); a
+        no-op unless ``live`` (the contract of
+        ``fused_sam.FusedSamEngine._step``): the compaction then moves
+        every row onto itself and the harvest tables stay as they are."""
+        N = self.N
         draft = self._fill(self.harvests, self.seens, start[None])  # [1, N]
-        mask = block_decode_mask(self.tree_mask, hist_len, W)
+        off = torch.clamp(hist_len, max=W - N)     # hist_len when live
+        mask = block_decode_mask(self.tree_mask, off, W)
         logits, _ = forward(self.params, self.model_cfg,
                             torch.clamp(draft, min=0),
-                            (self.positions + hist_len)[None], self.kv_k,
-                            self.kv_v, hist_len, mask)
+                            (self.positions + off)[None], self.kv_k,
+                            self.kv_v, off, mask)
         res = greedy_accept(logits[0], draft[0], self.paths)
-        compact_accepted(self.kv_k, hist_len, res.path_nodes, self.N)
-        compact_accepted(self.kv_v, hist_len, res.path_nodes, self.N)
-        self._observe_block(logits, draft, self._live)
+        pos = self._chain_pos[:res.path_nodes.shape[0]]
+        path = torch.where(live, res.path_nodes, pos)
+        compact_accepted(self.kv_k, off, path, N)
+        compact_accepted(self.kv_v, off, path, N)
+        self._observe_block(logits, draft, live[None])
         acc = torch.clamp(res.accepted_tokens, min=0)
-        pos = self._chain_pos[:acc.shape[0]]
         is_eos = (acc == eos) & (pos < res.accept_len)
         any_eos = torch.any(is_eos)
         alen = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)) + 1,
                            res.accept_len).to(torch.int32)
-        history.index_copy_(0, (hist_len + pos).long(), acc)
-        budget = budget - alen
-        return (hist_len + alen, res.next_token, budget,
-                any_eos | (budget <= 0))
+        return self._commit(history, hist_len, start, budget, done, live,
+                            acc, alen, any_eos, res.next_token)

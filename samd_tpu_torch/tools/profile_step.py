@@ -9,14 +9,17 @@ cache.  ``--model llama_7b_int4``: llama_7b at full width with packed-int4
 weights requantized from an int8 base drawn from seed 0 and an int8 KV
 cache, ``FusedSamConfig(n_predicts=15, corpus_capacity=4096,
 cache_buckets=(256, 384, 512, 768))`` over 1024 slots.  Both take the
-kernels by default; the tool runs one warm-up request, then one request of
-a repetitive 96-token prompt under ``torch.profiler``.
+kernels by default; the tool runs one warm-up request of a repetitive
+96-token prompt (it captures the step's CUDA graph for the request's cache
+bucket), then the same request again, whose first segment of graph
+replays (``device_loop``) runs under ``torch.profiler``.
 
 ``--model llama_7b_int4_paged``: the same llama_7b weights in batched
-serving, ``PagedBatchedFusedSamEngine`` at B = 12, M = 16, 16 steps per
-segment, 52 int8 pages of 128 over 1024 slots, twelve random prompts of
-40-128 tokens with 128 new tokens each; the first segment (16 steps, after
-the twelve prefills) is the warm-up, the second is profiled.
+serving, ``PagedBatchedFusedSamEngine`` at B = 12, M = 16, at most 16 steps
+per segment, 52 int8 pages of 128 over 1024 slots, twelve random prompts of
+40-128 tokens with 128 new tokens each; the first segment (after the twelve
+prefills: the eager warm-up step, the graph's capture and its first
+replays) is the warm-up, the second, all replays, is profiled.
 ``--model llama_7b_int4_paged_hybrid``: the same weights and prompts
 through ``PagedBatchedFusedHybridEngine`` with the server's block (M 24,
 a 23-node Token-Recycle tree, chains of 20, 16 steps per segment) over 64
@@ -40,6 +43,10 @@ top-8 from seed 0), so every tree draft has its full 60 nodes: one
 warm-up request, then the same repetitive 96-token prompt under the
 profiler (chain drafts from the request's SAM where it matches, else
 trees); the line gives the draft nodes per step.
+
+The fused engines' figures are one segment of graph replays: a single
+stream's without the segment's one control read, a batch's with its
+upload and read; ``SamdEngine`` runs one eager step per host read.
 
 Prints one JSON line: per decode step the wall time, the device-busy time
 (union of the kernels' intervals), the device's idle share and the kernel
@@ -320,6 +327,46 @@ def profile_paged(cfg, params, fc, S: int, top_n: int) -> dict:
             **summarize(prof, wall_us, steps, top_n, EAGLE_RANGES)}
 
 
+def profile_segment(eng, prompt, gen, top_n: int) -> dict:
+    """Profile the first segment of graph replays (at least two steps, of
+    a key captured before) of one request through a single-stream engine:
+    the segment's k steps from their enqueue to the device's end, without
+    the segment's one control read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs, run, seen = eng.graphs, eng.graphs.run, {}
+
+    def profiled_run(key, step, k, generator=None):
+        if seen or key not in graphs or k < 2:
+            return run(key, step, k, generator)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n = run(key, step, k, generator)
+            torch.cuda.synchronize()
+            seen["result"] = (prof, (time.perf_counter() - t0) * 1e6, k)
+        return n
+
+    graphs.run = profiled_run
+    try:
+        out = eng.generate(prompt, gen)
+    finally:
+        del graphs.run
+    if "result" not in seen:
+        raise RuntimeError("the request ran no segment of graph replays")
+    prof, wall_us, steps = seen["result"]
+    st = eng.loop_stats
+    return {"prompt": len(prompt), "new_tokens": out.decode_tokens,
+            "decode_steps": out.decode_steps, "segment_steps": steps,
+            "host_reads": st.segments, "replays": st.replays,
+            "noop_steps": st.noop_steps,
+            "note": "per-step figures: one profiled segment of graph "
+                    "replays (chip_smoke.py times whole requests)",
+            **summarize(prof, wall_us, steps, top_n)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("llama_1b", "llama_7b_int4",
@@ -381,14 +428,19 @@ def main(argv=None) -> int:
                              eos_token_id=-1)
     rng = np.random.default_rng(0)
     prompt = rng.integers(3, cfg.vocab_size, size=8).tolist() * 12
+    gen = GenerationConfig(max_new_tokens=args.new_tokens, max_cache_len=S)
+    if args.model != "llama_7b_int4_tree":
+        # the warm-up request captures the step's graph for this request's
+        # cache bucket; the profiled request's first segment replays it
+        eng.generate(prompt, gen)
+        torch.cuda.synchronize()
+        print(json.dumps({"card": card, "model": label,
+                          **profile_segment(eng, prompt, gen, args.top)}))
+        return 0
     eng.generate(prompt, GenerationConfig(max_new_tokens=16))   # warm-up
     torch.cuda.synchronize()
-
-    gen = GenerationConfig(max_new_tokens=args.new_tokens, max_cache_len=S)
-    if args.model == "llama_7b_int4_tree":
-        nodes.clear()
-    stats0 = dict(getattr(eng, "stats", None).source_counts) \
-        if hasattr(eng, "stats") else None
+    nodes.clear()
+    stats0 = dict(eng.stats.source_counts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -400,12 +452,11 @@ def main(argv=None) -> int:
         "new_tokens": out.decode_tokens, "decode_steps": out.decode_steps,
         "note": "per-step figures divide the whole request (prefill "
                 "included) by its decode steps",
-        **({} if stats0 is None else {"draft_steps_by_source": {
+        "draft_steps_by_source": {
             k: v - stats0.get(k, 0)
-            for k, v in eng.stats.source_counts.items()}}),
-        **({"draft_nodes_per_step": {str(n): nodes.count(n)
-                                     for n in sorted(set(nodes))}}
-           if args.model == "llama_7b_int4_tree" else {}),
+            for k, v in eng.stats.source_counts.items()},
+        "draft_nodes_per_step": {str(n): nodes.count(n)
+                                 for n in sorted(set(nodes))},
         **summarize(prof, wall_us, out.decode_steps, args.top)}))
     return 0
 

@@ -103,14 +103,6 @@ NOT_PORTED = {
     "samd_tpu.token_recycle_fused:FusedTokenRecycleConfig.approx_harvest":
         "chooses TPU's approximate top-k; the port's harvest is exact "
         "(samd_tpu_torch/engine.harvest_topk)",
-    "samd_tpu.pld:PldConfig.steps_per_call":
-        "the length of a lax.while_loop segment on the device; the port's "
-        "single-stream loop reads one control word a step "
-        "(samd_tpu_torch/fused_sam.SingleStreamEngine)",
-    "samd_tpu.token_recycle_fused:FusedTokenRecycleConfig.steps_per_call":
-        "the length of a lax.while_loop segment on the device; the port's "
-        "single-stream loop reads one control word a step "
-        "(samd_tpu_torch/fused_sam.SingleStreamEngine)",
     "samd_tpu.sam.native:best_sam_class":
         "falls back to the Python automaton when the native one cannot be "
         "built; the port refuses fallbacks (samd_tpu_torch/drafters/"
@@ -121,13 +113,13 @@ NOT_PORTED = {
 }
 
 # NOT_PORTED names that samd_tpu's own code calls on its paths: the jit,
-# pytree, Pallas and device-loop forms, TPU's approximate top-k, and the
-# fallback that the port refuses.  Any other row must name something that
+# pytree and Pallas forms, TPU's approximate top-k, and the fallback that
+# the port refuses.  Any other row must name something that
 # nothing in samd_tpu uses.
 ON_PATH = {
     "tree_flatten", "tree_unflatten", "make_retrieval_partial", "interpret",
     "DEFAULT_VARIANT", "paged_forward", "scatter_block_t", "quantize_rows",
-    "approx_harvest", "steps_per_call", "best_sam_class",
+    "approx_harvest", "best_sam_class",
 }
 
 CONST = re.compile(r"[A-Z][A-Z0-9_]*$")
