@@ -76,6 +76,15 @@ Phases, in order; any failure exits non-zero:
         at llama_7b B = 12, T = 24 (depth 4, top-4, 24 nodes) in every
         window; phase 3c also holds K3 on the head at the draft head's R
         = 8, 12 and 48;
+     h. the per-request Philox noise (``ops.request_noise``) at every
+        path shape (a first token; the single stream's nucleus step at M
+        60; B = 4 chain steps at M 16; the server's B = 12 rejection step;
+        the paged hybrid's B = 12 tree steps at M 24; an EAGLE-2 nucleus
+        step at M 64), bit for bit against its plain version on the card
+        and on the CPU, with seeds over all of int64, draw indices up to
+        2^31 and a random draw mask; timed beside its plain version,
+        ``torch.rand`` of the same shape (the library yardstick) and the
+        bound (bytes written);
   4. llama_1b path: greedy FusedSamEngine at full width (bf16, random
      weights from torch.Generator seed 0) answers three requests of 128 new
      tokens, each equal to ArBaseline(block_size=60)'s bit for bit; every
@@ -85,7 +94,9 @@ Phases, in order; any failure exits non-zero:
      same tokens both times, every forward through the verify kernel;
      point-mass sampled requests (top_k 1, or top_p 1e-6, at temperature
      1e-5: every draw forced) through the rejection and nucleus rules must
-     equal the ArBaseline oracle token for token; and
+     equal the ArBaseline oracle token for token; each sampled request
+     launches the request-noise kernel once for its first token and once
+     a step; and
      chain_sampling_accept over 4000 trials at V = 8 with the card's
      generator must stay within total variation 0.05 of the target, for a
      likely and an unlikely proposal;
@@ -113,9 +124,11 @@ Phases, in order; any failure exits non-zero:
      quarter) behind its n-gram index; the index probe must equal the scan
      on 64 queries.  Four client threads send phase 6's 16 greedy requests
      (each equal to phase 6's alpha = 0 oracle), 8 sampled ones (four
-     prompts, each twice with one seed: equal in pairs), a batch mixing
+     prompts, each twice with one seed: equal in pairs; one of them sent
+     again alone equals its reply among the eight), a batch mixing
      greedy (equal to the oracle) and sampled requests (another seed
-     differs), a batch mixing greedy requests and point-mass sampled ones
+     differs), the greedy, sampled and mixed waves each replayed from CUDA
+     graphs with fewer host reads than decode steps, a batch mixing greedy requests and point-mass sampled ones
      (top_k 1 at temperature 1e-5, each its own prompt and seed: all equal
      to the oracle), one SSE request on a prompt that commits over several
      segments (at least two chunks, equal to its blocking reply) and, while
@@ -124,8 +137,12 @@ Phases, in order; any failure exits non-zero:
      /health answers ok; every page comes back; launches as in phase 6;
   7. llama_1b batched paths: BatchedFusedSamEngine (dense) and
      PagedBatchedFusedSamEngine (bf16 pages of 128) at B = 4 answer six
-     requests of 64 new tokens, each equal to its own alpha = 0 oracle; at
-     each request where the two engines differ, the logits of a plain
+     requests of 64 new tokens, each equal to its own alpha = 0 oracle;
+     then the six sampled, three under rejection and three under nucleus
+     (a wave per signature), each twice with one seed into other slots:
+     the two replies of each pair equal, every step replayed from the
+     step's graph with one request-noise launch, fewer host reads than
+     decode steps; at each request where the two engines differ, the logits of a plain
      prefill over the shared prefix, with bf16 and with f32 probabilities,
      give the top-2 gap by the near-tie rule; and the dense engine run again
      with f32 probabilities (a scratch copy of the plain attention) is
@@ -179,7 +196,11 @@ Phases, in order; any failure exits non-zero:
      the chain-only PagedBatchedFusedSamEngine at alpha = 0 with the same
      M = 24, every slot's harvest warm along every request's oracle path
      (it fails unless some tree slot-step accepts a path of depth >= 2);
-     every page back; K3 225 launches per forward, K4 32 per step.  Over
+     every page back; K3 225 launches per forward, K4 32 per step; then
+     four of the requests sampled under the rejection rule on the graph
+     route (replays, fewer host reads than decode steps, one
+     request-noise launch a step and per request), and again from the
+     same harvest tables, each reply equal to the first.  Over
      int8 KV (phases 9, 11, 13) the judge's near-tie bound tau is the
      larger of 0.08 and the largest change a plain prefill makes to the
      oracle's top-2 gap at the bound's positions (``near_tie_rule``),
@@ -301,8 +322,10 @@ After each path phase (4-19) the phases' end-to-end numbers so far
 each phase's wall seconds) go to ``chiprun_out/chip_smoke_detail.json``
 through the port's ``evaluation.bench_emit.BenchEmitter``, which also
 prints a compact JSON line; a run cut at phase N keeps phases 1 to N - 1.
-Then a JSON line of kernels (launches summed over every path), the
-nvidia-smi line, and last the device line.
+Then a JSON line of kernels (launches summed over every path; the
+request-noise kernel, which replaces no Pallas kernel, names the
+reference's in-loop key split as what it replaces), the nvidia-smi line,
+and last the device line.
 Without a CUDA device it exits 1 before printing any result.
 """
 
@@ -1135,16 +1158,101 @@ def check_eagle_masks(card: str) -> dict:
     return errs
 
 
+# (label, B, n) of the request-noise kernel on the paths: a first-token
+# draw, phase 4's single stream under nucleus (M 60), phase 7's B = 4
+# chain steps (M 16), phases 8 and 6's B = 12 server step under rejection,
+# phase 11b's paged hybrid (M 24 tree) under rejection and nucleus, and
+# phase 13a's EAGLE-2 tree (M 64) under nucleus
+NOISE_SHAPES = (("first token", 1, 32000),
+                ("1b single nucleus M 60", 1, 60 + 61 * 32000),
+                ("1b B=4 rejection M 16", 4, 16 + 32000),
+                ("1b B=4 nucleus M 16", 4, 16 + 17 * 32000),
+                ("7b server B=12 rejection M 16", 12, 16 + 32000),
+                ("7b hybrid B=12 rejection M 24", 12, 24 * 24 + 32000),
+                ("7b hybrid B=12 nucleus M 24", 12, 24 * 24 + 25 * 32000),
+                ("7b eagle nucleus M 64", 1, 64 * 64 + 65 * 32000))
+NOISE_MAIN = "7b server B=12 rejection M 16"
+# 32-bit operations per Philox block of four uniforms: ten rounds of two
+# multiplies, two high multiplies and four xors, nine key bumps of two
+# adds, and a shift, a conversion and a multiply per uniform
+NOISE_OPS_PER_BLOCK = 10 * 8 + 9 * 2 + 4 * 3
+
+
+def check_request_noise(card: str) -> dict:
+    """Phase 3h: the per-request Philox kernel at every path shape against
+    its plain version on the card and on the CPU, bit for bit, with a
+    random draw mask (masked rows zeros), seeds over all of int64 and draw
+    indices up to 2^31; two runs bitwise equal.  Timed beside its plain
+    version, ``torch.rand`` of the same [B, n] from a CUDA generator (the
+    library yardstick, which the port never calls) and the bound."""
+    import torch
+
+    from samd_tpu_torch.ops.request_noise import (request_uniforms,
+                                                  request_uniforms_plain)
+
+    before = request_uniforms.launches       # comparisons count nowhere
+    rng = np.random.default_rng(51)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    row = None
+    for label, B, n in NOISE_SHAPES:
+        seeds = torch.from_numpy(rng.integers(
+            -(1 << 63), (1 << 63) - 1, size=B, dtype=np.int64)).cuda()
+        draws = torch.from_numpy(rng.integers(0, 1 << 31, size=B).astype(
+            np.int32)).cuda()
+        mask = torch.from_numpy(rng.random(B) < 0.75).cuda()
+        mask[0] = True
+        got = request_uniforms(seeds, draws, n, mask)
+        again = request_uniforms(seeds, draws, n, mask)
+        plain = request_uniforms_plain(seeds, draws, n, mask)
+        cpu = request_uniforms_plain(seeds.cpu(), draws.cpu(), n, mask.cpu())
+        torch.cuda.synchronize()
+        fail_if(not torch.equal(got, again), f"request_noise {label}: two "
+                "runs differ")
+        fail_if(not torch.equal(got, plain), f"request_noise {label}: "
+                "kernel and plain version differ on the card")
+        fail_if(not torch.equal(got.cpu(), cpu), f"request_noise {label}: "
+                "kernel and plain version on the CPU differ")
+        fail_if(got[~mask].any() or not bool((got[mask] < 1).all())
+                or bool((got < 0).any()), f"request_noise {label}: a value "
+                "outside [0, 1) or a masked row not zero")
+        ms = cuda_ms(lambda i: request_uniforms(seeds, draws, n, mask),
+                     iters=200)
+        plain_ms = cuda_ms(lambda i: request_uniforms_plain(
+            seeds, draws, n, mask), iters=10)
+        library_ms = cuda_ms(lambda i: torch.rand(
+            (B, n), generator=gen, device="cuda"), iters=200)
+        bound_ms, bound_by = bound(B * n * 4 + B * (8 + 4 + 1),
+                                   B * -(-n // 4) * NOISE_OPS_PER_BLOCK,
+                                   "float32")
+        print(f"kernel request_noise {label} [B {B}, n {n}]: bitwise equal "
+              f"to the plain version on the card and on the CPU "
+              f"(max_abs_err 0), {int(mask.sum())} of {B} rows drawn; "
+              f"kernel_ms {ms:.5f} plain_ms {plain_ms:.4f} library_ms "
+              f"{library_ms:.5f} (torch.rand) bound_ms {bound_ms:.5f} "
+              f"({bound_by}) [{card}]", flush=True)
+        if label == NOISE_MAIN:
+            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
+        del got, again, plain, cpu
+    torch.cuda.empty_cache()
+    request_uniforms.launches = before
+    return row
+
+
 def reset_counts() -> None:
     from samd_tpu_torch.ops.flash_attention import flash_block_attention
     from samd_tpu_torch.ops.int4_matmul import int4_matmul
     from samd_tpu_torch.ops.paged_attention import paged_block_attention
+    from samd_tpu_torch.ops.request_noise import request_uniforms
 
     flash_block_attention.launches = 0
     flash_block_attention.launches_int8 = 0
     int4_matmul.launches = 0
     paged_block_attention.launches = 0
     paged_block_attention.launches_int8 = 0
+    request_uniforms.launches = 0
 
 
 # every path's launches, summed over the run for the kernels line
@@ -1170,8 +1278,19 @@ def run_numbers(runs) -> dict:
                 mean_accept=new / steps)
 
 
+def noise_count() -> int:
+    """The request-noise kernel's launches since ``reset_counts``: every
+    sampled request's first-token draw and every step of a sampled
+    segment (``read_counts`` adds them to ``TOTALS``)."""
+    from samd_tpu_torch.ops.request_noise import request_uniforms
+
+    return request_uniforms.launches
+
+
 def read_counts() -> dict:
-    """The launches since ``reset_counts``, added to ``TOTALS``."""
+    """The launches of the model's kernels since ``reset_counts`` (the
+    request-noise kernel's are ``noise_count``), all added to
+    ``TOTALS``."""
     from samd_tpu_torch.ops.flash_attention import flash_block_attention
     from samd_tpu_torch.ops.int4_matmul import int4_matmul
     from samd_tpu_torch.ops.paged_attention import paged_block_attention
@@ -1185,6 +1304,7 @@ def read_counts() -> dict:
                   paged_block_attention.launches_int8}
     for k, v in counts.items():
         TOTALS[k] = TOTALS.get(k, 0) + v
+    TOTALS["request_noise"] = TOTALS.get("request_noise", 0) + noise_count()
     return counts
 
 
@@ -1452,6 +1572,7 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
+        noise = noise_count()
         loop = engine.loop_stats
         b = engine.generate(prompt, gen)
         fail_if(a.output_ids != b.output_ids,
@@ -1468,12 +1589,16 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
             v for k, v in counts.items() if k != "flash_block_attention"),
                 f"llama_1b sampled {mode}: launch counts {counts}, expected "
                 f"{want} verify launches")
+        fail_if(noise != loop.steps + 1, f"llama_1b sampled {mode}: "
+                f"{noise} request-noise launches, expected {loop.steps + 1} "
+                "(the first token and every step)")
         print(f"llama_1b sampled {mode} {knobs}: new {a.decode_tokens} "
               f"decode_steps {a.decode_steps} mean_accept "
               f"{a.decode_tokens / a.decode_steps:.3f} ms_per_step "
               f"{dt / a.decode_steps * 1e3:.3f} (prefill included); the "
               f"same tokens on a second run with seed 17 and on the "
-              f"per-step route; verify launches {want}; "
+              f"per-step route; verify launches {want}, request-noise "
+              f"launches {noise}; "
               f"{loop_line(loop, a.decode_steps)} [{card}]", flush=True)
 
 
@@ -1654,10 +1779,11 @@ def main_path_7b(card: str, cfg, params) -> tuple:
     return counts["int4_matmul"], counts["flash_block_attention_int8kv"]
 
 
-def serve_batched(engine, requests, vocab):
-    """Queue every (prompt, budget) request, run the engine to the end and
-    check each output's form; returns (outputs in order, wall seconds,
-    [B, M] forwards run)."""
+def serve_batched(engine, requests, vocab, gens=None):
+    """Queue every (prompt, budget) request, greedy or under its entry of
+    ``gens`` (GenerationConfig keyword arguments), run the engine to the
+    end and check each output's form; returns (outputs in order, wall
+    seconds, [B, M] forwards run)."""
     import torch
 
     from samd_tpu_torch.config import GenerationConfig
@@ -1665,9 +1791,10 @@ def serve_batched(engine, requests, vocab):
     steps0 = engine.steps_run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids = [engine.add_request(p, GenerationConfig(max_new_tokens=n,
-                                                  max_cache_len=engine.S))
-           for p, n in requests]
+    ids = [engine.add_request(p, GenerationConfig(
+        max_new_tokens=n, max_cache_len=engine.S, **(gens[i] if gens
+                                                     else {})))
+           for i, (p, n) in enumerate(requests)]
     out = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1707,6 +1834,56 @@ def report_batched(card, label, requests, outs, wall, steps, oracle,
     note(key, ms_per_step=wall / steps * 1e3, mean_accept=new / slot_steps,
          equal_to_oracle=f"{len(outs)}/{len(oracle)}")
     loop_check(card, label, key, LAST_LOOPS, [o.decode_steps for o in outs])
+
+
+def sampled_wave(card, label, key, engine, requests, gens, vocab,
+                 want_counts) -> list:
+    """Sampled requests through a batched engine, every slot sampling: the
+    same launches of the model's kernels as ``want_counts(steps)`` gives,
+    one request-noise launch per step and per request (its first token),
+    the device loop through ``loop_check`` as a greedy path's (replays, no
+    read per decode step); ms/step and tok/s recorded as ``key_*``.
+    Returns the outputs."""
+    reset_counts()                              # the path starts here
+    outs, wall, steps = serve_batched(engine, requests, vocab, gens)
+    counts = read_counts()                      # the path ends here
+    noise = noise_count()
+    want = want_counts(steps)
+    fail_if(counts != want or not steps, f"{label}: launch counts {counts}, "
+            f"expected {want}")
+    fail_if(noise != steps + len(requests), f"{label}: {noise} request-noise"
+            f" launches, expected {steps} steps + {len(requests)} first "
+            "tokens")
+    new = sum(o.decode_tokens for o in outs)
+    print(f"{label}: {len(outs)} sampled requests, {new} new tokens, {steps}"
+          f" steps, wall {wall:.3f} s (prefills included): {new / wall:.2f} "
+          f"tok/s, {wall / steps * 1e3:.3f} ms/step; request-noise launches "
+          f"{noise} = {steps} steps + {len(requests)} first tokens [{card}]",
+          flush=True)
+    note(key, tokens_per_s=new / wall, ms_per_step=wall / steps * 1e3)
+    loop_check(card, label, key, LAST_LOOPS, [o.decode_steps for o in outs])
+    return outs
+
+
+def sampled_pairs_1b(card, name, eng, requests, vocab, want_counts) -> None:
+    """Phase 7, sampled: the six requests, three under rejection and three
+    under nucleus (one wave per signature), each sent twice with one seed
+    into other slots: the two replies of each pair equal."""
+    modes = (("rejection", dict(temperature=0.8, top_k=50)),
+             ("nucleus", dict(temperature=0.8, top_p=0.9)))
+    for w, (mode, knobs) in enumerate(modes):
+        reqs = [r for r in requests[3 * w:3 * w + 3] for _ in range(2)]
+        gens = [dict(greedy=False, seed=400 + 10 * w + i // 2,
+                     accept_mode=mode, **knobs) for i in range(len(reqs))]
+        label = f"llama_1b bf16 {name} B=4 sampled {mode}"
+        outs = sampled_wave(card, label,
+                            f"phase7_llama_1b_{name}_b4_sampled_{mode}", eng,
+                            reqs, gens, vocab, want_counts)
+        bad = [i for i in range(0, len(outs), 2)
+               if outs[i].output_ids != outs[i + 1].output_ids]
+        fail_if(bad, f"{label}: pairs {bad} (one seed each) gave two outputs")
+        print(f"{label}: each of the {len(outs) // 2} pairs (one seed, two "
+              f"slots) equal [{card}]", flush=True)
 
 
 def phase6_requests(V: int) -> list:
@@ -2009,6 +2186,17 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
             fail_if(sampled[2 * i]["output_ids"]
                     != sampled[2 * i + 1]["output_ids"],
                     f"server sampled prompt {i}: one seed, two outputs")
+        loop_check(card, "server sampled", "phase8_server_sampled",
+                   [eng.loop_stats[r["request_id"]] for r in sampled],
+                   [r["decode_steps"] for r in sampled])
+        # one of them again, alone in the batch: its stream does not
+        # depend on the seven requests it shared the batch with
+        again = timed([pairs[1]], "sampled alone")[0]
+        fail_if(again["output_ids"] != sampled[2]["output_ids"],
+                "server sampled: prompt 1 sent alone gave other tokens than "
+                "in the wave of eight")
+        print("server sampled: prompt 1 sent again alone equals its reply "
+              "in the wave of eight", flush=True)
 
         # mixed: greedy and sampled requests in turn, so the four in
         # flight at any time hold both kinds in one batch
@@ -2019,6 +2207,9 @@ def main_path_server(card: str, cfg, params, requests, oracle) -> dict:
             fail_if(r["output_ids"] != oracle[4 + i].output_ids,
                     f"server mixed greedy request {i}: tokens differ from "
                     "the alpha = 0 oracle")
+        loop_check(card, "server mixed", "phase8_server_mixed",
+                   [eng.loop_stats[r["request_id"]] for r in mixed],
+                   [r["decode_steps"] for r in mixed])
         fail_if(mixed[1]["output_ids"] == sampled[0]["output_ids"],
                 "server: seeds 100 and 200 gave the same tokens on prompt 0")
         print("server sampled: each pair equal per seed; seeds 100 and 200 "
@@ -2198,6 +2389,15 @@ def main_path_1b_batched(card: str) -> int:
                 "paged_block_attention_int8kv": 0}
         fail_if(counts != want or not steps,
                 f"llama_1b {name}: launch counts {counts}, expected {want}")
+        sampled_pairs_1b(card, name, eng, requests, cfg.vocab_size,
+                         lambda steps, name=name, n=6: {
+                             "flash_block_attention": cfg.num_layers * n,
+                             "flash_block_attention_int8kv": 0,
+                             "int4_matmul": 0,
+                             "paged_block_attention":
+                                 cfg.num_layers * steps
+                                 if name == "paged" else 0,
+                             "paged_block_attention_int8kv": 0})
         if name == "paged":
             fail_if(len(eng.pool._free) != 32,
                     "llama_1b paged: pages not returned")
@@ -3562,10 +3762,45 @@ def main_path_7b_paged_hybrid(card, cfg, params, requests) -> tuple:
         eng, requests, cfg.vocab_size), outs, counts)
     fail_if(len(eng.pool._free) != n_pages or eng.live_kv_tokens() != 0,
             f"{label}, graph route: pages not returned")
+    paged_hybrid_sampled_pair(card, label, key, eng, requests[:4], cfg)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return oracle, o_rows, corpus, noise
+
+
+def paged_hybrid_sampled_pair(card, label, key, eng, requests, cfg) -> None:
+    """Phase 11b, sampled: four requests under the rejection rule through
+    the paged hybrid at B = 12 on the graph route (``sampled_wave``), then
+    again from the same harvest tables: each request's two replies equal."""
+    import torch
+
+    L = cfg.num_layers
+    gens = [dict(greedy=False, temperature=0.8, seed=500 + i,
+                 accept_mode="rejection") for i in range(len(requests))]
+    p128 = sum(len(p) <= 128 for p, _ in requests)
+    state = harvest_state(eng)
+    first = sampled_wave(
+        card, f"{label} sampled", f"{key}_sampled", eng, requests, gens,
+        cfg.vocab_size, lambda steps: {
+            "flash_block_attention": L * p128,
+            "flash_block_attention_int8kv": 0,
+            "int4_matmul": (7 * L + 1) * (steps + len(requests)),
+            "paged_block_attention": 0,
+            "paged_block_attention_int8kv": L * steps})
+    for e, saved in state:
+        for name, t in saved:
+            getattr(e, name).copy_(t)
+    torch.cuda.synchronize()
+    second, _, _ = serve_batched(eng, requests, cfg.vocab_size, gens)
+    bad = [i for i, (a, b) in enumerate(zip(first, second))
+           if a.output_ids != b.output_ids]
+    fail_if(bad, f"{label} sampled: requests {bad} gave other tokens from "
+            "the same harvest and seeds")
+    fail_if(len(eng.pool._free) != eng.pool.n_pages,
+            f"{label} sampled: pages not returned")
+    print(f"{label} sampled: {len(first)} requests, each equal on a second "
+          f"run from the same harvest tables [{card}]", flush=True)
 
 
 def tree_depths(label, card, rec) -> None:
@@ -5989,6 +6224,7 @@ def main() -> int:
                                         errs[(key, torch.bfloat16)])
     rows["paged_block_attention_int8kv"]["max_abs_err"] = max(
         rows["paged_block_attention_int8kv"]["max_abs_err"], errs["k4"])
+    rows["request_noise"] = check_request_noise(card)
 
     lap("phase 3")
     from samd_tpu_torch.evaluation.bench_emit import BenchEmitter
@@ -6094,6 +6330,10 @@ def main() -> int:
         "paged_block_attention_int8kv": (
             "samd_tpu_torch/csrc/flash_block_attention.cu",
             "samd_tpu/ops/paged_attention.py:40"),
+        # no Pallas kernel: the reference splits each slot's jax.random
+        # key inside its XLA loop there
+        "request_noise": ("samd_tpu_torch/csrc/request_noise.cu",
+                          "samd_tpu/fused_sam.py:682"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],

@@ -11,7 +11,7 @@ together:
     ``[B, M]`` forward with per-slot cache offsets ``[B]`` (the plain
     attention over the dense batched cache, as ``BatchedFusedSamEngine``
     does), accepts per slot (greedy, or the request's tree rule under its
-    own generator's noise) and compacts each slot's accepted path in place
+    own stream's noise) and compacts each slot's accepted path in place
     (``cache.compact_accepted_batched``); it reads one ``[B, 2 + D]``
     control matrix back, plus the ``[B, M, K]`` top-K harvest when the
     drafters consume it;
@@ -26,9 +26,10 @@ forward scatters the block into pages and attends straight over the pool
 slot's accepted rows, and a request's pages return to the pool when it
 finishes.  Like the reference it refuses an int8 pool.
 
-Sampled requests: each holds a ``torch.Generator`` seeded with
-``GenerationConfig.seed`` that draws its first token and one block of tree
-noise per step it takes (``verify.draw_tree_noise``), the same draws as
+Sampled requests: each slot keeps its request's seed and draw counter on
+the device (``ops.request_noise``); draw 0 gives the first token and each
+step the request takes one block of tree noise (``verify.draw_tree_noise``,
+the counter advancing only on its own steps), the same draws as
 ``engine.SamdEngine`` makes for it alone; greedy slots keep the argmax
 path.  The slots that sample at once must share one sampling signature
 (``run`` raises ``ValueError`` otherwise).
@@ -51,6 +52,7 @@ from .engine import (HARVEST_TOPK, PREFILL_BUCKETS, HostCopy, Outputs,
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.paged_attention import boundary_mask_window
+from .ops.request_noise import seed_word
 from .ops.treeops import pack_draft_host, unpack_draft
 from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
                        paged_compact_block, paged_flat_indices,
@@ -73,7 +75,6 @@ class _Slot:
     accept_lens: List[int] = field(default_factory=list)
     max_new_tokens: int = 0
     sig: Optional[tuple] = None             # sampling signature (None = greedy)
-    generator: Optional[torch.Generator] = None
 
     @property
     def active(self) -> bool:
@@ -119,6 +120,11 @@ class BatchedSamdEngine(ProgressStreamMixin):
         self.results: Dict[int, Outputs] = {}
         self._next_id = 0
         self._pad_draft = pack_draft_host([0], [-1], samd_cfg.max_predicts)
+        # each sampling slot's stream: its seed and next draw index
+        self._seeds = torch.zeros((batch_size,), dtype=torch.int64,
+                                  device=self.device)
+        self._draws = torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=self.device)
         self.steps_run = 0      # [B, M] decode forwards, over all runs
 
     # -- KV backend (the paged variant overrides these) --------------------
@@ -195,12 +201,13 @@ class BatchedSamdEngine(ProgressStreamMixin):
                 continue
             rid, input_ids, gen = self.queue.pop(0)
             first, last, topk = self._prefill_slot(slot_idx, input_ids)
-            sig = g = None
+            sig = None
             if not gen.greedy:
                 sig = gen.sampling_signature
-                g = torch.Generator(device=self.device)
-                g.manual_seed(gen.seed)
-                first = draw_first_token(g, last, gen.temperature)
+                self._seeds[slot_idx] = seed_word(gen.seed)
+                self._draws[slot_idx] = 1
+                first = draw_first_token(self._seeds[slot_idx:slot_idx + 1],
+                                         last[None], gen.temperature)[0]
             first, topk = HostCopy([first, topk]).wait()
             drafter = self.drafter_factory()
             drafter.reset()
@@ -209,7 +216,7 @@ class BatchedSamdEngine(ProgressStreamMixin):
                 request_id=rid, drafter=drafter,
                 cache_len=len(input_ids), start_token=int(first),
                 prompt_len=len(input_ids), output=list(input_ids),
-                max_new_tokens=gen.max_new_tokens, sig=sig, generator=g)
+                max_new_tokens=gen.max_new_tokens, sig=sig)
 
     def _finish(self, slot_idx: int) -> None:
         s = self.slots[slot_idx]
@@ -243,12 +250,11 @@ class BatchedSamdEngine(ProgressStreamMixin):
             sig = next(iter(sigs))
             samp = [i in stepping and self.slots[i].sig is not None
                     for i in range(self.B)]
-            noise = draw_tree_noise(
-                [self.slots[i].generator if samp[i] else None
-                 for i in range(self.B)], sig, M, M, D,
-                self.model_cfg.vocab_size, dev)
-            s = make_accept_fn(sig)(logits, tokens, paths, noise)
             flag = torch.tensor(samp, device=dev)
+            noise = draw_tree_noise(self._seeds, self._draws, flag, sig, M,
+                                    M, D, self.model_cfg.vocab_size)
+            self._draws.add_(flag.to(torch.int32))
+            s = make_accept_fn(sig)(logits, tokens, paths, noise)
 
             def sel(a, b):
                 return torch.where(flag.reshape((-1,) + (1,) * (a.dim() - 1)),

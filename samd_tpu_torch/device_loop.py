@@ -12,9 +12,12 @@ loop and reads one control vector when it ends.  Here the host runs a
 - ``StepGraphs`` holds one ``torch.cuda.CUDAGraph`` per shape key of an
   engine's step (one stream: the cache bucket W and the sampling signature,
   as the reference builds one program per ``(sig, Wn)``; the batched
-  engines: one ``[B, M]`` step).  A step is a closure that reads and writes
-  only static buffers (the KV cache, the history, the control scalars), so
-  replaying its graph k times runs k steps with no host work between them.
+  engines: one ``[B, M]`` step per sampling signature).  A step is a
+  closure that reads and writes only static buffers (the KV cache, the
+  history, the control scalars, and for a sampled step each request's seed
+  and draw counter, from which ``ops.request_noise`` draws its noise on
+  the device), so replaying its graph k times runs k steps with no host
+  work between them, greedy or sampled.
   The first step of a key runs eagerly (a real step, the warm-up), then the
   key is captured, then replayed.  A capture that fails raises.
 - ``segment_length`` picks k from what the host knows: the number of steps
@@ -25,7 +28,8 @@ loop and reads one control vector when it ends.  Here the host runs a
 A graph records its kernels without running them, so the wrappers' launch
 counters (``ops.int4_matmul.int4_matmul.launches``,
 ``ops.flash_attention.flash_block_attention.launches[_int8]``,
-``ops.paged_attention.paged_block_attention.launches[_int8]``) move at
+``ops.paged_attention.paged_block_attention.launches[_int8]``,
+``ops.request_noise.request_uniforms.launches``) move at
 capture and not at replay.  ``StepGraphs`` takes the capture's increments
 back and adds each key's launches per step, times k, on every replay, so
 the counters still count the kernels that ran.
@@ -37,20 +41,22 @@ same step function, as a kernel's plain version is.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
 from .ops.flash_attention import flash_block_attention
 from .ops.int4_matmul import int4_matmul
 from .ops.paged_attention import paged_block_attention
+from .ops.request_noise import request_uniforms
 
 # (wrapper, counter attribute): every launch counter of the port's kernels
 LAUNCH_COUNTERS = ((flash_block_attention, "launches"),
                    (flash_block_attention, "launches_int8"),
                    (int4_matmul, "launches"),
                    (paged_block_attention, "launches"),
-                   (paged_block_attention, "launches_int8"))
+                   (paged_block_attention, "launches_int8"),
+                   (request_uniforms, "launches"))
 
 
 def _read_counters() -> List[int]:
@@ -83,10 +89,7 @@ class StepGraphs:
     on the CPU, k eager calls.  ``step()`` must read and write only
     buffers that outlive the graph, and hold no host sync.  All graphs of
     one holder share one memory pool and one capture stream: each step's
-    temporaries die inside it, and the holder's graphs never run at once.
-    A sampled step draws from a ``torch.Generator`` that is registered
-    with its graph (``generator``); each replay then advances that
-    generator as the eager step does."""
+    temporaries die inside it, and the holder's graphs never run at once."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -105,8 +108,7 @@ class StepGraphs:
         order."""
         return list(self._graphs[key][1])
 
-    def run(self, key: Hashable, step: Callable[[], None], k: int,
-            generator: Optional[torch.Generator] = None) -> int:
+    def run(self, key: Hashable, step: Callable[[], None], k: int) -> int:
         """Run ``step`` k >= 1 times; returns how many of them were graph
         replays."""
         if k < 1:
@@ -120,7 +122,7 @@ class StepGraphs:
             k -= 1
             if k == 0:
                 return 0
-            self._graphs[key] = self._capture(step, generator)
+            self._graphs[key] = self._capture(step)
         graph, per_step = self._graphs[key]
         for _ in range(k):
             graph.replay()
@@ -128,13 +130,11 @@ class StepGraphs:
         self.replays += k
         return k
 
-    def _capture(self, step, generator):
+    def _capture(self, step):
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
         before = _read_counters()
         # thread_local: a server's other threads may use the card meanwhile
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,

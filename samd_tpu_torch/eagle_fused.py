@@ -299,10 +299,10 @@ class FusedEagle2Engine(EagleDraftNet, SingleStreamEngine):
     def _accept_rule(self, sig: tuple):
         return make_accept_fn(sig)
 
-    def _draw_noise(self, generators, sig: tuple):
+    def _draw_noise(self, seeds, draws, mask, sig: tuple):
         M = self.cfg.block
-        return draw_tree_noise(generators, sig, M, M, M,
-                               self.model_cfg.vocab_size, self.device)
+        return draw_tree_noise(seeds, draws, mask, sig, M, M, M,
+                               self.model_cfg.vocab_size)
 
     def _step(self, W, history, hist_len, start, budget, done, live, eos,
               accept=None, noise=None):

@@ -10,10 +10,11 @@ place.
 
 Greedy requests accept the longest path that matches the argmax.  Sampled
 requests (``GenerationConfig(greedy=False)``) accept by the tree rule of
-their ``accept_mode`` (``verify.make_accept_fn``): each owns one
-``torch.Generator`` on the engine's device, seeded with
-``GenerationConfig.seed``, which draws the first token after the prefill
-and then one fixed-size block of noise per step (``verify.TreeNoise``).
+their ``accept_mode`` (``verify.make_accept_fn``): each draws from its
+counter-based stream on the device, keyed by ``GenerationConfig.seed``
+(``ops.request_noise``, the stream of every sampling engine of the
+package): draw 0 gives the first token after the prefill, then each step
+takes the next draw, one fixed-size block of noise (``verify.TreeNoise``).
 
 ``ArBaseline(block_size=M)`` runs vanilla AR decoding through the same
 M-wide step (one real token + padding).  Row position inside a block does
@@ -61,6 +62,7 @@ from .drafters.base import Draft
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.quant import tensors
+from .ops.request_noise import seed_tensor
 from .ops.treeops import pack_draft_host, unpack_draft, unpack_draft_device
 from .verify import (draw_first_token, draw_tree_noise, greedy_accept,
                      make_accept_fn)
@@ -311,13 +313,13 @@ class SamdEngine:
 
         self.drafter.reset()
         first, last, topk, hidden = self._prefill(input_ids)
-        accept = rng = sig = None
+        accept = seeds = draws = sig = None
         if not gen.greedy:
             sig = gen.sampling_signature
             accept = make_accept_fn(sig)
-            rng = torch.Generator(device=dev)
-            rng.manual_seed(gen.seed)
-            first = draw_first_token(rng, last, gen.temperature)
+            seeds = seed_tensor([gen.seed], dev)
+            draws = torch.ones((1,), dtype=torch.int32, device=dev)
+            first = draw_first_token(seeds, last[None], gen.temperature)[0]
         first, topk = HostCopy([first, topk]).wait()
         self.drafter.observe_prompt(input_ids, topk)
         if self.wants_hidden:
@@ -340,10 +342,11 @@ class SamdEngine:
                 t0 = prof.lap("draft_lookup", t0)
             offset = torch.tensor(cache_len, dtype=torch.int32, device=dev)
             noise = None
-            if rng is not None:
-                noise = draw_tree_noise([rng], sig, M, M, D,
-                                        self.model_cfg.vocab_size, dev)
+            if accept is not None:
+                noise = draw_tree_noise(seeds, draws, None, sig, M, M, D,
+                                        self.model_cfg.vocab_size)
                 noise = type(noise)(*(t[0] for t in noise))
+                draws.add_(1)
             pack, topk, path_hidden = self._decode_step(offset, draft,
                                                         accept, noise)
             pending = HostCopy([pack, topk])

@@ -23,7 +23,7 @@ step but its control vector.
 ``FusedHybridEngine`` serves one request over a batch-1 cache (the verify
 kernel, its int8-KV mode with ``kv_quant``), with per-request cache
 buckets; ``BatchedFusedHybridEngine`` steps B slots through the scheduler
-of ``fused_sam.BatchedFusedSamEngine`` (one control read per step,
+of ``fused_sam.BatchedFusedSamEngine`` (one control read per segment,
 continuous admission, inline prefill); ``PagedBatchedFusedHybridEngine``
 keeps their KV in a shared page pool (K4), of q's type or int8.  Greedy
 outputs equal ``engine.ArBaseline(block_size=max_block)``'s wherever every
@@ -31,7 +31,9 @@ draft was a chain; tree rows attend their ancestors at other columns than
 a chain does (docs/EXACTNESS.md), so on the card a tree-drafted request
 may first differ at a near-tie.  Sampled requests accept by the tree rule
 of their ``accept_mode`` (``verify.make_accept_fn``) with the noise of
-their own ``torch.Generator`` (``verify.TreeNoise``).
+their own counter-based stream on the device (``verify.TreeNoise``,
+``ops.request_noise``), so sampled segments replay as CUDA graphs as
+greedy ones do.
 
 The harvest's top-K is ``engine.harvest_topk`` (a stable sort: the
 reference's exact ``lax.top_k``, which its ``approx_max_k`` equals on the
@@ -255,10 +257,10 @@ class _HybridDraft(HarvestTables):
     def _accept_rule(self, sig: tuple):
         return make_accept_fn(sig)
 
-    def _draw_noise(self, generators, sig: tuple):
+    def _draw_noise(self, seeds, draws, mask, sig: tuple):
         M = self.cfg.max_block
-        return draw_tree_noise(generators, sig, M, M, M,
-                               self.model_cfg.vocab_size, self.device)
+        return draw_tree_noise(seeds, draws, mask, sig, M, M, M,
+                               self.model_cfg.vocab_size)
 
     # -- the draft ----------------------------------------------------------
     def _hybrid_draft(self, history, hist_lens, starts):

@@ -14,11 +14,10 @@ decide the segment's end are certain to stay live for
 (``device_loop.segment_length``), so a segment runs past a stop only when
 an EOS ends a request inside it; a step that is not live (the reference's
 loop condition) is a no-op.  The KV cache, the history and the control
-scalars are engine buffers updated in place.  Greedy requests take the
-graphs in every engine here; a sampled one-stream request too, with its
-generator registered to the graph; a sampled batched segment runs one
-eager step and one read per step (a slot draws noise only on its own live
-steps, which a fixed graph cannot express).
+scalars are engine buffers updated in place.  Greedy and sampled
+requests take the graphs alike, in every engine here: a step's noise is
+drawn on the device from each slot's seed and draw counter, engine
+buffers too, so a fixed graph draws what the eager step would.
 
 ``FusedSamEngine`` serves one request at a time; ``BatchedFusedSamEngine``
 steps B request slots together over a dense batched cache, with a slot
@@ -36,18 +35,20 @@ rejection sampling (``chain_sampling_accept``, which keeps the target
 distribution), or the typical and nucleus posterior rules
 (``chain_posterior_accept``).  The rules are pure functions of the logits
 and of explicit noise (``ChainNoise``), computed over ``[..., M, V]`` at
-once.  Each sampled request owns one ``torch.Generator`` on the engine's
-device, seeded with ``GenerationConfig.seed`` (a one-stream engine reseeds
-its one generator per request): it draws the first token after the
-prefill (from ``last_logits / temperature``, with no top-p or top-k, as
-the reference does) and then one fixed-size block of noise per step in
-which the request is live (a one-stream segment's no-op steps draw too,
-after the request's last token).  So a request's sampled stream depends
-only on its seed, its prompt, the weights and its own steps — not on its
-slot, the other requests in the batch, or where segments end.  In a
-batched engine greedy slots keep the argmax path exactly; the slots that
-sample at once must share one sampling signature (``run`` raises
-``ValueError`` otherwise).
+once.  Each sampled request's noise comes from its own counter-based
+stream on the device (``ops.request_noise``: Philox keyed by
+``GenerationConfig.seed``, a pure function of the seed, the draw index
+and the element): draw 0 gives the first token after the prefill (from
+``last_logits / temperature``, with no top-p or top-k, as the reference
+does), and each step in which the request is live and samples takes the
+next draw index, one fixed-size block of noise.  The draw counter lives on
+the device and advances there, only on the request's live sampled steps
+(a no-op step after a stop, or a paged slot waiting for pages, draws
+nothing).  So a request's sampled stream depends only on its seed, its
+prompt, the weights and its own steps — not on its slot, the other
+requests in the batch, or where segments end.  In a batched engine greedy
+slots keep the argmax path exactly; the slots that sample at once must
+share one sampling signature (``run`` raises ``ValueError`` otherwise).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from .engine import (PREFILL_BUCKETS, Outputs, _bucket, check_params_device,
 from .models.configs import ModelConfig, check_supported
 from .models.llama import Params, block_decode_mask, forward, prefill_mask
 from .ops.paged_attention import boundary_mask_window
+from .ops.request_noise import seed_word
 from .paged_kv import (PagedAux, PagedKVPool, PagedRequest,
                        paged_flat_indices, paged_write_block)
 from .streaming import ProgressStreamMixin
@@ -192,13 +194,15 @@ def chain_noise_rows(sig: tuple, M: int) -> int:
     return M + 1 if sig[3] == "nucleus" else 1
 
 
-def draw_chain_noise(generators: Sequence[Optional[torch.Generator]],
-                     sig: tuple, M: int, V: int,
-                     device: Union[str, torch.device]) -> ChainNoise:
-    """One step's noise for B slots (``verify.draw_uniforms``, ``M + G *
-    V`` per slot): ``[B, M]`` uniforms and ``[B, G, V]`` Gumbel noise."""
+def draw_chain_noise(seeds: torch.Tensor, draws: torch.Tensor,
+                     mask: Optional[torch.Tensor], sig: tuple, M: int,
+                     V: int) -> ChainNoise:
+    """One step's noise for B slots (``verify.draw_uniforms``: slot b
+    draw ``draws[b]`` of seed ``seeds[b]``'s stream, zeros outside
+    ``mask``; ``M + G * V`` per slot): ``[B, M]`` uniforms and ``[B, G,
+    V]`` Gumbel noise."""
     G = chain_noise_rows(sig, M)
-    u = draw_uniforms(generators, M + G * V, device)
+    u = draw_uniforms(seeds, draws, mask, M + G * V)
     return ChainNoise(u[:, :M],
                       gumbel_from_uniform(u[:, M:]).reshape(-1, G, V))
 
@@ -329,9 +333,11 @@ class _DraftRules:
     def _accept_rule(self, sig: tuple):
         return make_chain_accept_fn(sig)
 
-    def _draw_noise(self, generators, sig: tuple):
-        return draw_chain_noise(generators, sig, self.cfg.block,
-                                self.model_cfg.vocab_size, self.device)
+    def _draw_noise(self, seeds, draws, mask, sig: tuple):
+        """One step's noise for the slots of ``seeds``/``draws`` [B]
+        (zeros outside ``mask``)."""
+        return draw_chain_noise(seeds, draws, mask, sig, self.cfg.block,
+                                self.model_cfg.vocab_size)
 
     def _observe_prompt(self, slot: int, tokens: torch.Tensor, true_len: int,
                         logits: torch.Tensor, hidden: torch.Tensor) -> None:
@@ -367,9 +373,10 @@ class SingleStreamEngine(_DraftRules):
     ``device_loop.segment_length`` steps, on the card as replays of the
     step's CUDA graph (one per cache bucket and sampling signature, in
     ``graphs``), with one host read of the packed control vector per
-    segment; a sampled request rides the graph with its generator
-    registered to it.  ``False`` (set on an instance, by a caller that
-    reads every step) runs one eager step and one read per step.
+    segment; a sampled request draws its noise from the engine's seed and
+    draw counter buffers, so it rides the same graph.  ``False`` (set on
+    an instance, by a caller that reads every step) runs one eager step
+    and one read per step.
     ``loop_stats`` holds the last request's ``device_loop.LoopStats``.
 
     Subclasses implement ``_step`` (the contract of
@@ -414,7 +421,9 @@ class SingleStreamEngine(_DraftRules):
         self._done = scalar(torch.bool)
         self._live_steps = scalar()
         self._eos = torch.tensor(eos_token_id, dtype=torch.int32, device=dev)
-        self._rng: Optional[torch.Generator] = None
+        # a sampled request's stream: its seed and its next draw index
+        self._seed = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._draws = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.graphs = StepGraphs(dev)
         self.loop_stats = LoopStats()
 
@@ -464,15 +473,19 @@ class SingleStreamEngine(_DraftRules):
                    sig: Optional[tuple]) -> Callable[[], None]:
         """One step over the engine's buffers: live under the reference's
         loop condition (not done, budget left, ``hist_len <= last_start``),
-        and a no-op otherwise."""
+        and a no-op otherwise.  A sampled step draws the request's next
+        noise block, and advances its draw counter, only where live."""
         hist_len, start, budget, done = (self._hist_len, self._start,
                                          self._budget, self._done)
         last_start = self._last_start(W)
-        rng = self._rng
 
         def step():
             live = ~done & (budget > 0) & (hist_len <= last_start)
-            noise = None if accept is None else self._draw_noise([rng], sig)
+            noise = None
+            if accept is not None:
+                noise = self._draw_noise(self._seed, self._draws,
+                                         live.reshape(1), sig)
+                self._draws.add_(live.to(torch.int32))
             out = self._step(W, self._history, hist_len, start, budget, done,
                              live, self._eos, accept, noise)
             for dst, src in zip((hist_len, start, budget, done), out):
@@ -507,12 +520,12 @@ class SingleStreamEngine(_DraftRules):
         history = init_history(input_ids, self.S, "cpu")
         start, last = self._prefill(input_ids, P, W)
         if accept is not None:
-            # one generator per engine, reseeded per request: the graphs
-            # hold it registered
-            if self._rng is None:
-                self._rng = torch.Generator(device=dev)
-            self._rng.manual_seed(gen.seed)
-            start = draw_first_token(self._rng, last, gen.temperature)
+            # the engine's stream buffers, which the graphs read: draw 0 is
+            # the first token, the decode steps draw from 1 on
+            self._seed.fill_(seed_word(gen.seed))
+            self._draws.fill_(1)
+            start = draw_first_token(self._seed, last[None],
+                                     gen.temperature)[0]
         self._history.copy_(history)
         self._hist_len.fill_(len(input_ids))
         self._start.copy_(start)
@@ -530,8 +543,7 @@ class SingleStreamEngine(_DraftRules):
                 k = segment_length([hl], [left], [last_start + M], M,
                                    self._max_accept(),
                                    self.cfg.steps_per_call)
-                stats.replays += self.graphs.run(
-                    (W, sig), step, k, None if accept is None else self._rng)
+                stats.replays += self.graphs.run((W, sig), step, k)
             else:
                 k = 1
                 step()
@@ -646,25 +658,27 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
     progress streaming through ``progress_listeners``
     (``streaming.ProgressStreamMixin``).
 
-    Sampled requests: each slot keeps its request's generator and draws
-    its noise only in steps where it is live; when any slot samples, the
-    step computes the signature's accept rule over all ``[B, M, V]`` and
-    takes its result in the sampled slots only (``samp_flags``), so greedy
-    slots keep the argmax path exactly.  Slots sampling at once share one
-    signature; ``run`` raises ``ValueError`` otherwise.
+    Sampled requests: each slot keeps its request's seed and draw counter
+    in device rows (``_seeds``, ``_draws``); when any slot samples, every
+    step draws one noise block per slot at once (zeros for a slot that is
+    not live or does not sample), advances the counters of the live
+    sampled slots, computes the signature's accept rule over all ``[B, M,
+    V]`` and takes its result in the sampled slots only (``_samp``), so
+    greedy slots keep the argmax path exactly.  Slots sampling at once
+    share one signature; ``run`` raises ``ValueError`` otherwise.
 
     ``inline_prefill``: a greedy request is admitted without a prefill
     forward; its prompt streams through the decode steps as a forced-accept
     chain, M tokens per step.  A sampled request is prefilled, to draw its
     first token.
 
-    ``segmented`` (a class attribute) picks the route of greedy segments:
-    ``True`` runs them as replays of the step's CUDA graph (``graphs``)
-    with one host read each (``_segment``); ``False`` (set on an
-    instance, by a caller that reads every step) one eager step and one
-    read per step.  ``loop_stats`` maps the ids of the latest
-    ``LOOP_STATS_KEPT`` finished requests to their
-    ``device_loop.LoopStats``.
+    ``segmented`` (a class attribute) picks the route of every segment,
+    greedy, sampled or mixed: ``True`` runs it as replays of the step's
+    CUDA graph (``graphs``, one per sampling signature) with one host read
+    (``_segment``); ``False`` (set on an instance, by a caller that reads
+    every step) one eager step and one read per step.  ``loop_stats``
+    maps the ids of the latest ``LOOP_STATS_KEPT`` finished requests to
+    their ``device_loop.LoopStats``.
     """
 
     segmented = True
@@ -716,8 +730,6 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
         self._slot_prompt = [0] * batch_size
         self._slot_max_new = [0] * batch_size
         self._slot_steps = [0] * batch_size
-        # a sampled request's generator, held by its slot
-        self._slot_gen: List[Optional[torch.Generator]] = [None] * batch_size
         self.queue = []
         self.results = {}
         # the finished requests' device_loop.LoopStats, by request id (the
@@ -733,6 +745,13 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                                 device=dev)
         self._lives = torch.zeros((batch_size,), dtype=torch.bool,
                                   device=dev)
+        # the sampling slots' streams: each slot's seed and next draw
+        # index, and which slots sample in the current segment
+        self._seeds = torch.zeros((batch_size,), dtype=torch.int64,
+                                  device=dev)
+        self._draws = torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=dev)
+        self._samp = torch.zeros((batch_size,), dtype=torch.bool, device=dev)
         self.graphs = StepGraphs(dev)
         self.steps_run = 0      # [B, M] decode forwards, over all runs
         # live slot-steps, and those whose draft came from the corpus
@@ -921,17 +940,25 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
             & (hist_lens + M <= alloc_limits)
         return hist_lens, starts, budgets, lives, slot_steps, corpus_steps
 
-    def _segment_step(self, paged: Optional[PagedAux], samp=None,
-                      accept: Optional[AcceptFn] = None
-                      ) -> Callable[..., None]:
+    def _segment_step(self, paged: Optional[PagedAux],
+                      sig: Optional[tuple] = None) -> Callable[[], None]:
         """One step of every slot over the segment buffers (``_seg``'s
-        rows and ``_lives``), in place; ``step(noise)`` for a sampled
-        segment."""
-        seg, lives = self._seg, self._lives
+        rows, ``_lives``, and under a sampling signature ``sig`` the
+        stream rows and ``_samp``), in place.  A sampled step draws every
+        slot's noise at once and advances the draw counters of the slots
+        live and sampling at its start."""
+        seg, lives, samp = self._seg, self._lives, self._samp
         state = (seg[0], seg[1], seg[2], lives, seg[4], seg[5])
+        accept = None if sig is None else self._accept_rule(sig)
 
-        def step(noise: Optional[ChainNoise] = None):
+        def step():
             seg[6].add_(lives.to(torch.int32))         # live steps, prompt too
+            noise = None
+            if accept is not None:
+                drawing = lives & samp
+                noise = self._draw_noise(self._seeds, self._draws, drawing,
+                                         sig)
+                self._draws.add_(drawing.to(torch.int32))
             out = self._step(*state, seg[7], seg[8], paged, samp, accept,
                              noise)
             for dst, src in zip(state, out):
@@ -954,14 +981,15 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
         and how many of them were graph replays.  ``samp`` [B] flags the
         slots that sample under ``sig``.
 
-        Greedy segments on the ``segmented`` route run
-        ``device_loop.segment_length`` steps (the minimum over the live
-        slots with ``refill``, else the maximum), replayed as the step's
-        CUDA graph on the card, with one host read.  A sampled segment, or
-        any on the per-step route, runs eager steps with one read each, up
-        to ``steps_per_call``, and ends early when no slot is live or, with
+        On the ``segmented`` route a segment, greedy, sampled or mixed,
+        runs ``device_loop.segment_length`` steps (the minimum over the
+        live slots with ``refill``, else the maximum), replayed as the
+        step's CUDA graph on the card (one graph per sampling signature,
+        ``None`` when no slot samples), with one host read.  On the
+        per-step route it runs eager steps with one read each, up to
+        ``steps_per_call``, and ends early when no slot is live or, with
         ``refill``, when a slot frees."""
-        M, dev, B = self.cfg.block, self.device, self.B
+        M = self.cfg.block
         limits = self._alloc_limits()
         init_lives = actives & (budgets > 0) & (hist_lens + M <= limits)
         zeros = np.zeros_like(hist_lens)
@@ -972,33 +1000,23 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
             return host[:7], 0, 0
         self._seg.copy_(torch.from_numpy(host))
         self._lives.copy_(self._seg[3])
-        paged = self._paged_aux()
-        if self.segmented and not (sig is not None and samp.any()):
+        if sig is not None:
+            self._samp.copy_(torch.from_numpy(samp))
+        step = self._segment_step(self._paged_aux(), sig)
+        if self.segmented:
             live = init_lives
             k = segment_length(
                 hist_lens[live], budgets[live], limits[live], M,
                 self._max_accept(), self.cfg.steps_per_call, refill,
                 (prompt_lens - hist_lens)[live] if self.inline_prefill
                 else None)
-            replays = self.graphs.run("step", self._segment_step(paged), k)
+            replays = self.graphs.run(("step", sig), step, k)
             self.steps_run += k
             return self._read_segment(), k, replays
-        accept = samp_t = None
-        if sig is not None and samp.any():
-            accept = self._accept_rule(sig)
-            samp_t = torch.from_numpy(samp).to(dev)
-        step = self._segment_step(paged, samp_t, accept)
         ctrl, lives, steps = host[:7], init_lives, 0
         while lives.any() and steps < self.cfg.steps_per_call \
                 and not (refill and (init_lives & ~lives).any()):
-            noise = None
-            if accept is not None:
-                # only the live sampled slots draw: a slot's stream advances
-                # with its own steps alone
-                noise = self._draw_noise(
-                    [self._slot_gen[i] if samp[i] and lives[i] else None
-                     for i in range(B)], sig)
-            step(noise)
+            step()
             self.steps_run += 1
             ctrl = self._read_segment()     # the step's one host read
             lives = ctrl[3].astype(bool)
@@ -1031,7 +1049,6 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 if self._slot_req[i] is not None:
                     self._stream_done(self._slot_req[i])
                     self._slot_req[i] = None
-                    self._slot_gen[i] = None
                     self._release_slot(i)
             raise
 
@@ -1065,10 +1082,14 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                     hist_lens[i] = len(ids)
                     prompt_lens[i] = 0
                     if not gen.greedy:
-                        g = torch.Generator(device=self.device)
-                        g.manual_seed(gen.seed)
-                        first = draw_first_token(g, last, gen.temperature)
-                        self._slot_gen[i] = g
+                        # the slot's stream: draw 0 is the first token, the
+                        # decode steps draw from 1 on; a paged slot resumed
+                        # after a stall keeps its counter
+                        self._seeds[i] = seed_word(gen.seed)
+                        self._draws[i] = 1
+                        first = draw_first_token(
+                            self._seeds[i:i + 1], last[None],
+                            gen.temperature)[0]
                     nt = int(first)
                 slot_sigs[i] = None if gen.greedy else gen.sampling_signature
                 samp[i] = not gen.greedy
@@ -1135,7 +1156,6 @@ class BatchedFusedSamEngine(_DraftRules, ProgressStreamMixin):
                 samp[i] = False
                 slot_sigs[i] = None
                 self._slot_req[i] = None
-                self._slot_gen[i] = None
                 self._release_slot(i)
         out, self.results = self.results, {}
         return out

@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_block_attention", "int4_matmul")
+SOURCES = ("flash_block_attention", "int4_matmul", "request_noise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -337,14 +337,14 @@ def profile_segment(eng, prompt, gen, top_n: int) -> dict:
 
     graphs, run, seen = eng.graphs, eng.graphs.run, {}
 
-    def profiled_run(key, step, k, generator=None):
+    def profiled_run(key, step, k):
         if seen or key not in graphs or k < 2:
-            return run(key, step, k, generator)
+            return run(key, step, k)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            n = run(key, step, k, generator)
+            n = run(key, step, k)
             torch.cuda.synchronize()
             seen["result"] = (prof, (time.perf_counter() - t0) * 1e6, k)
         return n

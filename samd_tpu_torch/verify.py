@@ -15,8 +15,10 @@ Tree sampling rules (``make_accept_fn``): speculative rejection sampling
 along tree paths (``sampling_accept``, which keeps the target
 distribution), and the typical and nucleus posterior rules.  As in the
 fused engines, the randomness is an explicit argument (``TreeNoise``),
-drawn from the request's ``torch.Generator`` (``draw_tree_noise``), so a
-request's stream depends only on its seed.  Every rule takes a leading
+drawn on the device from the request's counter-based stream
+(``draw_tree_noise``, ``ops.request_noise``: a pure function of the seed,
+the draw index and the element), so a request's stream depends only on
+its seed and its own sampled steps.  Every rule takes a leading
 slot axis: ``logits [..., M, V]``, ``draft_tokens [..., M]``,
 ``retrieve_indices [..., R, D]``.  A draft token of -1 (an invalid node of
 the fused tree drafters, ``fused_hybrid``) is accepted by no rule: each
@@ -27,9 +29,11 @@ as the last token's.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from .ops.request_noise import request_uniforms
 
 
 class AcceptResult(NamedTuple):
@@ -181,15 +185,17 @@ def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
         u, min=torch.finfo(torch.float32).tiny)))
 
 
-def draw_first_token(generator: torch.Generator, last_logits: torch.Tensor,
+def draw_first_token(seeds: torch.Tensor, last_logits: torch.Tensor,
                      temperature: float) -> torch.Tensor:
-    """The first token after the prefill of a sampled request: a draw from
-    ``softmax(last_logits / temperature)`` ([V] f32) with V uniforms from
-    ``generator``.  No top-p or top-k here, as in the reference."""
-    u = torch.rand(last_logits.shape, generator=generator,
-                   device=last_logits.device)
-    return torch.argmax(last_logits / temperature
-                        + gumbel_from_uniform(u)).to(torch.int32)
+    """The first token after the prefill of each sampled request: a draw
+    from ``softmax(last_logits / temperature)`` (``[B, V]`` f32) with the
+    V uniforms of draw 0 of each request's stream (``seeds`` [B] int64, see
+    ``ops.request_noise``); ``[B]`` int32.  No top-p or top-k here, as in
+    the reference.  Decode steps draw 1, 2, ...."""
+    draws = torch.zeros(seeds.shape, dtype=torch.int32, device=seeds.device)
+    u = request_uniforms(seeds, draws, last_logits.shape[-1])
+    return torch.argmax(last_logits / temperature + gumbel_from_uniform(u),
+                        dim=-1).to(torch.int32)
 
 
 def tree_noise_rows(sig: tuple, M: int) -> int:
@@ -198,30 +204,23 @@ def tree_noise_rows(sig: tuple, M: int) -> int:
     return M + 1 if sig[3] == "nucleus" else 1
 
 
-def draw_uniforms(generators: Sequence[Optional[torch.Generator]], n: int,
-                  device: Union[str, torch.device]) -> torch.Tensor:
-    """``[B, n]`` uniforms in [0, 1): each slot with a generator draws n
-    from it; a slot without one (greedy, or not stepping) draws nothing,
-    so its stream does not advance, and gets zeros."""
-    zeros = None
-    rows = []
-    for g in generators:
-        if g is None:
-            if zeros is None:
-                zeros = torch.zeros((n,), device=device)
-            rows.append(zeros)
-        else:
-            rows.append(torch.rand((n,), generator=g, device=device))
-    return torch.stack(rows)
+def draw_uniforms(seeds: torch.Tensor, draws: torch.Tensor,
+                  mask: Optional[torch.Tensor], n: int) -> torch.Tensor:
+    """``[B, n]`` uniforms in [0, 1): every slot draws at once, slot b
+    draw ``draws[b]`` of its seed's stream (``ops.request_noise``), and a
+    slot outside ``mask`` [B] bool (greedy, or not stepping) gets zeros.
+    The caller advances ``draws`` where ``mask`` holds, so a slot's stream
+    moves with its own sampled steps alone."""
+    return request_uniforms(seeds, draws, n, mask)
 
 
-def draw_tree_noise(generators: Sequence[Optional[torch.Generator]],
-                    sig: tuple, M: int, R: int, D: int, V: int,
-                    device: Union[str, torch.device]) -> TreeNoise:
+def draw_tree_noise(seeds: torch.Tensor, draws: torch.Tensor,
+                    mask: Optional[torch.Tensor], sig: tuple, M: int, R: int,
+                    D: int, V: int) -> TreeNoise:
     """One step's noise for B slots (``draw_uniforms``, ``D * R + G * V``
     per slot): ``[B, D, R]`` uniforms and ``[B, G, V]`` Gumbel noise."""
     G = tree_noise_rows(sig, M)
-    u = draw_uniforms(generators, D * R + G * V, device)
+    u = draw_uniforms(seeds, draws, mask, D * R + G * V)
     return TreeNoise(u[:, :D * R].reshape(-1, D, R),
                      gumbel_from_uniform(u[:, D * R:]).reshape(-1, G, V))
 

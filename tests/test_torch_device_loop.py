@@ -344,10 +344,6 @@ class _Graph:
 
     def __init__(self):
         self.replayed = 0
-        self.generators = []
-
-    def register_generator_state(self, gen):
-        self.generators.append(gen)
 
     def replay(self):
         self.replayed += 1
@@ -366,7 +362,7 @@ class _Capture:
 
 
 def test_holder_launch_arithmetic(monkeypatch):
-    """A stub step that "launches" 2, 0, 3, 1, 0 kernels of the five
+    """A stub step that "launches" 2, 0, 3, 1, 0, 2 kernels of the six
     counters: a new key runs it eagerly once, captures it (its launches
     taken back) and replays the rest; every call of k steps adds k times
     the step's launches, and a CPU holder runs the stub k times."""
@@ -380,7 +376,8 @@ def test_holder_launch_arithmetic(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph", _Capture)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: "s")
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
-    per = (2, 0, 3, 1, 0)
+    per = (2, 0, 3, 1, 0, 2)
+    assert len(per) == len(LAUNCH_COUNTERS)
     for (fn, name) in LAUNCH_COUNTERS:
         monkeypatch.setattr(fn, name, 0)
     calls = SimpleNamespace(n=0)
@@ -400,9 +397,8 @@ def test_holder_launch_arithmetic(monkeypatch):
     assert calls.n == 3 and graphs[0].replayed == 4
     assert counts() == [6 * d for d in per]
     assert h.launches_per_step("a") == list(per)
-    gen = object()
-    assert h.run("b", stub, 3, generator=gen) == 2
-    assert graphs[1].generators == [gen] and graphs[1].replayed == 2
+    assert h.run("b", stub, 3) == 2
+    assert graphs[1].replayed == 2
     assert h.run("a", stub, 7) == 7           # captured: replays only
     assert calls.n == 5 and graphs[0].replayed == 11
     assert counts() == [16 * d for d in per]

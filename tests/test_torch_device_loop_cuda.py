@@ -2,7 +2,8 @@
 against the same step run eagerly, bit for bit (logits, history, KV and
 the control scalars), and every engine's graph route against its
 per-step route (tokens, decode steps, kernel launches, drafter state), at
-a small size.
+a small size; greedy, and sampled through the per-request device stream
+(``ops.request_noise``), one stream and batched.
 
 Needs a card: every test here carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor samd_tpu, so it also runs
@@ -33,6 +34,7 @@ from samd_tpu_torch.fused_sam import (BatchedFusedSamEngine, FusedSamConfig,
 from samd_tpu_torch.models import ModelConfig, init_params
 from samd_tpu_torch.ops.quant import (init_quantized_llama_params,
                                       int4_from_int8_params)
+from samd_tpu_torch.ops.request_noise import request_uniforms
 from samd_tpu_torch.pld import PldConfig, PldEngine
 from samd_tpu_torch.token_recycle_fused import (FusedTokenRecycleConfig,
                                                 FusedTokenRecycleEngine)
@@ -200,25 +202,34 @@ def test_single_stream_graph_route_equals_per_step(cuda_device, kind, int4):
                                    getattr(eager, name)), name
 
 
+def sampled_gen(mode, seed, new=64):
+    kw = dict(temperature=1e-5, top_k=1) if mode == "point_mass" else \
+        dict(temperature=0.8, top_p=0.9 if mode == "nucleus" else 0.0,
+             accept_mode=mode)
+    return GenerationConfig(max_new_tokens=new, max_cache_len=512,
+                            greedy=False, seed=seed, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["rejection", "typical", "nucleus",
                                   "point_mass"])
 def test_sampled_graph_route_draws_the_eager_noise(cuda_device, mode):
-    """A sampled request on the graph route (its generator registered with
-    the graph) draws the eager loop's noise: the same seed gives the
-    per-step route's tokens, twice over."""
+    """A sampled request on the graph route draws the eager loop's noise
+    from its device stream (the seed and draw counter the replays read):
+    the same seed gives the per-step route's tokens, twice over, with one
+    noise launch per live step and one for the first token."""
     cfg, params = small_model(False)
     p = prompts(1, seed=2)[0]
-    kw = dict(temperature=1e-5, top_k=1) if mode == "point_mass" else \
-        dict(temperature=0.8, top_p=0.9 if mode == "nucleus" else 0.0,
-             accept_mode=mode)
-    gen = GenerationConfig(max_new_tokens=64, max_cache_len=512, greedy=False,
-                           seed=5, **kw)
+    gen = sampled_gen(mode, 5)
     graph, eager = single_engines("fused_sam", cfg, params, p * 3)
     want = eager.generate(p, gen)
-    assert graph.generate(p, gen) == want
-    assert graph.generate(p, gen) == want
-    assert graph.loop_stats.replays > 0
+    for _ in range(2):
+        before = request_uniforms.launches
+        assert graph.generate(p, gen) == want
+        assert request_uniforms.launches - before \
+            == want.decode_steps + 1
+        assert graph.loop_stats.replays > 0
+        assert graph.loop_stats.segments < want.decode_steps
 
 
 @pytest.mark.cuda
@@ -291,3 +302,69 @@ def test_batched_graph_route_equals_per_step(cuda_device, kind, inline):
         assert st.steps - st.noop_steps >= o.decode_steps
         if o.decode_steps > 1:
             assert st.segments < o.decode_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["batched", "paged", "hybrid_paged"])
+@pytest.mark.parametrize("mode", ["rejection", "nucleus"])
+def test_sampled_batched_graph_route_equals_per_step(cuda_device, kind,
+                                                     mode):
+    """Four sampled requests and two greedy ones through four slots
+    (refills, then the tail): on the graph route each request's tokens and
+    the steps' kernel launches equal the per-step route's, sampled
+    segments replay from their graph, and a sampled request of more than
+    one step reads the host fewer times than it steps.  Each sampled
+    request of the first four (fresh slots) equals its reply when it is
+    sent alone to a fresh engine of the same kind (the same step shapes,
+    the other slots idle)."""
+    paged = kind != "batched"
+    cfg, params = small_model(paged)
+    if paged:
+        cfg = dataclasses.replace(cfg, kv_quant=False)
+    ps = prompts(6, seed=4)
+    corpus = [t for p in ps[:2] for t in p * 2]
+    kw = dict(batch_size=4, device="cuda", corpus=corpus, **KW)
+    pages = dict(n_pages=32, page_size=64, quantized_kv=True)
+
+    def make():
+        if kind == "batched":
+            return BatchedFusedSamEngine(
+                cfg, params, FusedSamConfig(n_predicts=15,
+                                            steps_per_call=16), **kw)
+        if kind == "paged":
+            return PagedBatchedFusedSamEngine(
+                cfg, params, FusedSamConfig(n_predicts=15,
+                                            steps_per_call=16),
+                **pages, **kw)
+        return PagedBatchedFusedHybridEngine(
+            cfg, params, FusedHybridConfig(**HYBRID), **pages, **kw)
+
+    gens = [sampled_gen(mode, 30 + i, 40 + 8 * i) if i % 3 != 1 else
+            GenerationConfig(max_new_tokens=40 + 8 * i, max_cache_len=512)
+            for i in range(6)]
+
+    def serve(eng):
+        ids = [eng.add_request(p, g) for p, g in zip(ps, gens)]
+        out = eng.run()
+        return [out[i] for i in ids], [eng.loop_stats[i] for i in ids]
+
+    graph, eager = make(), make()
+    eager.segmented = False
+    c0 = counts()
+    want, _ = serve(eager)
+    c1 = counts()
+    got, stats = serve(graph)
+    c2 = counts()
+    assert got == want
+    assert graph.steps_run == eager.steps_run
+    assert [b - a for a, b in zip(c1, c2)] == [b - a for a, b in zip(c0, c1)]
+    assert c2[-1] > c1[-1]          # the noise kernel ran
+    assert graph.graphs.replays > 0
+    for o, st in zip(got, stats):
+        if o.decode_steps > 1:
+            assert st.segments < o.decode_steps
+    for p, g, o in list(zip(ps, gens, got))[:4]:
+        if not g.greedy:
+            eng = make()
+            rid = eng.add_request(p, g)
+            assert eng.run()[rid].output_ids == o.output_ids

@@ -32,6 +32,7 @@ from samd_tpu_torch.config import GenerationConfig, SamdConfig
 from samd_tpu_torch.drafters import make_drafter
 from samd_tpu_torch.engine import ArBaseline, SamdEngine
 from samd_tpu_torch.models import ModelConfig
+from samd_tpu_torch.ops.request_noise import seed_tensor
 from samd_tpu_torch.ops.treeops import pack_draft_host, unpack_draft
 from samd_tpu_torch.sam import SamCursor, build_corpus_sam
 from samd_tpu_torch.verify import (TreeNoise, _process_logits,
@@ -326,12 +327,11 @@ N_TRIALS, TV_TOL = 4000, 0.05
 def emitted_distribution(logits, draft, retrieve, V, **kw):
     """Frequencies of the token emitted at position 1 (accepted draft or
     bonus) over N_TRIALS independent draws, all in one batched call."""
-    g = torch.Generator()
-    g.manual_seed(0)
     R, D = np.asarray(retrieve).shape
     n = N_TRIALS
-    noise = draw_tree_noise([g] * n, ("_", 0, 0, "rejection"), len(draft), R,
-                            D, V, "cpu")
+    noise = draw_tree_noise(seed_tensor([0] * n, "cpu"),
+                            torch.arange(n, dtype=torch.int32), None,
+                            ("_", 0, 0, "rejection"), len(draft), R, D, V)
     res = sampling_accept(
         torch.from_numpy(logits).expand(n, -1, -1),
         torch.tensor(draft).expand(n, -1),
@@ -401,9 +401,9 @@ def test_tree_rules_never_accept_invalid_nodes(mode, seed):
     paths = constant_buffers(parents, M)[2]                    # [M, M]
     removed = torch.where(
         torch.from_numpy(tokens)[paths.clamp(min=0).long()] < 0, -1, paths)
-    g = torch.Generator()
-    g.manual_seed(seed)
-    noise = draw_tree_noise([g] * n, ("_", 0, 0, mode), M, M, M, V, "cpu")
+    noise = draw_tree_noise(seed_tensor([seed] * n, "cpu"),
+                            torch.arange(n, dtype=torch.int32), None,
+                            ("_", 0, 0, mode), M, M, M, V)
     rule = {"rejection": lambda *a: sampling_accept(
                 *a, temperature=1.0, top_p=0.0, top_k=0),
             "typical": lambda *a: typical_accept(*a, temperature=1.0),

@@ -9,11 +9,12 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# the port, its chip script, the card-only test that must run where JAX is
+# the port, its chip script, the card-only tests that must run where JAX is
 # not installed, and the worker of the multi-process tests, which must not
 # import JAX either
 PORT_FILES = sorted((ROOT / "samd_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernel_cuda.py",
+    ROOT / "tests" / "test_torch_device_loop_cuda.py",
     ROOT / "tests" / "torch_parallel_worker.py"]
 
 
@@ -48,7 +49,8 @@ def test_port_files_found():
                 "tools/build_sam.py",
                 "tools/gen_corpus.py", "parallel/__init__.py",
                 "parallel/comm.py", "parallel/sharding.py",
-                "parallel/seq_parallel.py", "parallel/multihost.py"):
+                "parallel/seq_parallel.py", "parallel/multihost.py",
+                "ops/request_noise.py", "device_loop.py"):
         assert ROOT / "samd_tpu_torch" / rel in PORT_FILES, rel
 
 

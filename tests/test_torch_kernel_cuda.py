@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions: the verify
 attention (with k/v of q's type and in int8-KV mode), its paged mode over
-a page pool (K4), and the int4 weight-streaming matmul.
+a page pool (K4), the int4 weight-streaming matmul, and the per-request
+Philox noise (bit for bit, and read afresh by every graph replay).
 
 Needs a card: every test here carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor samd_tpu, so it also runs
@@ -25,6 +26,8 @@ from samd_tpu_torch.ops.paged_attention import (boundary_mask_window,
                                                 paged_block_attention_ref,
                                                 window_to_mask)
 from samd_tpu_torch.ops.quant import quantize_weight4
+from samd_tpu_torch.ops.request_noise import (request_uniforms,
+                                              request_uniforms_plain)
 from samd_tpu_torch.ops.treeops import tree_mask_from_parents
 
 
@@ -625,3 +628,75 @@ def test_kernels_refuse_inputs_that_require_grad(cuda_device, kernel):
                       k3.int4_matmul.launches)
     with torch.no_grad():
         assert torch.equal(call(), want)
+
+
+# (B, n): the 1b B = 4 chain step under rejection (M 16) and nucleus, the
+# server's rejection step (B 12, M 16, V 32000), the paged hybrid's nucleus
+# tree step (B 12, M 24), a first-token draw, and ragged lengths
+NOISE_SHAPES = [(4, 16 + 32000), (4, 16 + 17 * 32000), (12, 16 + 32000),
+                (12, 24 * 24 + 25 * 32000), (1, 32000), (3, 1), (5, 4099),
+                (2, 7)]
+
+
+def noise_case(B, seed, device):
+    rng = np.random.default_rng(seed)
+    seeds = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, size=B,
+                                          dtype=np.int64)).to(device)
+    draws = torch.from_numpy(rng.integers(0, 1 << 31, size=B).astype(
+        np.int32)).to(device)
+    mask = torch.from_numpy(rng.random(B) < 0.7).to(device)
+    return seeds, draws, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", NOISE_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_request_noise_kernel_matches_plain(cuda_device, B, n, masked):
+    """The Philox kernel equals its plain version bit for bit, on the card
+    and on the CPU; a masked-out row is zeros."""
+    seeds, draws, mask = noise_case(B, B * n, cuda_device)
+    mask = mask if masked else None
+    before = request_uniforms.launches
+    got = request_uniforms(seeds, draws, n, mask)
+    torch.cuda.synchronize()
+    assert request_uniforms.launches == before + 1
+    assert got.shape == (B, n) and got.dtype == torch.float32
+    assert torch.equal(got, request_uniforms_plain(seeds, draws, n, mask))
+    cpu = request_uniforms_plain(seeds.cpu(), draws.cpu(), n,
+                                 None if mask is None else mask.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    if masked:
+        assert not got[~mask].any()
+
+
+@pytest.mark.cuda
+def test_request_noise_replay_reads_current_counters(cuda_device):
+    """A captured draw reads the seeds and draws from device memory at
+    every replay: advancing the counter in place gives the next draw."""
+    seeds, draws, mask = noise_case(12, 0, cuda_device)
+    out = torch.zeros((12, 16 + 32000), device=cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    request_uniforms(seeds, draws, out.shape[1], mask)   # warm-up
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out.copy_(request_uniforms(seeds, draws, out.shape[1], mask))
+        draws.add_(mask.to(torch.int32))
+    start = draws.clone()
+    for i in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        now = start + i * mask.to(torch.int32)
+        assert torch.equal(out, request_uniforms_plain(seeds, now,
+                                                       out.shape[1], mask))
+    assert torch.equal(draws, start + 3 * mask.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_request_noise_refuses_what_it_does_not_take(cuda_device):
+    seeds, draws, mask = noise_case(4, 1, cuda_device)
+    for args in ((seeds.int(), draws), (seeds, draws.long()),
+                 (seeds, draws.cpu()), (seeds[::2], draws[::2])):
+        with pytest.raises(ValueError):
+            request_uniforms(*args, 64)
+    with pytest.raises(ValueError):
+        request_uniforms(seeds, draws, 64, mask.int())

@@ -7,8 +7,9 @@ fused engines sample (``tests/test_batched_sampling.py``,
 ``tests/test_fused_sam.py``): deterministic per seed, different across
 seeds, independent of the slot, the batch and the segment length, with the
 greedy slots of a mixed batch equal to JAX's, and conflicting signatures
-raising.  torch's generators cannot replay threefry, so sampled streams are
-held by these properties, not against JAX's tokens."""
+raising.  The port's counter-based stream (``ops.request_noise``) is not
+JAX's threefry, so sampled streams are held by these properties, not
+against JAX's tokens."""
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from samd_tpu_torch.fused_sam import (BatchedFusedSamEngine, ChainNoise,
                                       chain_posterior_accept,
                                       chain_sampling_accept,
                                       draw_chain_noise, make_chain_accept_fn)
+from samd_tpu_torch.ops.request_noise import seed_tensor
 from samd_tpu_torch.verify import _process_logits, _top_p_threshold
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import port_config
@@ -91,10 +93,12 @@ def test_top_p_keeps_argmax_and_ties():
 # ---------------------------------------------------------------------------
 
 def noise_for(n, M, G, seed=0):
-    """ChainNoise for n independent trials from one torch.Generator."""
-    g = torch.Generator().manual_seed(seed)
-    return draw_chain_noise([g] * n, ("_", 0, 0, "nucleus" if G > 1 else
-                                      "rejection"), M, V, "cpu")
+    """ChainNoise for n independent trials: draws 0..n-1 of one seed's
+    stream."""
+    return draw_chain_noise(seed_tensor([seed] * n, "cpu"),
+                            torch.arange(n, dtype=torch.int32), None,
+                            ("_", 0, 0, "nucleus" if G > 1 else "rejection"),
+                            M, V)
 
 
 def total_variation(tokens, probs):
@@ -422,12 +426,15 @@ def test_conflicting_signatures_raise(tiny_model, prompts, kind):
 
 
 def test_noise_only_for_live_sampled_slots():
-    """A slot without a generator draws nothing and gets zeros; a slot's
-    draw is the same whatever the other slots hold."""
+    """A slot outside the draw mask gets zeros; a slot's draw is the same
+    whatever the other slots hold."""
     sig = sig_of(temperature=0.8, accept_mode="nucleus", top_p=0.9)
-    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
-    a = draw_chain_noise([None, g1, None], sig, 5, V, "cpu")
-    b = draw_chain_noise([g2], sig, 5, V, "cpu")
+    a = draw_chain_noise(seed_tensor([9, 4, 4], "cpu"),
+                         torch.tensor([5, 2, 2], dtype=torch.int32),
+                         torch.tensor([False, True, False]), sig, 5, V)
+    b = draw_chain_noise(seed_tensor([4], "cpu"),
+                         torch.tensor([2], dtype=torch.int32), None, sig, 5,
+                         V)
     assert isinstance(a, ChainNoise)
     assert a.uniform.shape == (3, 5) and a.gumbel.shape == (3, 6, V)
     assert torch.equal(a.uniform[1], b.uniform[0])
