@@ -172,8 +172,9 @@ def paged_case(B, T, NH, KH, D, page, committed, dtype, int8, seed,
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
-    P = -(-1024 // page) + -(-T // page) + 1      # table width, with pad
     lims = [T + (c or 0) for c in committed]
+    # table width: a 1024-slot cache or the longest slot, with pad
+    P = -(-max([1024] + lims) // page) + -(-T // page) + 1
     used = sum(-(-lim // page) for c, lim in zip(committed, lims)
                if c is not None)
     n_pages = used + 5

@@ -52,6 +52,8 @@ def port_args(q, k, v, mask, kv_limit, device="cpu"):
     (8, 8, 8, 16, 128, 40, 64),      # KH>=8: K2 (fold-KV) regime
     (16, 16, 8, 32, 256, 180, 64),   # K2, GQA, deeper prefix
     (128, 8, 2, 16, 256, 0, 128),    # T = 128 block at cache_len 0
+    (16, 4, 2, 16, 1024, 1000, 512),  # several tiles, live prefix near S
+    (16, 10, 10, 16, 512, 300, 128),  # K2 at a head count not a power of 2
 ])
 def test_matches_jax_pallas(T, NH, KH, D, S, cache_len, block_s):
     q, k, v, mask, kv_limit = make_case(T, NH, KH, D, S, cache_len)

@@ -98,6 +98,8 @@ def test_quantized_cache_views_and_reset():
     (8, 4, 4, 16, 128, 120, 64),     # kv_limit == S
     (5, 8, 8, 16, 128, 37, 512),     # K2 (fold-KV) regime, KH >= 8
     (16, 16, 8, 32, 256, 180, 128),  # K2, GQA, deeper prefix
+    (16, 4, 2, 16, 1024, 1000, 512),  # several tiles, live prefix near S
+    (16, 10, 10, 16, 512, 300, 128),  # K2 at a head count not a power of 2
 ])
 def test_int8_attention_matches_jax_interpret(T, NH, KH, D, S, cache_len,
                                               block_s):
