@@ -23,10 +23,11 @@ Phases, in order; any failure exits non-zero:
         T = 16 (KH 4 under NH 32), a tp-2 rank's heads of llama_1b (KH 2
         under NH 16) and of llama_7b (KH 16 under NH 16) at T = 16 and in
         the T = 128 prefill bucket, phase 4b's llama_1b T = 60 over 4096
-        (cache_len 2100) and 8192 slots (2100 and 8100), and phase 5c's
-        llama_13b (KH 40 under NH 40, D 128) at T = 16 (cache_len 200 and
-        700) and in the T = 128 prefill bucket; poison past kv_limit must
-        change nothing, and
+        (cache_len 2100) and 8192 slots (2100 and 8100), phase 5c's
+        llama_13b (KH 40 under NH 40, D 128), phase 5d's qwen2_7b (KH 4
+        under NH 28: G 7) and phase 5e's llama3_8b (KH 8 under NH 32: G
+        4) at T = 16 (cache_len 200 and 700) and in the T = 128 prefill
+        bucket; poison past kv_limit must change nothing, and
         the same live prefix in a cache cut to max(256, kv_limit rounded
         up to 64) columns must give the same bits;
      b. its int8-KV mode at llama_7b decode shapes, the T = 128 prefill
@@ -50,7 +51,11 @@ Phases, in order; any failure exits non-zero:
         and a tp-2 rank's slab of w_gate under int4_matmul_tp (4096 ->
         5504, out/2 2752) at R = 16 and 192, and llama_13b's four shapes
         (5120 -> 5120, 5120 -> 13824, 13824 -> 5120, the head 5120 ->
-        32000 in f32) at R = 16, 128, 192 and 256 with the same checks;
+        32000 in f32) at R = 16, 128, 192 and 256 with the same checks,
+        and qwen2_7b's five (3584 -> 3584, 3584 -> 512, 3584 -> 18944,
+        18944 -> 3584, the head 3584 -> 152064 in f32) and llama3_8b's
+        other three (4096 -> 14336, 14336 -> 4096, the head 4096 ->
+        128256 in f32) at R = 16, 128 and 192 with the same checks;
      d. the paged verify attention (K4) over a page pool with shuffled
         tables and inactive slots: llama_7b B = 12 over int8 pages and
         llama_1b B = 4 over pages of q's type, bf16 and f32 q, and again
@@ -146,6 +151,18 @@ Phases, in order; any failure exits non-zero:
      bf16 KV, the same engines, prompts and oracle as 5b; K3 281 per
      forward, the verify kernel (KH 40) 40 per forward of T <= 128; the
      peak allocated memory printed.  Short of memory, the phase fails;
+  5d. qwen2_7b at full width (after 5c; 28 layers, hidden 3584, 28/4
+     heads of 128, q/k/v biases, rope theta 1e6, vocabulary 152064):
+     bf16 weights drawn on the card from seed 0 by init_params, 5c's
+     engines, prompts and oracle over bf16 KV (the verify kernel 28 per
+     forward of T <= 128, no K3); then the same tree quantized whole to
+     packed int4 by quantize_llama_params, the biases kept in bf16, the
+     bf16 tree freed, and the three requests again (K3 197 per forward);
+     the weight GB and the peak allocated memory while quantizing
+     printed;
+  5e. llama3_8b int4 (after 5d; 32 layers, hidden 4096, 32/8 heads of
+     128, rope theta 5e5, vocabulary 128256): 5c's route and checks, K3
+     225 per forward, the verify kernel 32 per forward of T <= 128;
   6. llama_7b paged batched path: the same weights, a kv_quant=False
      config, PagedBatchedFusedSamEngine at B = 12, M = 16, 16 steps per
      segment, 52 int8 pages of 128, buckets 128 and 256, answers 16 requests
@@ -205,7 +222,8 @@ Phases, in order; any failure exits non-zero:
      position) must each be rejected; (c) one sampled request per tree
      accept mode (rejection at temperature 0.8 with top_k 50, typical,
      nucleus with top_p 0.9), each twice with its seed, equal; point-mass
-     requests (top_k 1, temperature 1e-5) through both drafters equal to
+     requests of 32 new tokens (top_k 1, temperature 1e-5) through both
+     drafters equal to
      the same engine's greedy run, which the judge holds to the oracle;
  10. llama_1b host batching (after 7): BatchedSamdEngine (dense) and
      PagedBatchedSamdEngine (bf16 pages of 128) at B = 4, M = 60, sam_only
@@ -221,7 +239,7 @@ Phases, in order; any failure exits non-zero:
      FusedHybridEngine over int8 KV with the default config (M 64, a
      61-node tree, chains of 40) and phase 5's cache buckets, its harvest
      warm (a random top-8 for every token, the oracle's own along request
-     a's path), three requests of 128 new tokens, each against
+     a's path), three requests of 72 new tokens, each against
      ArBaseline(block_size=64) by phase 9's judge; (c) on that engine, from
      one saved harvest, one sampled request per accept mode run twice with
      its seed (equal), and point-mass rejection and nucleus requests equal
@@ -284,10 +302,11 @@ Phases, in order; any failure exits non-zero:
      engine called directly; the three CLI sessions and the server start
      together;
  16. training and evaluation (after 15): ``evaluation.accept_demo.run``
-     at the reference bench's sizes (400 steps, vocabulary 64, 48 new
-     tokens): the LM loss falls below half its first value and the
-     trained EAGLE-2 net accepts more than a random one, each drafter's
-     mean accept printed beside the reference's published lengths;
+     at the reference bench's sizes (400 steps, vocabulary 64; 32 new
+     tokens where the reference runs 48): the LM loss falls below half
+     its first value and the trained EAGLE-2 net accepts more than a
+     random one, each drafter's mean accept printed beside the
+     reference's published lengths;
      ``evaluation.specbench_demo.run`` (300 steps, 1 question per task,
      64 new tokens): every engine equal to its block oracle, no errors;
      ``training.train_eagle`` against phase 15's llama_1b for 30 steps of
@@ -300,7 +319,7 @@ Phases, in order; any failure exits non-zero:
      quantize_weight4 and freed before the next (about 23.6 GB; the embed
      bf16, the router bf16); FusedSamEngine at M 16 over int8 KV, cache
      buckets 256-768 over 1024 slots, with the oracle's own outputs as
-     its corpus, serves phase 5's three prompts with 32 new tokens each,
+     its corpus, serves phase 5's three prompts with 18 new tokens each,
      every request equal to ArBaseline(block_size=16) bit for bit; K3 129
      launches per forward (wq/wk/wv/wo and the head: the expert products
      stay plain matmuls over dequantized stacks, as in JAX), the int8 mode
@@ -311,14 +330,26 @@ Phases, in order; any failure exits non-zero:
      by CUDA events between the expert side (dequantization, products)
      and the rest (K3, the int8 mode and its share), beside the bytes
      bound from the weights' measured bytes;
+ 17b. the reference bench's model_families section (after 17): llama_1b
+     as a Qwen2 trunk (q/k/v biases, rope theta 1e6) and as an MoE trunk
+     (intermediate 1408, 8 experts, top 2), bf16 from seed 0, the bench's
+     FusedSamConfig(steps_per_call=256, corpus_capacity=4096), prefill
+     bucket 128 over 1024 slots, the section's four prompts of 96 tokens
+     from default_rng(42), 128 new tokens each: a corpus-free engine's
+     trajectories on the two overlap prompts are the corpus engine's
+     corpus; the corpus engine serves all four, the two overlap streams
+     equal to their trajectories and every stream equal to
+     ArBaseline(block_size=60) bit for bit, its device loop replaying;
+     the verify kernel 22 per forward, no other kernel;
  18. item 15's corpus tooling on phase 15's directory (after 17):
      ``tools.gen_corpus --model-dir`` over 4 token-row instructions, 32 new
      tokens at batch 4 (each row its prompt and 32 tokens);
      ``tools.build_sam`` of its output; ``python3 -m samd_tpu_torch.cli
      --engine samd --sam`` with one reply equal to
-     ArBaseline(block_size=60); ``evaluation.parity`` over a 2^20-token
-     corpus on the card, windowed (match and end agreement 1.0) and
-     indexed (never a longer match), its agreement rates printed;
+     ArBaseline(block_size=60), the subprocess running while
+     ``evaluation.parity`` runs over a 2^20-token corpus on the card,
+     windowed (match and end agreement 1.0) and indexed (never a longer
+     match), its agreement rates printed;
      ``python3 -m samd_tpu_torch.evaluation.launch --num-workers 2`` on
      the card, the merged answers sorted and each equal to the engine
      called in this process;
@@ -326,19 +357,19 @@ Phases, in order; any failure exits non-zero:
      over NCCL in this process, ``make_mesh(1)``: llama_7b int4 over bf16
      KV in ``SamdEngine(mesh=)`` with the SAM drafter (sam_only, the
      static corpus SAM of the oracle's outputs cut to one branch: chains,
-     M 16) on phase 5's three prompts with 64 new tokens, each equal bit
+     M 16) on phase 5's three prompts with 24 new tokens, each equal bit
      for bit to the unsharded engine and to ArBaseline(block_size=16)
      unsharded and on the mesh; tok/s, and the median, least and greatest
      tok/s ratio to the unsharded engine over two rounds of the two in
      turn; then two ranks sharing the card over
      gloo, two processes of this script (``--mesh-rank``, the kernels
-     built before): (a) llama_7b int4 at tp 2 (int4 whole on each rank,
+     built before, started before (1) and waiting for its references): (a) llama_7b int4 at tp 2 (int4 whole on each rank,
      as in the reference), each request equal bit for bit to the
      unsharded engine, and the collectives' share of one T 16 forward
      (CUDA events around it, each collective synchronized and timed); (d)
      ``int4_matmul_tp`` on each rank's w_gate slab at R 16 and 192, the
      gathered columns within K3's bound of K3 on the whole weight and of
-     the plain version; (b) llama_1b bf16 at tp 2 (16 new tokens a
+     the plain version; (b) llama_1b bf16 at tp 2 (12 new tokens a
      request), each request equal to
      ArBaseline(block_size=16) on the mesh bit for bit and to the
      unsharded engine up to a near-tie (``near_tie_rule`` on the gaps in
@@ -531,6 +562,15 @@ def check_kernels(card: str) -> dict:
               1024, cl, False) for cl in (200, 700)]
     late.append(("llama_13b T=128 prefill S=1024 (KH 40)", 128, 40, 40, 128,
                  1024, 0, True))
+    # phases 5d and 5e over bf16 KV, at M 16 and in the 128-row prefill
+    # bucket: qwen2_7b, 28 query heads over 4 KV heads (G 7: R = 112 rows
+    # over two 64-row tiles, the last partial; R = 896 at T 128), and
+    # llama3_8b, 32 over 8 (G 4)
+    for tag, NH, KH in (("qwen2_7b", 28, 4), ("llama3_8b", 32, 8)):
+        late += [(f"{tag} T=16 cache_len={cl} (KH {KH}, G {NH // KH})", 16,
+                  NH, KH, 128, 1024, cl, False) for cl in (200, 700)]
+        late.append((f"{tag} T=128 prefill S=1024 (KH {KH}, G {NH // KH})",
+                     128, NH, KH, 128, 1024, 0, True))
     # f32 only: the trained tiny models of phase 16 (NH 4, KH 2, D 16):
     # the host block 40, the fused block 60, the prefill buckets 32 and
     # 64 and the block-1 baseline, over the demos' caches of 256 and 512
@@ -582,7 +622,8 @@ def check_kernels(card: str) -> dict:
                     dname == "bfloat16" and (label.startswith("llama_1b")
                                              or "S=128" in label
                                              or "KH 16" in label
-                                             or "KH 40" in label)):
+                                             or "KH 40" in label
+                                             or "G " in label)):
                 max_err_main = max(max_err_main, err)   # on paths
             if dname == "bfloat16" and label == main_label:
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -741,7 +782,22 @@ def check_int4(card: str) -> dict:
               ("13b w_down", 13824, 5120, torch.bfloat16,
                (16, 128, 192, 256)),
               ("13b lm_head", 5120, 32000, torch.float32,
-               (16, 128, 192, 256))]
+               (16, 128, 192, 256)),
+              # qwen2_7b (phase 5d int4) and llama3_8b (5e) at their block,
+              # their prefill bucket and R 192 for the row checks: k ranges
+              # of 224 and 1184 k16 steps (3584 -> 512 cut by k_splits into
+              # slices that do not divide it), and heads of 152064 and
+              # 128256 columns (llama3_8b's other shapes are llama_7b's and
+              # mixtral_8x7b's)
+              *((name, IN, OUT, dt, (16, 128, 192)) for name, IN, OUT, dt in (
+                  ("qwen2 wq/wo", 3584, 3584, torch.bfloat16),
+                  ("qwen2 wk/wv", 3584, 512, torch.bfloat16),
+                  ("qwen2 w_gate/w_up", 3584, 18944, torch.bfloat16),
+                  ("qwen2 w_down", 18944, 3584, torch.bfloat16),
+                  ("qwen2 lm_head", 3584, 152064, torch.float32),
+                  ("llama3 w_gate/w_up", 4096, 14336, torch.bfloat16),
+                  ("llama3 w_down", 14336, 4096, torch.bfloat16),
+                  ("llama3 lm_head", 4096, 128256, torch.float32)))]
     main_label = "w_gate/w_up R=16"
     row, max_err = None, 0.0
     gen = torch.Generator(device="cuda")
@@ -1627,7 +1683,7 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
     modes = {"rejection": dict(temperature=0.8, top_k=50),
              "typical": dict(temperature=0.8),
              "nucleus": dict(temperature=0.8, top_p=0.9)}
-    new = 64
+    new = 64            # above M 60: the sampled signature's graph replays
     for mode, knobs in modes.items():
         gen = GenerationConfig(max_new_tokens=new, max_cache_len=2048,
                                greedy=False, seed=17, accept_mode=mode,
@@ -1648,6 +1704,8 @@ def sampled_1b(card, cfg, engine, prompt) -> None:
             c = engine.generate(prompt, gen)
         fail_if(c != a, f"llama_1b sampled {mode}: the per-step route gave "
                 "other tokens or steps than the graph route")
+        fail_if(not loop.replays, f"llama_1b sampled {mode}: no step was "
+                "replayed from a graph")
         fail_if(a.decode_tokens != new or not all(
             0 <= t < cfg.vocab_size for t in a.output_ids),
                 f"llama_1b sampled {mode}: malformed output")
@@ -2021,14 +2079,15 @@ def main_path_7b(card: str, cfg, params) -> tuple:
 
 
 def quantized_stream(card, label: str, key: str, cfg, params,
-                     new: int) -> tuple:
-    """Phases 5b and 5c: the reference's 7B/13B single-stream section
+                     int4: bool) -> None:
+    """Phases 5b-5e: the reference's 7B/13B single-stream section
     (bench.py:448-451, :717-720) over bf16 KV: FusedSamEngine(n_predicts=15,
     corpus_capacity=4096, cache buckets 256-768) over 1024 slots, the
     corpus engine on the oracle's output of prompt b, on phase 5's prompts
-    with ``new`` tokens each, every request equal to
-    ArBaseline(block_size=16) bit for bit.  Returns the path's launch
-    counts, its forwards and its forwards of T <= 128."""
+    with 64 new tokens each, every request equal to
+    ArBaseline(block_size=16) bit for bit; the verify kernel once a layer
+    per forward of T <= 128 and, on ``int4`` weights, K3 7 * L + 1 times
+    per forward, no other kernel."""
     import torch
 
     from samd_tpu_torch.config import GenerationConfig
@@ -2040,7 +2099,7 @@ def quantized_stream(card, label: str, key: str, cfg, params,
     fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
                         cache_buckets=(256, 384, 512, 768))
     M, S = fc.block, 1024
-    gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
+    gen = GenerationConfig(max_new_tokens=64, max_cache_len=S)
     prompts = phase5_prompts(cfg.vocab_size)
     oracle = ArBaseline(cfg, params, max_cache_len=S, eos_token_id=-1,
                         block_size=M)
@@ -2068,8 +2127,19 @@ def quantized_stream(card, label: str, key: str, cfg, params,
     print(f"{label}: peak allocated {peak:.2f} GiB since the phase began "
           f"[{card}]", flush=True)
     note(key, peak_gib=peak)
-    return (counts, sum(1 + steps for _, steps in done),
-            sum(steps + (n <= 128) for n, steps in done))
+    L = cfg.num_layers
+    forwards = sum(1 + steps for _, steps in done)
+    short = sum(steps + (n <= 128) for n, steps in done)
+    k3 = (7 * L + 1) * forwards if int4 else 0
+    want = {"flash_block_attention": L * short,
+            "flash_block_attention_int8kv": 0, "int4_matmul": k3,
+            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
+    fail_if(counts != want or not short, f"{label}: launch counts {counts},"
+            f" expected {want}")
+    print(f"{label} path: int4_matmul launches {k3} = "
+          f"{7 * L + 1 if int4 else 0} x {forwards} forwards; verify "
+          f"launches {L * short} = {L} x {short} forwards of T <= 128 "
+          f"[{card}]", flush=True)
 
 
 def fp8_from_int8(base) -> dict:
@@ -2121,35 +2191,30 @@ def main_path_7b_int8_fp8(card: str) -> None:
             print(f"llama_7b fp8 weights: the int8 base requantized to "
                   f"float8_e4m3fn layer by layer in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-        label = f"llama_7b {dname} bf16-KV"
-        counts, forwards, short = quantized_stream(
-            card, label, f"phase5b_llama_7b_{dname}_fused_sam", cfg, params,
-            64)
-        only_counts(label, counts, "flash_block_attention",
-                    cfg.num_layers * short)
-        print(f"{label} path: verify launches "
-              f"{counts['flash_block_attention']} = {cfg.num_layers} x "
-              f"{short} forwards of T <= 128 ({forwards} forwards; "
-              f"{dname} products are dequantize-then-matmul, as in the "
-              f"reference) [{card}]", flush=True)
+        # the int8/fp8 products dequantize, then multiply, as in the
+        # reference: no K3
+        quantized_stream(card, f"llama_7b {dname} bf16-KV",
+                         f"phase5b_llama_7b_{dname}_fused_sam", cfg, params,
+                         False)
     del params
     gc.collect()
 
 
-def main_path_13b(card: str) -> None:
-    """Phase 5c: llama_13b on packed-int4 weights requantized from an int8
-    base drawn on the card from seed 0, bf16 KV (the reference's 13b_int4,
-    bench.py:680-756).  The reference skips the section when memory is
-    short; here the phase fails instead."""
+def main_path_int4(card: str, name: str, key: str) -> None:
+    """Phases 5c and 5e: the preset ``name`` (llama_13b, the reference's
+    13b_int4, bench.py:680-756; llama3_8b) on packed-int4 weights
+    requantized from an int8 base drawn on the card from seed 0, bf16 KV,
+    through ``quantized_stream``.  The reference skips its 13B section
+    when memory is short; here the phase fails instead."""
     import torch
 
-    from samd_tpu_torch.models import llama_13b
+    from samd_tpu_torch import models
     from samd_tpu_torch.ops.quant import int4_from_int8_params
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = llama_13b()
+    cfg = getattr(models, name)()
     fail_if(cfg.int4_impl != "kernel" or cfg.attention_impl != "flash"
-            or cfg.kv_quant, "llama_13b: the kernels are not the default "
+            or cfg.kv_quant, f"{name}: the kernels are not the default "
             "routes")
     t0 = time.perf_counter()
     base = int8_base(cfg)
@@ -2157,25 +2222,141 @@ def main_path_13b(card: str) -> None:
     del base
     gc.collect()
     torch.cuda.synchronize()
-    print(f"llama_13b weights: int8 base drawn on the card and requantized "
-          f"to packed int4 in {time.perf_counter() - t0:.1f} s", flush=True)
-    label = "llama_13b int4 bf16-KV"
-    counts, forwards, short = quantized_stream(
-        card, label, "phase5c_llama_13b_int4_fused_sam", cfg, params, 64)
-    L = cfg.num_layers
-    want = {"flash_block_attention": L * short,
-            "flash_block_attention_int8kv": 0,
-            "int4_matmul": (7 * L + 1) * forwards,
-            "paged_block_attention": 0, "paged_block_attention_int8kv": 0}
-    fail_if(counts != want or not short, f"{label}: launch counts {counts},"
-            f" expected {want} ({7 * L + 1} int4 launches per forward, {L} "
-            "verify launches per forward of T <= 128)")
-    print(f"{label} path: int4_matmul launches {counts['int4_matmul']} = "
-          f"{7 * L + 1} x {forwards} forwards; verify launches "
-          f"{counts['flash_block_attention']} = {L} x {short} forwards of "
-          f"T <= 128 [{card}]", flush=True)
+    print(f"{name} weights: int8 base drawn on the card and requantized "
+          f"to packed int4 in {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    quantized_stream(card, f"{name} int4 bf16-KV", key, cfg, params, True)
     del params
     gc.collect()
+
+
+def main_path_qwen2(card: str) -> None:
+    """Phase 5d: qwen2_7b at full width (28/4 heads, q/k/v biases, rope
+    theta 1e6, a 152064-token vocabulary), bf16 weights drawn on the card
+    from seed 0 by ``init_params``, then the same tree quantized to packed
+    int4 by ``quantize_llama_params`` (the reference's route for a tree
+    with biases: its quantized random init draws none), the biases kept
+    in bf16 and the bf16 tree freed; phase 5b's engines and prompts over
+    bf16 KV on each."""
+    import torch
+
+    from samd_tpu_torch.models import init_params, qwen2_7b
+    from samd_tpu_torch.ops.quant import (INT4, Int4Tensor,
+                                          quantize_llama_params,
+                                          quantized_bytes)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = qwen2_7b()
+    fail_if(cfg.int4_impl != "kernel" or cfg.attention_impl != "flash"
+            or cfg.kv_quant or not cfg.attn_bias or cfg.kv_groups != 7,
+            "qwen2_7b: not the preset the phase serves")
+    t0 = time.perf_counter()
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(0)
+    params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+    torch.cuda.synchronize()
+    print(f"qwen2_7b weights: bf16 drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{quantized_bytes(params) / 1e9:.3f} GB; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    quantized_stream(card, "qwen2_7b bf16 bf16-KV",
+                     "phase5d_qwen2_7b_bf16_fused_sam", cfg, params, False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    biases = {n: params["layers"][n] for n in ("bq", "bk", "bv")}
+    q4 = quantize_llama_params(params, dtype=INT4)
+    fail_if(any(q4["layers"][n] is not b or b.dtype != torch.bfloat16
+                for n, b in biases.items())
+            or not isinstance(q4["lm_head"], Int4Tensor),
+            "qwen2_7b int4: the biases were not kept in bf16")
+    del params, biases
+    gc.collect()
+    torch.cuda.synchronize()
+    print(f"qwen2_7b int4 weights: the bf16 tree quantized whole in "
+          f"{time.perf_counter() - t0:.1f} s, then freed; "
+          f"{quantized_bytes(q4) / 1e9:.3f} GB; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB while "
+          f"quantizing [{card}]", flush=True)
+    quantized_stream(card, "qwen2_7b int4 bf16-KV",
+                     "phase5d_qwen2_7b_int4_fused_sam", cfg, q4, True)
+    del q4
+    gc.collect()
+
+
+def main_path_families(card: str) -> None:
+    """Phase 17b: the reference bench's ``model_families`` section
+    (bench.py:1875-1925) at its own width and settings (bench.py:101-126):
+    llama_1b as a Qwen2 trunk (q/k/v biases, rope theta 1e6) and as an MoE
+    trunk (intermediate 1408, 8 experts, top 2), bf16 from seed 0,
+    ``FusedSamConfig(steps_per_call=256, corpus_capacity=4096)``, prefill
+    bucket 128 over 1024 slots, the section's four prompts of 96 tokens from
+    ``default_rng(42)`` (``all_prompts``: two overlap, two fresh) with 128
+    new tokens each.  A corpus-free engine's trajectories on the overlap
+    prompts become the corpus; the corpus engine serves all four through
+    ``serve``, which also checks the device loop: the overlap streams
+    must equal those trajectories (the reference's
+    ``overlap_trajectory_equal``) and every stream
+    ``ArBaseline(block_size=60)``'s, bit for bit; the verify kernel once a
+    layer per forward, no other kernel."""
+    import torch
+
+    from samd_tpu_torch.config import GenerationConfig
+    from samd_tpu_torch.engine import ArBaseline
+    from samd_tpu_torch.fused_sam import FusedSamConfig, FusedSamEngine
+    from samd_tpu_torch.models import init_params, llama_1b
+
+    base = llama_1b()
+    S = 1024
+    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    warm = GenerationConfig(max_new_tokens=8, max_cache_len=S)
+    rng = np.random.default_rng(42)
+    prompts = {f"{kind}_{i}": rng.integers(3, base.vocab_size,
+                                           size=96).tolist()
+               for kind in ("overlap", "fresh") for i in range(2)}
+    overlap = [n for n in prompts if n.startswith("overlap")]
+    warm_prompt = prompts["overlap_0"][:64] + prompts["overlap_0"][:32]
+    fc = FusedSamConfig(steps_per_call=256, corpus_capacity=4096)
+    kw = dict(max_cache_len=S, eos_token_id=-1, prefill_buckets=(128,))
+    for fam, cfg in (
+            ("qwen2", dataclasses.replace(base, attn_bias=True,
+                                          rope_theta=1e6)),
+            ("moe", dataclasses.replace(base, intermediate_size=1408,
+                                        num_experts=8,
+                                        num_experts_per_tok=2))):
+        gen_w = torch.Generator(device="cuda")
+        gen_w.manual_seed(0)
+        params = init_params(cfg, gen_w, scale=0.02, device="cuda")
+        oracle = ArBaseline(cfg, params, block_size=fc.block, **kw)
+        refs = {n: oracle.generate(p, gen) for n, p in prompts.items()}
+        del oracle
+        probe = FusedSamEngine(cfg, params, fc, **kw)
+        probe.generate(warm_prompt, warm)
+        corpus = []
+        for n in overlap:
+            trajectory = probe.generate(prompts[n], gen).output_ids
+            fail_if(trajectory != refs[n].output_ids, f"{fam} family {n}: "
+                    "the corpus-free engine differs from the oracle")
+            corpus += trajectory + [0]
+        eng = FusedSamEngine(cfg, params, fc, corpus=corpus, **kw)
+        eng.generate(warm_prompt, warm)
+        torch.cuda.synchronize()
+        reset_counts()                          # the path starts here
+        done = serve(card, f"{fam} family", {n: eng for n in prompts},
+                     prompts, refs, gen, cfg.vocab_size,
+                     f"phase17b_{fam}_fused_sam")
+        counts = read_counts()                  # the path ends here
+        forwards = sum(1 + steps for _, steps in done)
+        only_counts(f"{fam} family", counts, "flash_block_attention",
+                    cfg.num_layers * forwards)
+        print(f"{fam} family: both overlap streams equal to their "
+              f"corpus-free trajectories, all four streams to the oracle; "
+              f"verify launches "
+              f"{counts['flash_block_attention']} = {cfg.num_layers} x "
+              f"{forwards} forwards [{card}]", flush=True)
+        del params, probe, eng
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def serve_batched(engine, requests, vocab, gens=None):
@@ -3431,8 +3612,9 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
     # (c) sampled: each tree accept mode twice with its seed; point-mass
     # requests equal the same engine's greedy run
     p = prompts["b_repetitive"]
-    short_gen = dict(max_new_tokens=64, max_cache_len=S)
-    n_sampled = 16      # fewer than the greedy runs: the script's time
+    n_point = 32        # fewer than the greedy runs: the script's time
+    short_gen = dict(max_new_tokens=n_point, max_cache_len=S)
+    n_sampled = 8
     for mode, knobs in (("rejection", dict(top_k=50)), ("typical", {}),
                         ("nucleus", dict(top_p=0.9))):
         g = GenerationConfig(greedy=False, temperature=0.8, seed=11,
@@ -3464,7 +3646,7 @@ def main_path_7b_host(card: str, cfg, params) -> dict:
         fail_if(forced.output_ids != greedy_out.output_ids,
                 f"llama_7b host point-mass {label}: differs from the same "
                 "engine's greedy run")
-        ref = refs[name].output_ids[:len(prompts[name]) + 64]
+        ref = refs[name].output_ids[:len(prompts[name]) + n_point]
         verdict = oracle_verdict(
             f"llama_7b host point-mass {label}", prompts[name], greedy_out,
             SimpleNamespace(output_ids=ref), g_log.chains, ref_rows[name],
@@ -3917,6 +4099,12 @@ def judge_all(card, label, cases, cfg, params, noise, key: str) -> list:
     return verdicts
 
 
+# new tokens a request of phases 11a and 13a (13a is judged against 11a's
+# oracle rows): above M 64, so a request's first segment runs two steps and
+# its step graph is captured
+HYBRID_NEW = 72
+
+
 def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
     """Phase 11: llama_7b int4 through the fused SAM[Token Recycle] hybrid:
     (a) FusedHybridEngine over int8 KV, (c) sampled requests; (b) is
@@ -3935,8 +4123,8 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
     qcfg = dataclasses.replace(cfg, kv_quant=True)
     hc = FusedHybridConfig(corpus_capacity=4096,
                            cache_buckets=(256, 384, 512, 768))
-    M, S, new = hc.block, 1024, 128
-    gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
+    M, S = hc.block, 1024
+    gen = GenerationConfig(max_new_tokens=HYBRID_NEW, max_cache_len=S)
     rng = np.random.default_rng(21)
     prompts = {
         "a_random_200": rng.integers(3, V, size=200).tolist(),
@@ -4021,7 +4209,7 @@ def main_path_7b_hybrid(card: str, cfg, params) -> tuple:
         eng.harvests.copy_(saved[0])
         eng.seens.copy_(saved[1])
         return eng.generate(p, GenerationConfig(     # the script's time
-            max_new_tokens=16, max_cache_len=S, **kw)).output_ids
+            max_new_tokens=8, max_cache_len=S, **kw)).output_ids
 
     for i, (mode, knobs) in enumerate((
             ("rejection", dict(temperature=0.8, top_k=50)),
@@ -4258,7 +4446,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
     net = eagle_net_7b(cfg)
     prompts, refs, ref_rows, noise = single
     hc = FusedHybridEagleConfig(corpus_capacity=4096)
-    gen = GenerationConfig(max_new_tokens=128, max_cache_len=S)
+    gen = GenerationConfig(max_new_tokens=HYBRID_NEW, max_cache_len=S)
     eng = FusedHybridEagleEngine(qcfg, params, hc, net_params=net,
                                  max_cache_len=S, eos_token_id=-1)
     own = FusedHybridEagleEngine(
@@ -4324,7 +4512,7 @@ def main_path_7b_eagle(card, cfg, params, single, paged, requests) -> None:
 
     def run(**kw):
         return eng.generate(p, GenerationConfig(     # the script's time
-            max_new_tokens=16, max_cache_len=S, **kw)).output_ids
+            max_new_tokens=8, max_cache_len=S, **kw)).output_ids
 
     for i, (mode, knobs) in enumerate((
             ("rejection", dict(temperature=0.8, top_k=50)),
@@ -5167,6 +5355,9 @@ def same_tree(label, got, want) -> None:
                     f"{label}: {k} differs")
 
 
+CLI_NEW = 12            # new tokens a reply of phase 15's CLI sessions
+
+
 def cli_session(model_dir: str, flags: list, turns: list, save: str):
     """Drive ``python3 -m samd_tpu_torch.cli --model DIR`` with stdin
     piped: two turns, ``!!regen``, ``!!save``, ``!!reset``, ``!!load``,
@@ -5178,7 +5369,8 @@ def cli_session(model_dir: str, flags: list, turns: list, save: str):
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "samd_tpu_torch.cli", "--model", model_dir,
-         "--max-new-tokens", "48", "--max-cache-len", "1024", *flags],
+         "--max-new-tokens", str(CLI_NEW), "--max-cache-len", "1024",
+         *flags],
         input=script, capture_output=True, text=True, timeout=600, cwd=ROOT)
     wall = time.perf_counter() - t0
     fail_if(r.returncode != 0, f"cli {flags}: exit {r.returncode}: "
@@ -5256,7 +5448,7 @@ def main_path_1b_disk(card: str, d: str):
     rng = np.random.default_rng(151)
     V = cfg.vocab_size
     turns = [rng.integers(3, V, size=n).tolist() for n in (64, 32, 24)]
-    gen = GenerationConfig(max_new_tokens=48, max_cache_len=1024)
+    gen = GenerationConfig(max_new_tokens=CLI_NEW, max_cache_len=1024)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -5291,7 +5483,8 @@ def main_path_1b_disk(card: str, d: str):
                                          [turns[1], replies[1]]],
                         f"{label}: the saved conversation differs")
             args = cli.parse_args(["--model", model_dir, "--max-new-tokens",
-                                   "48", "--max-cache-len", "1024", *flags])
+                                   str(CLI_NEW), "--max-cache-len", "1024",
+                                   *flags])
             engine, _, eos = cli.build_engine(args)
             fail_if(eos != 2, f"{label}: end token {eos}, config.json says 2")
             M = engine.samd_cfg.max_predicts if flags[1] == "samd" \
@@ -5522,7 +5715,7 @@ def main_path_training(card: str, cfg, params) -> dict:
     reset_counts()                              # the path starts here
     t0 = time.perf_counter()
     with PathProbe() as cap:
-        demo = accept_demo.run(steps=400, vocab=64, new_tokens=48)
+        demo = accept_demo.run(steps=400, vocab=64, new_tokens=32)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()                      # the path ends here
@@ -5765,9 +5958,10 @@ def main_path_mixtral(card: str) -> None:
     note("phase17_mixtral_8x7b_int4", param_count=param_count(params))
     fc = FusedSamConfig(n_predicts=15, corpus_capacity=4096,
                         cache_buckets=(256, 384, 512, 768))
-    # 32 new tokens a request: the oracle's ~300 ms forwards take most of
-    # the phase, and the script has a time limit
-    M, S, new = fc.block, 1024, 32
+    # 18 new tokens a request: the oracle's ~300 ms forwards take most of
+    # the phase, and the script has a time limit; above M, so a request's
+    # first segment runs two steps and its step graph is captured
+    M, S, new = fc.block, 1024, 18
     gen = GenerationConfig(max_new_tokens=new, max_cache_len=S)
     prompts = phase5_prompts(cfg.vocab_size)
     stack = params["layers"]["w_gate"].layer(0)
@@ -5898,20 +6092,49 @@ def main_path_tools(card: str, d: str) -> None:
             f"against {stats}")
     print(f"build_sam: {stats} -> {os.path.basename(sam_path)}", flush=True)
 
-    # (c) the CLI's host engine drafting from that SAM
+    # (c) the CLI's host engine drafting from that SAM: a subprocess, run
+    # while (d) runs in this process
     prompt = prompts[0]
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "samd_tpu_torch.cli", "--model", model_dir,
-         "--engine", "samd", "--sam", sam_path, "--max-new-tokens", str(new),
-         "--max-cache-len", "1024"],
-        input=" ".join(map(str, prompt)) + "\n!!exit\n", capture_output=True,
-        text=True, timeout=600, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    fail_if(r.returncode != 0, f"cli --sam: exit {r.returncode}: "
-            f"{r.stderr[-3000:]}")
+    cli_in = os.path.join(d, "cli_sam_stdin.txt")
+    with open(cli_in, "w") as f:
+        f.write(" ".join(map(str, prompt)) + "\n!!exit\n")
+    t_cli = time.perf_counter()
+    with open(cli_in) as stdin:
+        cli_proc = subprocess.Popen(
+            [sys.executable, "-m", "samd_tpu_torch.cli", "--model",
+             model_dir, "--engine", "samd", "--sam", sam_path,
+             "--max-new-tokens", str(new), "--max-cache-len", "1024"],
+            stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=ROOT)
+    try:
+        # (d) retrieval parity over a 2^20-token corpus, on the card
+        for extra in ([], ["--indexed"]):
+            t0 = time.perf_counter()
+            rep = parity.main(["--corpus-size", str(1 << 20), "--steps",
+                               "100", *extra])
+            mode = rep["mode"]
+            fail_if(rep["device"] != "cuda"
+                    or rep["mean_match_delta_capped"] < 0
+                    or (mode == "windowed"
+                        and rep["match_and_end_agreement"] != 1.0),
+                    f"parity {mode}: {rep}")
+            print(f"parity {mode} over {rep['corpus_size']} tokens, "
+                  f"{rep['steps']} steps: match agreement "
+                  f"{rep['match_agreement']}, match and end "
+                  f"{rep['match_and_end_agreement']}, mean draft-length "
+                  f"delta {rep['mean_draft_len_delta']} in "
+                  f"{time.perf_counter() - t0:.2f} s (the CLI of (c) "
+                  f"beside it) [{card}]", flush=True)
+        cli_out, cli_err = cli_proc.communicate(timeout=600)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+    wall = time.perf_counter() - t_cli
+    fail_if(cli_proc.returncode != 0, f"cli --sam: exit "
+            f"{cli_proc.returncode}: {cli_err[-3000:]}")
     replies = [[int(t) for t in ln.split("ASSISTANT>")[1].split("USER>")[0]
-                .split()] for ln in r.stdout.splitlines()
+                .split()] for ln in cli_out.splitlines()
                if "ASSISTANT>" in ln]
     cfg, params = load_llama(model_dir, device="cuda")
     oracle = ArBaseline(cfg, params, max_cache_len=1024, eos_token_id=2,
@@ -5922,26 +6145,9 @@ def main_path_tools(card: str, d: str) -> None:
             f"cli --engine samd --sam: reply {replies} differs from "
             "ArBaseline(block_size=60)")
     print(f"cli --engine samd --sam: one reply of {len(replies[0])} tokens "
-          f"in {wall:.2f} s of subprocess, equal to ArBaseline(block_size="
-          f"60) bit for bit [{card}]", flush=True)
+          f"in {wall:.2f} s of subprocess (beside (d)), equal to "
+          f"ArBaseline(block_size=60) bit for bit [{card}]", flush=True)
     del oracle, params
-
-    # (d) retrieval parity over a 2^20-token corpus, on the card
-    for extra in ([], ["--indexed"]):
-        t0 = time.perf_counter()
-        rep = parity.main(["--corpus-size", str(1 << 20), "--steps", "200",
-                           *extra])
-        mode = rep["mode"]
-        fail_if(rep["device"] != "cuda" or rep["mean_match_delta_capped"] < 0
-                or (mode == "windowed"
-                    and rep["match_and_end_agreement"] != 1.0),
-                f"parity {mode}: {rep}")
-        print(f"parity {mode} over {rep['corpus_size']} tokens, "
-              f"{rep['steps']} steps: match agreement "
-              f"{rep['match_agreement']}, match and end "
-              f"{rep['match_and_end_agreement']}, mean draft-length delta "
-              f"{rep['mean_draft_len_delta']} in "
-              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
 
     # (e) two workers on the card, their merged answers against the engine
     # called in this process
@@ -5996,8 +6202,8 @@ def main_path_tools(card: str, d: str) -> None:
 # Phase 19: the mesh (parallel/, SamdEngine(mesh=), int4_matmul_tp)
 # ----------------------------------------------------------------------
 
-MESH_NEW = 64           # new tokens per llama_7b request of phase 19
-MESH_NEW_1B = 16        # per llama_1b request (its ranks' steps cost most)
+MESH_NEW = 24           # new tokens per llama_7b request of phase 19
+MESH_NEW_1B = 12        # per llama_1b request (its ranks' steps cost most)
 MESH_M = 16             # the engines' block
 MESH_ROUNDS = 2         # world-of-one timing rounds, unsharded and mesh
 
@@ -6233,15 +6439,19 @@ def main_path_mesh(card: str) -> dict:
     import torch
 
     t0 = time.perf_counter()
-    one = mesh_world_of_one(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    ref1 = mesh_1b_references(card)
-    t2 = time.perf_counter()
     d = tempfile.mkdtemp(prefix=".smoke_mesh_", dir=ROOT)
+    # the ranks start now: they import while (1) and the references run
+    # here, then wait for refs.json before they touch the card
+    procs, logs = start_mesh_ranks(d)
     try:
-        with open(os.path.join(d, "refs.json"), "w") as f:
+        one = mesh_world_of_one(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ref1 = mesh_1b_references(card)
+        t2 = time.perf_counter()
+        tmp = os.path.join(d, "refs.json.tmp")
+        with open(tmp, "w") as f:
             json.dump({"prompts": one["prompts"], "corpus7": one["corpus"],
                        "corpus1": [ref1["refs"][n] for n in ref1["prompts"]],
                        "refs1": {n: ref1["refs"][n] for n in ref1["prompts"]},
@@ -6249,8 +6459,15 @@ def main_path_mesh(card: str) -> dict:
                        "sp_tokens": ref1["sp_tokens"]}, f)
         gc.collect()
         torch.cuda.empty_cache()
-        reports = run_mesh_ranks(d, card)
+        os.replace(tmp, os.path.join(d, "refs.json"))
+        reports = finish_mesh_ranks(d, card, procs, logs)
     finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
         shutil.rmtree(d, ignore_errors=True)
     print(f"phase 19 walls: world of one {t1 - t0:.1f} s, llama_1b "
           f"references {t2 - t1:.1f} s, the two ranks "
@@ -6312,16 +6529,22 @@ def main_path_mesh(card: str) -> dict:
     return total
 
 
-def run_mesh_ranks(d: str, card: str) -> dict:
-    """Two ranks sharing the card over gloo, as two processes of this
-    script (``--mesh-rank``); a rank that fails ends the other.  Returns
-    each rank's report."""
+def start_mesh_ranks(d: str) -> tuple:
+    """Start two ranks sharing the card over gloo, as two processes of this
+    script (``--mesh-rank``), each of which waits for ``d/refs.json``;
+    returns (processes, their log files)."""
     port = free_port()
     logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
          str(port), d], cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(2)]
+    return procs, logs
+
+
+def finish_mesh_ranks(d: str, card: str, procs, logs) -> dict:
+    """Wait for the ranks of ``start_mesh_ranks``; a rank that fails ends
+    the other.  Returns each rank's report."""
     deadline = time.monotonic() + 700
     try:
         while any(p.poll() is None for p in procs):
@@ -6375,6 +6598,12 @@ def mesh_rank(rank: int, port: int, d: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    path = os.path.join(d, "refs.json")      # written once phase 19's
+    deadline = time.monotonic() + 900       # process has its references
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"rank {rank}: no {path}")
+        time.sleep(0.2)
     t0 = time.perf_counter()
 
     def report(**kw):
@@ -6382,7 +6611,7 @@ def mesh_rank(rank: int, port: int, d: str) -> int:
         print(f"{sorted(kw)} reported at {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-    with open(os.path.join(d, "refs.json")) as f:
+    with open(path) as f:
         refs = json.load(f)
     prompts = refs["prompts"]
     init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
@@ -6623,8 +6852,8 @@ def main() -> int:
     EMITTER.append(BenchEmitter(DETAIL, os.path.join(
         ROOT, "chiprun_out", "chip_smoke_detail.json")))
     # phases 4 to 19: the paths, each with its counts read on its own and
-    # summed into TOTALS (4b after 4; 5b and 5c after 13, once the 7B int4
-    # weights are freed)
+    # summed into TOTALS (4b after 4; 5b to 5e after 13, once the 7B int4
+    # weights are freed; 17b after 17)
     main_path_1b(card)
     lap("phase 4")
     gc.collect()
@@ -6668,8 +6897,16 @@ def main() -> int:
     lap("phase 5b")
     gc.collect()
     torch.cuda.empty_cache()
-    main_path_13b(card)
+    main_path_int4(card, "llama_13b", "phase5c_llama_13b_int4_fused_sam")
     lap("phase 5c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_qwen2(card)
+    lap("phase 5d")
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path_int4(card, "llama3_8b", "phase5e_llama3_8b_int4_fused_sam")
+    lap("phase 5e")
     gc.collect()
     torch.cuda.empty_cache()
     main_path_1b_batched(card)
@@ -6703,6 +6940,10 @@ def main() -> int:
         for name, err in main_path_mixtral(card).items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
         lap("phase 17")
+        gc.collect()
+        torch.cuda.empty_cache()
+        main_path_families(card)
+        lap("phase 17b")
         gc.collect()
         torch.cuda.empty_cache()
         main_path_tools(card, d)
